@@ -12,11 +12,11 @@ kernel.  Weights are random, from seed 0.  Needs a GPU and ``nvcc``; any phase
 that fails ends the run with a non-zero exit code.
 
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``,
-``paper_flow``, ``serve``, then ``{"kernels": [...]}`` (per kernel: launches
-on the served path, error against the plain version, time, the plain
-version's and one library call's time, and the least time the card could
-take), the card's name and power limit as ``nvidia-smi`` gives them, and last
-``{"ok": true, "device": {...}}``.
+``paper_flow``, ``serve`` (with a ``torch.profiler`` pass over a short run),
+then ``{"kernels": [...]}`` (per kernel: launches on the served path, error
+against the plain version, time, the plain version's and one library call's
+time, and the least time the card could take), the card's name and power
+limit as ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -276,6 +276,42 @@ def paper_flow(torch, cfg, ops, systolic_mac_plain):
             "energy_ratio_vs_nominal": ratio, "seconds": seconds}
 
 
+def profile_serve(torch, serve_mod, params):
+    """A short `reference` run under ``torch.profiler``: the device time of
+    a model step by kernel, and the share of the run's wall time in which
+    the device ran a kernel.  Tracing slows the host, so the share is a
+    lower bound of an untraced run's.  Where the profiler sees no device
+    time, the numbers are null (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = serve_mod.parse_args(
+        ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+         "--requests", str(SLOTS), "--max-new", "3", "--backend",
+         "reference"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = serve_mod.run(args, params)
+        torch.cuda.synchronize()
+    # kernel rows only: an operator's row repeats its kernels' device time
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms, _ in rows)
+    steps = run.stats.model_steps
+    if device_ms <= 0:
+        return {"model_steps": steps, "device_ms_per_model_step": None,
+                "device_busy_share_traced": None, "top_kernels": None}
+    return {"model_steps": steps, "traced_wall_ms": 1e3 * run.wall_s,
+            "device_ms_per_model_step": device_ms / steps,
+            "device_busy_share_traced": device_ms / (1e3 * run.wall_s),
+            "kernels_per_model_step": sum(n for _, _, n in rows) / steps,
+            "top_kernels": [{"name": k[:64], "ms_per_model_step": ms / steps,
+                             "calls_per_model_step": n / steps}
+                            for k, ms, n in rows[:6]]}
+
+
 def serve(torch, cfg, serve_mod, model_api, param_count, use_backend,
           get_backend, systolic_mac):
     """The launcher's path at full width, ``backend="reference"``."""
@@ -337,6 +373,9 @@ def serve(torch, cfg, serve_mod, model_api, param_count, use_backend,
              for x, y in zip(a.out_tokens, b.out_tokens)]
     agree = sum(x == y for x, y in pairs) / len(pairs)
 
+    # ---- where a served step's time goes: a short profiled run
+    profile = profile_serve(torch, serve_mod, params)
+
     # ---- prefill logits of one prompt, reference against ideal
     toks = torch.as_tensor([run.requests[0].prompt], device="cuda")
     with use_backend(get_backend("reference")):
@@ -371,7 +410,8 @@ def serve(torch, cfg, serve_mod, model_api, param_count, use_backend,
         "ideal_model_step_ms": 1e3 * ideal.wall_s / ideal.stats.model_steps,
         "token_agreement_reference_vs_ideal": agree,
         "prefill_logits_max_err_vs_ideal": err,
-        "prefill_logits_max_err_limit": TOL_LOGITS * scale}
+        "prefill_logits_max_err_limit": TOL_LOGITS * scale,
+        "profile": profile}
 
 
 def main() -> int:
