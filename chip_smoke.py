@@ -13,7 +13,7 @@ that fails ends the run with a non-zero exit code.
 
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``,
 ``paper_flow``, ``serve`` (with a ``torch.profiler`` pass over a short run),
-then ``{"kernels": [...]}`` (per kernel: launches on the served path, error
+``total`` (the script's seconds), then ``{"kernels": [...]}`` (per kernel: launches on the served path, error
 against the plain version, time, the plain version's and one library call's
 time, and the least time the card could take), the card's name and power
 limit as ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
@@ -44,6 +44,11 @@ DECODE_M = SLOTS
 #: fall on the other side of one truncation step (2^-8 of its value)
 TOL_CLEAN = 1e-5
 TOL_CORRUPT = 2.5 * 2.0 ** -8
+
+
+def tol_corrupt(keep_bits: int) -> float:
+    """``TOL_CORRUPT`` for another number of kept mantissa bits."""
+    return max(TOL_CLEAN, 2.5 * 2.0 ** -keep_bits)
 #: prefill logits under `reference` against `ideal`, as a fraction of
 #: max|logits|: both accumulate in f32 and round to bf16 after every GEMM,
 #: from sums taken in another order, so single bf16 roundings (2^-8) flip and
@@ -92,10 +97,33 @@ def bound_ms(m: int, k: int, n: int, gm: int, gn: int, dtype_name: str):
     return 1e3 * max(t_bytes, t_ops), by
 
 
+def check_epilogue(torch, c, flags, block_m, block_n, keep_bits, what):
+    """The bit-cast-and-mask epilogue, exactly: every element of a flagged
+    cell has its low ``23 - keep_bits`` mantissa bits at zero, and every
+    clean cell holds at least one element with such a bit set (an f32 sum of
+    random products that was never masked).  A tolerance cannot see this: the
+    mask moves a value by less than ``2^-keep_bits`` of itself."""
+    low = (1 << (23 - keep_bits)) - 1
+    if low == 0:
+        return                                  # nothing to mask off
+    gm, gn = flags.shape
+    low_bits = (c.view(torch.int32) & low).reshape(gm, block_m, gn, block_n)
+    any_low = (low_bits != 0).any(dim=3).any(dim=1)         # (gm, gn)
+    fired = flags.bool()
+    if bool((any_low & fired).any()):
+        fail(f"{what}: a flagged cell keeps low mantissa bits "
+             f"(keep_bits={keep_bits})")
+    if bool((~any_low & ~fired).any()):
+        fail(f"{what}: a clean cell has its low mantissa bits masked "
+             f"(keep_bits={keep_bits})")
+
+
 def check_serving_shapes(torch, cfg, systolic_mac, systolic_mac_plain,
                          largest_common_block):
-    """Every (K, N) the model multiplies by, at M in {1, 4, 7}, bf16, nominal
-    rails, on the flag grid the reference backend uses."""
+    """Every (K, N) the model multiplies by, bf16, nominal rails, on the flag
+    grid the reference backend uses: checked at every M the served run can
+    give (1 to 7: a prompt's length in prefill, the slots in decode), timed
+    at M in {1, 4, 7}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -123,7 +151,7 @@ def check_serving_shapes(torch, cfg, systolic_mac, systolic_mac_plain,
                                 dtype=torch.float32).mul_(
                                     1 / math.sqrt(k)).to(torch.bfloat16)
             bs = [store[i] for i in range(copies)]
-        for m in (1, DECODE_M, 7):
+        for m in range(1, 8):
             a = torch.randn((m, k), generator=gen, device=dev,
                             dtype=torch.float32).to(torch.bfloat16)
             block = largest_common_block(m, n)
@@ -147,6 +175,14 @@ def check_serving_shapes(torch, cfg, systolic_mac, systolic_mac_plain,
                 fail(f"systolic_mac {name} M={m}: flags differ or fired at "
                      f"nominal rails")
 
+            entry = {
+                "weight": name, "M": m, "K": k, "N": n, "dtype": "bfloat16",
+                "b_transposed_view": transposed, "flag_cell": block,
+                "max_err": err, "max_err_limit": TOL_CLEAN * scale,
+                "flags_equal": flags_equal}
+            out.append(entry)
+            if m not in (1, DECODE_M, 7):
+                continue
             iters = 4 if transposed else 24
             t_kernel = time_ms(
                 lambda i: systolic_mac(a, bs[i], v_map, v_safe, block_m=block,
@@ -158,12 +194,8 @@ def check_serving_shapes(torch, cfg, systolic_mac, systolic_mac_plain,
                 copies, iters)
             t_lib = time_ms(lambda i: torch.matmul(a, bs[i]), copies, iters)
             t_bound, by = bound_ms(m, k, n, gm, gn, "bfloat16")
-            out.append({
-                "weight": name, "M": m, "K": k, "N": n, "dtype": "bfloat16",
-                "b_transposed_view": transposed, "flag_cell": block,
-                "launches_per_model_step": per_step,
-                "max_err": err, "max_err_limit": TOL_CLEAN * scale,
-                "flags_equal": flags_equal, "kernel_ms": t_kernel,
+            entry.update({
+                "launches_per_model_step": per_step, "kernel_ms": t_kernel,
                 "plain_ms": t_plain, "library_ms": t_lib,
                 "bound_ms": t_bound, "bound_by": by})
         del store, bs
@@ -171,8 +203,11 @@ def check_serving_shapes(torch, cfg, systolic_mac, systolic_mac_plain,
 
 
 def check_faulting(torch, systolic_mac, systolic_mac_plain):
-    """Rails drawn around the safe voltage: flags, the fused count and both
-    tolerances, in f32 and bf16."""
+    """Rails drawn around the safe voltage, in f32 and bf16, at 0, 8 and 23
+    kept mantissa bits: flags, the fused count, both tolerances, and the
+    epilogue bit for bit.  The kernel sums an element in one fixed order, so
+    its result at these rails must equal its own result at nominal rails
+    with exactly the flagged cells masked."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
@@ -180,52 +215,75 @@ def check_faulting(torch, systolic_mac, systolic_mac_plain):
     gm, gn = m // bm, n // bn
     out = []
     for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
         a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
         v_safe = torch.full((gm, gn), 0.85, device=dev)
         v_map = 0.85 + 0.1 * (torch.rand((gm, gn), generator=gen,
                                          device=dev) - 0.5)
-        c, flags, count = systolic_mac(a, b, v_map, v_safe, block_m=bm,
-                                       block_n=bn, count_flags=True)
-        torch.cuda.synchronize()
-        c_ref, flags_ref = systolic_mac_plain(a, b, v_map, v_safe,
-                                              block_m=bm, block_n=bn)
-        if not torch.equal(flags, flags_ref):
-            fail(f"systolic_mac faulting {dtype}: flag maps differ")
-        fired = int(flags.sum())
-        if int(count) != fired or not 0 < fired < gm * gn:
-            fail(f"systolic_mac faulting {dtype}: fused count {int(count)} "
-                 f"vs flags.sum() {fired} of {gm * gn} cells")
-        scale = float(c_ref.abs().max())
-        bad = flags_ref.bool().repeat_interleave(bm, 0).repeat_interleave(
-            bn, 1)
-        diff = (c - c_ref).abs()
-        err_clean = float(diff[~bad].max())
-        err_bad = float(diff[bad].max())
-        if not err_clean <= TOL_CLEAN * scale:
-            fail(f"systolic_mac faulting {dtype}: clean cells off by "
-                 f"{err_clean} (limit {TOL_CLEAN * scale})")
-        if not err_bad <= TOL_CORRUPT * scale:
-            fail(f"systolic_mac faulting {dtype}: corrupted cells off by "
-                 f"{err_bad} (limit {TOL_CORRUPT * scale})")
-        name = str(dtype).replace("torch.", "")
-        t_kernel = time_ms(
-            lambda i: systolic_mac(a, b, v_map, v_safe, block_m=bm,
-                                   block_n=bn, count_flags=True), 1, 24)
-        t_plain = time_ms(
-            lambda i: systolic_mac_plain(a, b, v_map, v_safe, block_m=bm,
-                                         block_n=bn), 1, 24)
-        t_lib = time_ms(lambda i: torch.matmul(a, b), 1, 24)
-        t_bound, by = bound_ms(m, k, n, gm, gn, name)
-        out.append({
-            "weight": "faulting", "M": m, "K": k, "N": n, "dtype": name,
-            "flag_cell": [bm, bn], "fired": fired, "flags_equal": True,
-            "count_equals_flag_sum": True,
-            "max_err_clean": err_clean, "max_err_clean_limit":
-            TOL_CLEAN * scale, "max_err_corrupt": err_bad,
-            "max_err_corrupt_limit": TOL_CORRUPT * scale,
-            "kernel_ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
-            "bound_ms": t_bound, "bound_by": by})
+        c_nominal, flags_nominal = systolic_mac(
+            a, b, torch.ones_like(v_map), v_safe, block_m=bm, block_n=bn)
+        if int(flags_nominal.sum()) != 0:
+            fail(f"systolic_mac faulting {name}: flags at nominal rails")
+        for keep_bits in (0, 8, 23):
+            what = f"systolic_mac faulting {name} keep_bits={keep_bits}"
+            c, flags, count = systolic_mac(a, b, v_map, v_safe, block_m=bm,
+                                           block_n=bn, keep_bits=keep_bits,
+                                           count_flags=True)
+            torch.cuda.synchronize()
+            c_ref, flags_ref = systolic_mac_plain(
+                a, b, v_map, v_safe, block_m=bm, block_n=bn,
+                keep_bits=keep_bits)
+            if not torch.equal(flags, flags_ref):
+                fail(f"{what}: flag maps differ")
+            fired = int(flags.sum())
+            if int(count) != fired or not 0 < fired < gm * gn:
+                fail(f"{what}: fused count {int(count)} vs flags.sum() "
+                     f"{fired} of {gm * gn} cells")
+            bad = flags_ref.bool().repeat_interleave(
+                bm, 0).repeat_interleave(bn, 1)
+            # exactly: flagged cells are the nominal result with the low
+            # bits cleared, clean cells are the nominal result
+            keep = -(1 << (23 - keep_bits))         # 0xFFFFFFFF << (23 - kb)
+            want_bits = torch.where(bad, c_nominal.view(torch.int32) & keep,
+                                    c_nominal.view(torch.int32))
+            if not torch.equal(c.view(torch.int32), want_bits):
+                fail(f"{what}: result is not the nominal result with the "
+                     f"flagged cells' low {23 - keep_bits} bits cleared")
+            check_epilogue(torch, c, flags, bm, bn, keep_bits, what)
+            scale = float(c_ref.abs().max())
+            diff = (c - c_ref).abs()
+            err_clean = float(diff[~bad].max())
+            err_bad = float(diff[bad].max())
+            lim_bad = tol_corrupt(keep_bits) * scale
+            if not err_clean <= TOL_CLEAN * scale:
+                fail(f"{what}: clean cells off by {err_clean} (limit "
+                     f"{TOL_CLEAN * scale})")
+            if not err_bad <= lim_bad:
+                fail(f"{what}: corrupted cells off by {err_bad} (limit "
+                     f"{lim_bad})")
+            entry = {
+                "weight": "faulting", "M": m, "K": k, "N": n, "dtype": name,
+                "flag_cell": [bm, bn], "keep_bits": keep_bits,
+                "fired": fired, "flags_equal": True,
+                "count_equals_flag_sum": True, "masked_bit_for_bit": True,
+                "max_err_clean": err_clean,
+                "max_err_clean_limit": TOL_CLEAN * scale,
+                "max_err_corrupt": err_bad, "max_err_corrupt_limit": lim_bad}
+            out.append(entry)
+            if keep_bits != 8:
+                continue
+            t_kernel = time_ms(
+                lambda i: systolic_mac(a, b, v_map, v_safe, block_m=bm,
+                                       block_n=bn, count_flags=True), 1, 24)
+            t_plain = time_ms(
+                lambda i: systolic_mac_plain(a, b, v_map, v_safe, block_m=bm,
+                                             block_n=bn), 1, 24)
+            t_lib = time_ms(lambda i: torch.matmul(a, b), 1, 24)
+            t_bound, by = bound_ms(m, k, n, gm, gn, name)
+            entry.update({"kernel_ms": t_kernel, "plain_ms": t_plain,
+                          "library_ms": t_lib, "bound_ms": t_bound,
+                          "bound_by": by})
     return out
 
 
@@ -260,10 +318,20 @@ def paper_flow(torch, cfg, ops, systolic_mac_plain):
             fail(f"paper_flow: {key} {info[key]} vs {info_ref[key]}")
     if info["n_fired_static"] != int(info["flags_static"].sum()):
         fail("paper_flow: fused count differs from the flag map's sum")
+    # the product returned is the second (runtime-rails) launch's: clean
+    # cells to the tight limit, flagged cells to the loose one, and the
+    # mask itself exactly
+    fired = torch.as_tensor(info_ref["flags_runtime"], device=dev)
+    check_epilogue(torch, c, fired, block, block, 8, "paper_flow")
+    bad = fired.bool().repeat_interleave(block, 0).repeat_interleave(block, 1)
     scale = float(c_ref.abs().max())
-    err = float((c - c_ref).abs().max())
+    diff = (c - c_ref).abs()
+    err_clean, err = float(diff[~bad].max()), float(diff[bad].max())
+    if not err_clean <= TOL_CLEAN * scale:
+        fail(f"paper_flow: clean cells off by {err_clean} (limit "
+             f"{TOL_CLEAN * scale})")
     if not err <= TOL_CORRUPT * scale:
-        fail(f"paper_flow: product off by {err} (limit "
+        fail(f"paper_flow: flagged cells off by {err} (limit "
              f"{TOL_CORRUPT * scale})")
     ratio = info["energy_ratio_vs_nominal"]
     if not ratio < 1.0:
@@ -272,7 +340,9 @@ def paper_flow(torch, cfg, ops, systolic_mac_plain):
             "n_partitions": 4, "n_fired_static": info["n_fired_static"],
             "n_fired_runtime": info["n_fired_runtime"],
             "cells": int(info["flags_static"].size),
-            "max_err": err, "max_err_limit": TOL_CORRUPT * scale,
+            "max_err_clean": err_clean,
+            "max_err_clean_limit": TOL_CLEAN * scale,
+            "max_err_corrupt": err, "max_err_corrupt_limit": TOL_CORRUPT * scale,
             "energy_ratio_vs_nominal": ratio, "seconds": seconds}
 
 
@@ -415,6 +485,7 @@ def serve(torch, cfg, serve_mod, model_api, param_count, use_backend,
 
 
 def main() -> int:
+    t_start = time.monotonic()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} is missing: run from a checkout")
     import torch
@@ -460,6 +531,8 @@ def main() -> int:
     emit("serve", served)
     if launches <= 0:
         fail("the served path launched the systolic_mac kernel no time")
+
+    emit("total", {"seconds": time.monotonic() - t_start})
 
     # one decode step's GEMMs (225 launches at M = slots), from the
     # per-shape measurements above
