@@ -144,7 +144,7 @@ def build_log() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     """argtypes/restype of every exported launcher (pointers and the stream
     as ``c_void_p``: a bare Python int would be cut to 32 bits)."""
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.systolic_mac_launch.argtypes = [
         p, p, p, p, p, p, p,        # a, b, v_map, v_safe, c, flags, count
         i, i, i,                    # M, N, K
@@ -152,3 +152,27 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i,                 # block_m, block_n, keep_bits, dtype
         p]                          # stream
     lib.systolic_mac_launch.restype = ctypes.c_int
+    lib.quant_rows_launch.argtypes = [
+        p, i, i, i,                 # x, R, K, Kp
+        ll, ll, f, i,               # strides of x (r, k), levels, dtype
+        p, p, p,                    # amax scratch, q, scale
+        p]                          # stream
+    lib.quant_rows_launch.restype = ctypes.c_int
+    lib.razor_matmul_launch.argtypes = [
+        p, p, p, p, p, p,           # a, b, qa, scale_a, qb, scale_b
+        p, p, p, p, p, p,           # main, shadow, c, flags, rel, count
+        i, i, i, i,                 # M, N, K, Kp
+        ll, ll, ll, ll,             # strides of a (m, k) and b (k, n)
+        i, i, f, i,                 # block_m, block_n, tol, dtype
+        p]                          # stream
+    lib.razor_matmul_launch.restype = ctypes.c_int
+    lib.precision_island_launch.argtypes = [
+        p, p,                       # a, b
+        p, p, p, p,                 # qa8, scale_a8, qb8, scale_b8
+        p, p, p, p,                 # qa4, scale_a4, qb4, scale_b4
+        p, p,                       # tiers, c
+        i, i, i, i,                 # M, N, K, Kp
+        ll, ll, ll, ll,             # strides of a (m, k) and b (k, n)
+        i, i, i,                    # block_m, block_n, dtype
+        p]                          # stream
+    lib.precision_island_launch.restype = ctypes.c_int

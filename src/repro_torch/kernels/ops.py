@@ -4,7 +4,7 @@
 assignment over weight tiles -> partitioned kernel execution -> Razor flags
 -> one runtime (Algorithm 2) adjustment step — usable as a drop-in matmul
 for experiments.  Counterpart of ``repro.kernels.ops``; the aliases of the
-kernels not ported yet are absent.
+kernels not ported yet (``wkv6_op``, ``ssd_op``) are absent.
 """
 
 from __future__ import annotations
@@ -16,12 +16,22 @@ import torch
 
 from ..core.precision import static_tier_assignment, tile_headroom
 from ..core.voltage import static_voltage_scaling
+from .precision_island import precision_island
+from .razor_matmul import razor_matmul
 from .systolic_mac import systolic_mac
 from .tuning import select_square_block
 
 
 def systolic_matmul(a, b, v_map, v_safe, **kw):
     return systolic_mac(a, b, v_map, v_safe, **kw)
+
+
+def razor_mm(a, b, tol: float = 0.05, **kw):
+    return razor_matmul(a, b, tol=tol, **kw)
+
+
+def precision_mm(a, b, tiers, **kw):
+    return precision_island(a, b, tiers, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,13 @@
 
 Semantics shared between kernel and oracle are defined HERE; a kernel must
 reproduce them bit for bit up to dtype tolerance.  Counterpart of
-``repro.kernels.ref``; the oracles of the kernels not ported yet
-(razor_matmul, precision_island, wkv6, ssd) arrive with their kernels.
+``repro.kernels.ref``; the oracles of the kernels not ported yet (wkv6,
+ssd) arrive with their kernels.
+
+The integer products of razor_matmul and precision_island are exact, as the
+JAX oracle's int32 products are: on the CPU in int32, on a GPU (where PyTorch
+has no integer matmul) as a float64 product of the int8 values, which is
+exact while K * 127^2 < 2^53 and rounds to float32 as int32 -> float32 does.
 """
 
 from __future__ import annotations
@@ -79,11 +84,149 @@ def systolic_mac(a: torch.Tensor, b: torch.Tensor, v_map: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def quantize_sym_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-row int8 quantization (row = last-axis vectors), f32
-    throughout, round-half-even."""
+def _quantize_sym(x: torch.Tensor, levels: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row quantization over the last axis, f32 throughout,
+    round-half-even: ``scale = max(amax, 1e-12) / levels``, ``q =
+    clamp(round(x / scale), -levels, levels)``.  Both divisions are true
+    divisions: the divisor of the first is a tensor, because PyTorch on a
+    GPU turns a division by a Python number into a multiplication by its
+    reciprocal, which rounds differently."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
-    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    clamped = torch.clamp(amax, min=1e-12)
+    scale = clamped / torch.full_like(clamped, levels)
+    q = torch.clamp(torch.round(xf / scale), -levels, levels)
     return q.to(torch.int8), scale
+
+
+def quantize_sym_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization (row = last-axis vectors)."""
+    return _quantize_sym(x, 127.0)
+
+
+def int_matmul_f32(qa: torch.Tensor, qb_t: torch.Tensor) -> torch.Tensor:
+    """``(qa @ qb_t.T)`` of int8 operands, exact, as float32: int32 on the
+    CPU (the JAX oracle's product), float64 elsewhere (exact for
+    K * 127^2 < 2^53; the one rounding, to float32, is the one int32 ->
+    float32 makes)."""
+    if qa.device.type == "cpu":
+        return (qa.to(torch.int32) @ qb_t.to(torch.int32).T).to(torch.float32)
+    if qa.shape[-1] * 127 ** 2 >= 2 ** 53:
+        raise ValueError(f"K={qa.shape[-1]} is too long for an exact float64 "
+                         f"integer product")
+    return (qa.to(torch.float64) @ qb_t.to(torch.float64).T).to(torch.float32)
+
+
+def _dequant_product(a: torch.Tensor, b: torch.Tensor, quantize):
+    """The integer path of one operand pair: per-row quantization of ``a``
+    and of ``b``'s columns over K, exact product, dequantized in the
+    oracle's order ``(acc * sa) * sb^T``."""
+    qa, sa = quantize(a)                          # (m, k), (m, 1)
+    qb, sb = quantize(b.T)                        # (n, k), (n, 1)
+    return int_matmul_f32(qa, qb) * sa * sb.T
+
+
+# ---------------------------------------------------------------------------
+# razor_matmul: low-precision main path + full-precision shadow + flags
+# ---------------------------------------------------------------------------
+
+
+def razor_matmul_tiles(a: torch.Tensor, b: torch.Tensor, tol: float,
+                       block_m: int, block_n: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Razor-style double-sampled matmul on (block_m x block_n) cells.
+
+    Main path: int8 x int8 -> int32 (the near-threshold 'fast but risky'
+    path).  Shadow path: f32 (the delayed-clock shadow register).  Per cell:
+    flag = relative Frobenius error > tol; flagged cells are *corrected* to
+    the shadow value (razor replay semantics).  Returns (C (M, N) f32
+    corrected, flags (gm, gn) int32, rel_err (gm, gn) f32).
+    """
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2 or m % block_m or n % block_n:
+        raise ValueError(f"razor_matmul: {tuple(a.shape)} @ {tuple(b.shape)} "
+                         f"does not tile into {block_m}x{block_n} cells")
+    main = _dequant_product(a, b, quantize_sym_i8)
+    shadow = a.to(torch.float32) @ b.to(torch.float32)
+    gm, gn = m // block_m, n // block_n
+    mt = main.reshape(gm, block_m, gn, block_n)
+    st = shadow.reshape(gm, block_m, gn, block_n)
+    err = torch.sqrt(torch.sum((mt - st) ** 2, dim=(1, 3)))
+    ref = torch.sqrt(torch.sum(st ** 2, dim=(1, 3))) + 1e-12
+    rel = err / ref
+    flags = (rel > tol).to(torch.int32)
+    out = torch.where(flags[:, None, :, None] == 1, st, mt)
+    return out.reshape(m, n), flags, rel
+
+
+def razor_matmul(a: torch.Tensor, b: torch.Tensor, tol: float = 0.05,
+                 block: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Square-cell form of :func:`razor_matmul_tiles` (``block`` defaults
+    to the tuning table's choice for (M, N))."""
+    m, n = a.shape[0], b.shape[1]
+    block = select_square_block(m, n) if block is None else block
+    return razor_matmul_tiles(a, b, tol, block, block)
+
+
+# ---------------------------------------------------------------------------
+# precision_island: per-tile precision-tier matmul
+# ---------------------------------------------------------------------------
+
+
+def quantize_sym_i4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int4 quantization (levels -7..7, stored as int8)."""
+    return _quantize_sym(x, 7.0)
+
+
+def _tile_matmul_at_tier(at: torch.Tensor, bt: torch.Tensor,
+                         tier: torch.Tensor) -> torch.Tensor:
+    """at: (bm, k); bt: (k, bn); tier scalar 0=int4 1=int8 2=bf16/f32."""
+    f32 = at.to(torch.float32) @ bt.to(torch.float32)
+    i8 = _dequant_product(at, bt, quantize_sym_i8)
+    i4 = _dequant_product(at, bt, quantize_sym_i4)
+    return torch.where(tier == 0, i4, torch.where(tier == 1, i8, f32))
+
+
+def precision_island(a: torch.Tensor, b: torch.Tensor, tiers: torch.Tensor,
+                     block: Optional[int] = None) -> torch.Tensor:
+    """C = a @ b where each (block x block) output tile computes at its
+    assigned tier (0=int4, 1=int8, 2=full f32) — the numerics analogue of
+    per-partition V_ccint."""
+    m, k = a.shape
+    _, n = b.shape
+    block = select_square_block(m, n) if block is None else block
+    gm, gn = m // block, n // block
+    rows = []
+    for i in range(gm):
+        cols = []
+        at = a[i * block:(i + 1) * block]
+        for j in range(gn):
+            bt = b[:, j * block:(j + 1) * block]
+            cols.append(_tile_matmul_at_tier(at, bt, tiers[i, j]))
+        rows.append(torch.cat(cols, dim=1))
+    return torch.cat(rows, dim=0)
+
+
+def precision_island_tiles(a: torch.Tensor, b: torch.Tensor,
+                           tiers: torch.Tensor, block_m: int, block_n: int
+                           ) -> torch.Tensor:
+    """:func:`precision_island` on (block_m x block_n) cells, with each
+    operand quantized once: the per-row scales run over the whole of K, so
+    they do not depend on the cell, and the integer paths equal the
+    oracle's bit for bit."""
+    m, k = a.shape
+    k2, n = b.shape
+    gm, gn = m // block_m, n // block_n
+    if k != k2 or m % block_m or n % block_n or tuple(tiers.shape) != (gm, gn):
+        raise ValueError(f"precision_island: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} with tiers {tuple(tiers.shape)} "
+                         f"does not tile into {block_m}x{block_n} cells")
+    t = tiers.to(a.device).repeat_interleave(block_m, 0).repeat_interleave(
+        block_n, 1)
+    f32 = a.to(torch.float32) @ b.to(torch.float32)
+    i8 = _dequant_product(a, b, quantize_sym_i8)
+    i4 = _dequant_product(a, b, quantize_sym_i4)
+    return torch.where(t == 0, i4, torch.where(t == 1, i8, f32))

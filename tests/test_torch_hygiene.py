@@ -16,6 +16,8 @@ from repro_torch._device import resolve_device
 from repro_torch.backend import get_backend
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build
+from repro_torch.kernels import precision_island as island_mod
+from repro_torch.kernels import razor_matmul as razor_mod
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model_api
 from repro_torch.serve import ServeEngine, WaveServeEngine
@@ -33,7 +35,12 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert len(mods) > 40 and "repro_torch.kernels.systolic_mac" in mods
+    assert len(mods) >= 65 and "repro_torch.kernels.systolic_mac" in mods
+    for name in ("repro_torch.core.cadflow", "repro_torch.flow.__main__",
+                 "repro_torch.kernels.razor_matmul",
+                 "repro_torch.kernels.precision_island",
+                 "repro_torch.examples.precision_islands"):
+        assert name in mods
     code = (
         "import importlib, sys\n"
         f"for name in {mods!r}:\n"
@@ -117,13 +124,66 @@ def test_failed_compile_raises_with_the_compilers_output(monkeypatch,
 
 def test_build_is_keyed_by_its_sources():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["systolic_mac.cu"]
+    assert [s.name for s in srcs] == ["precision_island.cu", "quant_rows.cu",
+                                      "razor_matmul.cu", "systolic_mac.cu"]
     assert _build._digest(srcs) == _build._digest(srcs)
-    text = srcs[0].read_text()
-    for banned in ("cublas", "torch/extension.h", "ATen"):
-        assert banned not in text
-    assert "fmaf" in text and "systolic_mac_launch" in text
+    texts = {s.name: s.read_text() for s in srcs}
+    texts.update((h.name, h.read_text())
+                 for h in sorted(_build.CSRC_DIR.glob("*.cuh")))
+    assert sorted(texts) == sorted(s.name for s in srcs) + [
+        "tile_products.cuh"]
+    for name, text in texts.items():
+        for banned in ("cublas", "cutlass", "torch/extension.h", "ATen",
+                       "mma.h"):
+            assert banned not in text, (name, banned)
+    assert "fmaf" in texts["systolic_mac.cu"]
+    assert "__dp4a" in texts["tile_products.cuh"]
+    for name in ("systolic_mac", "quant_rows", "razor_matmul",
+                 "precision_island"):
+        assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]
+    # true IEEE division and round-half-even in the quantizer
+    assert "__fdiv_rn" in texts["quant_rows.cu"]
+    assert "rintf" in texts["quant_rows.cu"]
+    assert "floorf" not in texts["quant_rows.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast_math" in f or "fast-math" in f
+                   for f in _build.NVCC_FLAGS)
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that says it lies on a GPU: what a wrapper sees of a
+    CUDA tensor before it launches anything."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("kernel", ["razor_matmul", "precision_island"])
+def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
+        kernel, monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version served a CUDA tensor")
+
+    monkeypatch.setattr(razor_mod, "razor_matmul_plain", plain)
+    monkeypatch.setattr(island_mod, "precision_island_plain", plain)
+    a = torch.zeros(256, 64).as_subclass(_CudaLooking)
+    b = torch.zeros(64, 256).as_subclass(_CudaLooking)
+    with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+        if kernel == "razor_matmul":
+            razor_mod.razor_matmul(a, b)
+        else:
+            tiers = torch.zeros(2, 2, dtype=torch.int32).as_subclass(
+                _CudaLooking)
+            island_mod.precision_island(a, b, tiers)
+    assert razor_mod.razor_matmul.launches == 0
+    assert island_mod.precision_island.launches == 0
 
 
 def test_chip_smoke_fails_here_and_prints_no_result():
