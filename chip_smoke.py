@@ -369,6 +369,13 @@ def weight_shapes(cfg):
             ("w2", ff, d)]
 
 
+def cold_copies(b):
+    """``b`` and enough clones of it to exceed the 50 MB L2 between reuses,
+    for :func:`time_ms` to cycle over."""
+    copies = max(1, math.ceil(120e6 / (b.element_size() * b.numel())))
+    return [b] + [b.clone() for _ in range(copies - 1)]
+
+
 def integer_gemm_bound_ms(m, k, n, elem, ops_s, levels_used, grid_cells,
                           extra_out):
     """Least time for a product with int8 prologue copies: a and b read
@@ -527,11 +534,13 @@ def check_razor(torch, cfg, kernels, ref, select_blocks):
             if name not in {w for w, _, _ in weight_shapes(cfg)}:
                 continue
             iters = 10 if dtype == torch.bfloat16 else 4
-            t_kernel = time_ms(lambda i: razor_matmul(a, b, tol=tol), 1,
-                               iters)
+            bs = cold_copies(b)
+            t_kernel = time_ms(lambda i: razor_matmul(a, bs[i], tol=tol),
+                               len(bs), iters)
             t_plain = time_ms(lambda i: razor_matmul_plain(
-                a, b, tol=tol, block_m=bm, block_n=bn), 1, iters)
-            t_lib = time_ms(lambda i: torch.matmul(a, b), 1, iters)
+                a, bs[i], tol=tol, block_m=bm, block_n=bn), len(bs), iters)
+            t_lib = time_ms(lambda i: torch.matmul(a, bs[i]), len(bs), iters)
+            del bs
             ops_s = (2.0 * m * n * k / PEAK_INT8_OPS
                      + 2.0 * m * n * k / PEAK_FLOPS[dname])
             gcells = (m // bm) * (n // bn)
@@ -621,12 +630,14 @@ def check_precision_island(torch, cfg, kernels):
             entry["weight"] = name
             out.append(entry)
             iters = 10 if dtype == torch.bfloat16 else 4
-            t_kernel = time_ms(lambda i: precision_island(a, b, tiers), 1,
-                               iters)
+            bs = cold_copies(b)
+            t_kernel = time_ms(lambda i: precision_island(a, bs[i], tiers),
+                               len(bs), iters)
             t_plain = time_ms(lambda i: precision_island_plain(
-                a, b, tiers, block_m=ISLAND_BLOCK, block_n=ISLAND_BLOCK), 1,
-                iters)
-            t_lib = time_ms(lambda i: torch.matmul(a, b), 1, iters)
+                a, bs[i], tiers, block_m=ISLAND_BLOCK, block_n=ISLAND_BLOCK),
+                len(bs), iters)
+            t_lib = time_ms(lambda i: torch.matmul(a, bs[i]), len(bs), iters)
+            del bs
             per_cell = 2.0 * ISLAND_BLOCK * ISLAND_BLOCK * k
             n_t = entry["cells_per_tier"]
             ops_s = ((n_t[0] + n_t[1]) * per_cell / PEAK_INT8_OPS
@@ -743,6 +754,16 @@ def precision_islands(torch, cfg, islands, razor_kernels, precision_kernels,
                 and tuple(art.product.shape) == (a.shape[0], w.shape[1])):
             fail(f"precision_islands {name}: product of shape "
                  f"{tuple(art.product.shape)}, rel_error {art.rel_error}")
+        # the tiered product itself: int4/int8 cells bit for bit, f32 cells
+        # within TOL_CLEAN of max|C|; rel_error to TOL_REL of the plain one
+        exact = cells_mask(torch, torch.as_tensor(art.tiers < 2, device=dev),
+                           ISLAND_BLOCK, ISLAND_BLOCK)
+        err, lim = compare_cells(torch, art.product, ref.product, exact,
+                                 f"precision_islands {name} product")
+        rel_gap = abs(art.rel_error - ref.rel_error)
+        if not rel_gap <= TOL_REL * ref.rel_error:
+            fail(f"precision_islands {name}: rel_error {art.rel_error} vs "
+                 f"the plain route's {ref.rel_error}")
         out.append({
             "weight": name, "M": a.shape[0], "K": a.shape[1],
             "N": w.shape[1], "dtype": "bfloat16", "block": ISLAND_BLOCK,
@@ -755,6 +776,8 @@ def precision_islands(torch, cfg, islands, razor_kernels, precision_kernels,
                                                  minlength=3).tolist(),
             "tiers_per_tier": np.bincount(art.tiers.ravel(),
                                           minlength=3).tolist(),
+            "integer_cells_bit_equal": True, "max_err_f32": err,
+            "max_err_limit": lim,
             "rel_error": art.rel_error, "rel_error_plain": ref.rel_error,
             "energy_vs_bf16": art.energy_vs_bf16,
             "static_energy_vs_bf16": art.static_energy_vs_bf16,
@@ -955,7 +978,7 @@ def path_entry(name, source, replaces, rows, launches, err_key):
         "max_abs_err": worst[err_key], "max_err_limit": worst["max_err_limit"],
         "integer_cells": "bit-equal to the plain version",
         "timed": f"one call at each of the {len(timed)} weight shapes, "
-                 f"M={CHUNK_M}, bf16, summed",
+                 f"M={CHUNK_M}, bf16, each weight cold in L2, summed",
         "ms": sum(r["kernel_ms"] for r in timed),
         "plain_ms": sum(r["plain_ms"] for r in timed),
         "bound_ms": sum(r["bound_ms"] for r in timed),

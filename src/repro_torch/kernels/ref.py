@@ -190,33 +190,14 @@ def _tile_matmul_at_tier(at: torch.Tensor, bt: torch.Tensor,
     return torch.where(tier == 0, i4, torch.where(tier == 1, i8, f32))
 
 
-def precision_island(a: torch.Tensor, b: torch.Tensor, tiers: torch.Tensor,
-                     block: Optional[int] = None) -> torch.Tensor:
-    """C = a @ b where each (block x block) output tile computes at its
-    assigned tier (0=int4, 1=int8, 2=full f32) — the numerics analogue of
-    per-partition V_ccint."""
-    m, k = a.shape
-    _, n = b.shape
-    block = select_square_block(m, n) if block is None else block
-    gm, gn = m // block, n // block
-    rows = []
-    for i in range(gm):
-        cols = []
-        at = a[i * block:(i + 1) * block]
-        for j in range(gn):
-            bt = b[:, j * block:(j + 1) * block]
-            cols.append(_tile_matmul_at_tier(at, bt, tiers[i, j]))
-        rows.append(torch.cat(cols, dim=1))
-    return torch.cat(rows, dim=0)
-
-
 def precision_island_tiles(a: torch.Tensor, b: torch.Tensor,
                            tiers: torch.Tensor, block_m: int, block_n: int
                            ) -> torch.Tensor:
-    """:func:`precision_island` on (block_m x block_n) cells, with each
-    operand quantized once: the per-row scales run over the whole of K, so
-    they do not depend on the cell, and the integer paths equal the
-    oracle's bit for bit."""
+    """C = a @ b where each (block_m x block_n) output cell computes at its
+    assigned tier (0=int4, 1=int8, 2=full f32) — the numerics analogue of
+    per-partition V_ccint.  Each operand is quantized once: the per-row
+    scales run over the whole of K, so they do not depend on the cell, and
+    a cell equals :func:`_tile_matmul_at_tier` on its slices."""
     m, k = a.shape
     k2, n = b.shape
     gm, gn = m // block_m, n // block_n
@@ -230,3 +211,12 @@ def precision_island_tiles(a: torch.Tensor, b: torch.Tensor,
     i8 = _dequant_product(a, b, quantize_sym_i8)
     i4 = _dequant_product(a, b, quantize_sym_i4)
     return torch.where(t == 0, i4, torch.where(t == 1, i8, f32))
+
+
+def precision_island(a: torch.Tensor, b: torch.Tensor, tiers: torch.Tensor,
+                     block: Optional[int] = None) -> torch.Tensor:
+    """Square-cell form of :func:`precision_island_tiles` (``block``
+    defaults to the tuning table's choice for (M, N))."""
+    m, n = a.shape[0], b.shape[1]
+    block = select_square_block(m, n) if block is None else block
+    return precision_island_tiles(a, b, tiers, block, block)

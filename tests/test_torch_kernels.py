@@ -376,6 +376,7 @@ def test_precision_plain_is_the_tiled_oracle_on_other_cells():
     c1 = precision_island_plain(ta, tb, tiers, block_m=32, block_n=32)
     c2 = precision_island(ta, tb, tiers)
     assert torch.equal(c1, c2)
+    assert torch.equal(c1, tref.precision_island(ta, tb, tiers, block=32))
     for i in range(3):
         for j in range(2):
             at, bt = ta[i * 32:(i + 1) * 32], tb[:, j * 32:(j + 1) * 32]
