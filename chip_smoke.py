@@ -4,21 +4,28 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc``, holds each against its
-plain PyTorch version at the shapes the model gives it, runs the paper flow on
+plain PyTorch version at the shapes the models give it, runs the paper flow on
 one full-width weight, runs the precision-island loop
 (``repro_torch.examples.precision_islands``: Razor flags -> Algorithm-2 tier
 calibration -> tiered product, on the ``razor_matmul`` and
 ``precision_island`` kernels) at phi4-mini-3.8b's four weight shapes, and
 serves a few requests on phi4-mini-3.8b at its published width and depth
 through ``repro_torch.launch.serve`` -> ``ServeEngine`` -> ``ModelAPI`` ->
-``backend.matmul`` -> the ``systolic_mac`` kernel.  Weights are random, from
-seeded generators.  Needs a GPU and ``nvcc``; any phase that fails ends the
-run with a non-zero exit code.
+``backend.matmul`` -> the ``systolic_mac`` kernel.  Then, for rwkv6-1.6b and
+zamba2-2.7b at their published width and depth: the same traffic served
+(every rwkv6 layer of every step on the ``wkv6`` kernel), the parallel forward
+against token-by-token decoding, and ``ModelAPI.loss`` on a (2, 2048) batch
+(``wkv6`` / ``ssd_chunk`` in every layer).  Weights are random, from seeded
+generators.  Needs a GPU and ``nvcc``; any phase that fails ends the run with
+a non-zero exit code.
 
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
-(``systolic_mac``, ``razor_matmul``, ``precision_island``), ``paper_flow``,
+(``systolic_mac`` at every model's GEMM shapes, ``razor_matmul``,
+``precision_island``, ``wkv6``, ``ssd_chunk``), ``paper_flow``,
 ``precision_islands``, ``serve`` (with a ``torch.profiler`` pass over a short
-run), ``total`` (the script's seconds), then ``{"kernels": [...]}`` (per
+run), per state-space model ``serve_ssm``, ``decode_vs_parallel`` and
+``loss`` (with a profile by CUDA kernel), ``total`` (the script's seconds),
+then ``{"kernels": [...]}`` (per
 kernel: launches on its path, error against the plain version, time, the
 plain version's and one library call's time, and the least time the card
 could take), the card's name and power limit as ``nvidia-smi`` gives them,
@@ -27,11 +34,13 @@ and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,6 +53,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,      # tensor cores, f32 accumulate
 PEAK_INT8_OPS = 1979e12                # tensor cores
 
 ARCH = "phi4-mini-3.8b"
+DEVICE = "cuda"
 SLOTS, MAX_LEN, REQUESTS, MAX_NEW, SEED = 4, 64, 6, 8, 0
 DECODE_M = SLOTS
 #: tolerances of the kernel against its plain version, as fractions of
@@ -70,6 +80,28 @@ TOL_BAND = 1e-4
 #: M of the precision-island checks: a 256-token prefill chunk
 CHUNK_M = 256
 ISLAND_BLOCK, ISLAND_TOL = 128, 0.02
+#: the state-space models, served, scored and held decode against parallel
+SSM_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+#: wkv6 / ssd_chunk against their plain versions, y and the final state as
+#: fractions of their largest magnitudes: f32 sums in another order (the
+#: plain version's products run on cuBLAS), no TF32
+TOL_RECURRENCE = 1e-4
+#: one Mamba2 layer's token-by-token steps against its parallel forward, as
+#: a fraction of the largest output (tests/models/test_consistency.py);
+#: the whole model's last logits are held to TOL_LOGITS of max|logits|
+#: instead: the two forms round to bf16 at other places in every one of
+#: zamba2's 63 residual blocks (54 Mamba2, 9 shared), and the gap grows with
+#: depth (one layer 0.2-0.4 %, the whole model 3-4 %, chip_smoke's own
+#: decode_vs_parallel rows)
+TOL_DECODE_PARALLEL = 2e-2
+#: wkv6's clamp on the centred exponents (the Pallas kernel's EXP_CLAMP)
+WKV6_CLAMP = 60.0
+#: the loss on the kernels against the loss with the recurrences on their
+#: plain versions, relative: a last-bit difference in y can flip a later
+#: bf16 rounding, which moves a mean over 4096 positions by far less
+TOL_LOSS = 1e-3
+#: (batch, sequence) of the scored batch
+LOSS_BATCH = (2, 2048)
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -134,42 +166,76 @@ def check_epilogue(torch, c, flags, block_m, block_n, keep_bits, what):
              f"(keep_bits={keep_bits})")
 
 
-def check_serving_shapes(torch, cfg, systolic_mac, systolic_mac_plain,
-                         largest_common_block):
-    """Every (K, N) the model multiplies by, bf16, nominal rails, on the flag
-    grid the reference backend uses: checked at every M the served run can
-    give (1 to 7: a prompt's length in prefill, the slots in decode), timed
-    at M in {1, 4, 7}."""
-    dev = torch.device("cuda")
+def dense_gemms(cfg):
+    """name -> (K, N, launches per model step, transposed view?, dtype) of
+    every GEMM of a dense model's decode step (phi4-mini)."""
+    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    L, bf = cfg.n_layers, "bfloat16"
+    return {"wq/wo": (d, qd, 2 * L, False, bf),
+            "wk/wv": (d, kvd, 2 * L, False, bf),
+            "w1/wg": (d, ff, 2 * L, False, bf),
+            "w2": (ff, d, L, False, bf),
+            "logits": (d, cfg.padded_vocab, 1, True, bf)}
+
+
+def rwkv6_gemms(cfg):
+    """The same for rwkv6: r, k, v, g, o and the channel mix's receptance
+    are d x d; the decay LoRA's second factor is multiplied in f32."""
+    d, ff, L, bf = cfg.d_model, cfg.d_ff, cfg.n_layers, "bfloat16"
+    lora = max(32, d // 64)
+    return {"wr/wk/wv/wg/wo/cr": (d, d, 6 * L, False, bf),
+            "w_lora_a": (d, lora, L, False, bf),
+            "w_lora_b (f32)": (lora, d, L, False, "float32"),
+            "ck": (d, ff, L, False, bf),
+            "cv": (ff, d, L, False, bf),
+            "logits": (d, cfg.padded_vocab, 1, True, bf)}
+
+
+def zamba2_gemms(cfg):
+    """The same for zamba2: in/out projections of 54 Mamba2 layers, the
+    shared block's down projection, attention and MLP at each of its nine
+    applications."""
+    d, ff, L, bf = cfg.d_model, cfg.d_ff, cfg.n_layers, "bfloat16"
+    d_inner = 2 * d
+    n_heads = d_inner // cfg.ssm_d_head
+    in_dim = 2 * d_inner + 2 * cfg.ssm_state + n_heads
+    apps = L // cfg.shared_attn_period
+    return {"in_proj": (d, in_dim, L, False, bf),
+            "out_proj/down": (d_inner, d, L + apps, False, bf),
+            "wq/wk/wv/wo": (d, cfg.q_dim, 4 * apps, False, bf),
+            "w1/wg": (d, ff, 2 * apps, False, bf),
+            "w2": (ff, d, apps, False, bf),
+            "logits": (d, cfg.padded_vocab, 1, True, bf)}
+
+
+def check_serving_shapes(torch, arch, weights, systolic_mac,
+                         systolic_mac_plain, largest_common_block,
+                         ms=range(1, 8), timed_ms=(1, DECODE_M, 7)):
+    """Every (K, N) a model multiplies by (``weights``, from
+    :func:`dense_gemms` and its siblings), nominal rails, on the flag grid
+    the reference backend uses: checked at every M in ``ms`` (a prompt's
+    length in prefill, the slots in decode), timed at ``timed_ms``."""
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    d, qd, kvd, ff, vocab = (cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff,
-                             cfg.padded_vocab)
-    # name -> (K, N, launches per model step, transposed view?)
-    weights = {
-        "wq/wo": (d, qd, 2 * cfg.n_layers, False),
-        "wk/wv": (d, kvd, 2 * cfg.n_layers, False),
-        "w1/wg": (d, ff, 2 * cfg.n_layers, False),
-        "w2": (ff, d, cfg.n_layers, False),
-        "logits": (d, vocab, 1, True),
-    }
     out = []
-    for name, (k, n, per_step, transposed) in weights.items():
+    for name, (k, n, per_step, transposed, dname) in weights.items():
+        dtype = getattr(torch, dname)
+        elem = torch.finfo(dtype).bits // 8
         # enough copies to exceed the 50 MB L2 between reuses
-        copies = max(1, math.ceil(120e6 / (2 * k * n)))
+        copies = max(1, math.ceil(120e6 / (elem * k * n)))
         if transposed:      # the tied unembedding: (V, d) storage, .T view
             store = torch.randn((copies, n, k), generator=gen, device=dev,
-                                dtype=torch.float32).mul_(0.02).to(
-                                    torch.bfloat16)
+                                dtype=torch.float32).mul_(0.02).to(dtype)
             bs = [store[i].T for i in range(copies)]
         else:
             store = torch.randn((copies, k, n), generator=gen, device=dev,
                                 dtype=torch.float32).mul_(
-                                    1 / math.sqrt(k)).to(torch.bfloat16)
+                                    1 / math.sqrt(k)).to(dtype)
             bs = [store[i] for i in range(copies)]
-        for m in range(1, 8):
+        for m in ms:
             a = torch.randn((m, k), generator=gen, device=dev,
-                            dtype=torch.float32).to(torch.bfloat16)
+                            dtype=torch.float32).to(dtype)
             block = largest_common_block(m, n)
             gm, gn = m // block, n // block
             v_map = torch.ones((gm, gn), device=dev)
@@ -185,19 +251,20 @@ def check_serving_shapes(torch, cfg, systolic_mac, systolic_mac_plain,
             err = float((c - c_ref).abs().max())
             flags_equal = bool(torch.equal(flags, flags_ref))
             if not (math.isfinite(err) and err <= TOL_CLEAN * scale):
-                fail(f"systolic_mac {name} M={m}: max err {err} over "
+                fail(f"systolic_mac {arch} {name} M={m}: max err {err} over "
                      f"limit {TOL_CLEAN * scale}")
             if not flags_equal or int(count) != 0 or int(flags.sum()) != 0:
-                fail(f"systolic_mac {name} M={m}: flags differ or fired at "
-                     f"nominal rails")
+                fail(f"systolic_mac {arch} {name} M={m}: flags differ or "
+                     f"fired at nominal rails")
 
             entry = {
-                "weight": name, "M": m, "K": k, "N": n, "dtype": "bfloat16",
-                "b_transposed_view": transposed, "flag_cell": block,
-                "max_err": err, "max_err_limit": TOL_CLEAN * scale,
+                "arch": arch, "weight": name, "M": m, "K": k, "N": n,
+                "dtype": dname, "b_transposed_view": transposed,
+                "flag_cell": block, "max_err": err,
+                "max_err_limit": TOL_CLEAN * scale,
                 "flags_equal": flags_equal}
             out.append(entry)
-            if m not in (1, DECODE_M, 7):
+            if m not in timed_ms:
                 continue
             iters = 4 if transposed else 24
             t_kernel = time_ms(
@@ -209,7 +276,7 @@ def check_serving_shapes(torch, cfg, systolic_mac, systolic_mac_plain,
                                              block_m=block, block_n=block),
                 copies, iters)
             t_lib = time_ms(lambda i: torch.matmul(a, bs[i]), copies, iters)
-            t_bound, by = bound_ms(m, k, n, gm, gn, "bfloat16")
+            t_bound, by = bound_ms(m, k, n, gm, gn, dname)
             entry.update({
                 "launches_per_model_step": per_step, "kernel_ms": t_kernel,
                 "plain_ms": t_plain, "library_ms": t_lib,
@@ -961,6 +1028,534 @@ def serve(torch, cfg, serve_mod, model_api, param_count, use_backend,
         "profile": profile}
 
 
+# ---------------------------------------------------------------------------
+# wkv6 and ssd_chunk (models/ssm.py: rwkv6-1.6b, zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+
+def wkv6_bound_ms(b, s, h, p, chunk):
+    """Least time for one wkv6 call: r, k, v, w read once, y written once,
+    u read once, the state read and written once; four products a chunk and
+    head (2 ch ch p twice for the score tile and its product with v, 2 ch p p
+    twice for the carried state's term and the state update) at the f32
+    peak."""
+    nbytes = 4 * (5 * b * s * h * p + h * p + 2 * b * h * p * p)
+    flops = 4.0 * b * h * s * p * (chunk + p)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ssd_bound_ms(b, s, h, p, n, chunk):
+    """The same for ssd_chunk: x, dt, B, C, A_log, D read once, y written
+    once, the state read and written once; per chunk and head the scores
+    (2 ch ch n), their product with x dt (2 ch ch p), the carried state's
+    term and the state update (2 ch n p each)."""
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + 2 * h
+                  + 2 * b * h * n * p)
+    flops = 2.0 * b * h * s * (chunk * (n + p) + 2 * n * p)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def recurrence_case(torch, fn, plain, args, chunk, what):
+    """One call of a recurrence kernel against its plain version: y and the
+    final state within TOL_RECURRENCE of their largest magnitudes; then the
+    same call with the final state written into the state tensor itself,
+    which must give the same bits."""
+    y, S = fn(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y_ref, S_ref = plain(*args, chunk=chunk)
+    row = {}
+    for tag, got, want in (("y", y, y_ref), ("state", S, S_ref)):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        lim = TOL_RECURRENCE * scale
+        if not (math.isfinite(err) and err <= lim):
+            fail(f"{what}: {tag} off by {err} (limit {lim})")
+        row.update({f"max_err_{tag}": err, f"max_err_{tag}_limit": lim})
+    state = args[-1].clone()
+    y2, S2 = fn(*args[:-1], state, chunk=chunk, state_out=state)
+    torch.cuda.synchronize()
+    if S2 is not state or not (torch.equal(y2, y) and torch.equal(S2, S)):
+        fail(f"{what}: with the state written in place the result differs")
+    row["state_in_place_bit_equal"] = True
+    return row
+
+
+def wkv6_inputs(torch, gen, b, s, h, p, decay=0.5, state=True):
+    """r, k, v ~ N(0, 1), w_log = -exp(N * decay) (the model's decay is
+    -exp(w_base + LoRA)), u ~ N(0, 0.01), state ~ N(0, 0.01) or zero."""
+    dev = gen.device
+    r, k, v = (torch.randn((b, s, h, p), generator=gen, device=dev)
+               for _ in range(3))
+    w = -torch.exp(torch.randn((b, s, h, p), generator=gen, device=dev)
+                   * decay)
+    u = torch.randn((h, p), generator=gen, device=dev) * 0.1
+    s0 = (torch.randn((b, h, p, p), generator=gen, device=dev) * 0.1
+          if state else torch.zeros((b, h, p, p), device=dev))
+    return [r, k, v, w, u, s0]
+
+
+def ssd_inputs(torch, gen, b, s, h, p, n, state=True):
+    """x, B, C ~ N(0, 1), dt = softplus(N) (the model's dt), A_log ~
+    N(0, 0.09), D ~ N(0, 1), state ~ N(0, 1) or zero."""
+    dev = gen.device
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    A_log = torch.randn((h,), generator=gen, device=dev) * 0.3
+    B = torch.randn((b, s, n), generator=gen, device=dev)
+    C = torch.randn((b, s, n), generator=gen, device=dev)
+    D = torch.randn((h,), generator=gen, device=dev)
+    s0 = (torch.randn((b, h, n, p), generator=gen, device=dev) if state
+          else torch.zeros((b, h, n, p), device=dev))
+    return [x, dt, A_log, B, C, D, s0]
+
+
+def check_wkv6(torch, wkv6, wkv6_plain):
+    """wkv6 at rwkv6-1.6b's decode (b = 1 and 4, s = 1) and loss (b 2, s
+    2048, chunk 64) shapes, ragged chunks (100, 1000), the JAX tests' shapes
+    and the model's chunked-form test; every row also with the state written
+    in place.  The decode row at b = 4 is timed cycling state copies that
+    exceed the L2 (24 layers' states are 48 MB), the others warm."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 9)
+    H, P = 32, 64
+    cases = [("rwkv6 decode", 1, 1, H, P, 1, 0.5, True),
+             ("rwkv6 decode", 4, 1, H, P, 1, 0.5, True),
+             ("rwkv6 loss", 2, 2048, H, P, 64, 0.5, False),
+             ("ragged", 1, 100, H, P, 100, 0.5, True),
+             ("ragged", 1, 1000, H, P, 1000, 0.5, True),
+             ("jax-test", 2, 64, 2, 16, 16, 0.5, True),
+             ("jax-test", 1, 128, 3, 32, 32, 0.5, True),
+             ("jax-test", 2, 32, 1, 8, 32, 0.5, True),
+             ("jax-test chunked form", 1, 64, 2, 16, 16, 0.3, False)]
+    out = []
+    for name, b, s, h, p, ch, decay, state in cases:
+        args = wkv6_inputs(torch, gen, b, s, h, p, decay, state)
+        what = f"wkv6 {name} (b, s, h, p) = {(b, s, h, p)} chunk {ch}"
+        row = {"case": name, "b": b, "s": s, "h": h, "p": p, "chunk": ch,
+               **recurrence_case(torch, wkv6, wkv6_plain, args, ch, what)}
+        out.append(row)
+        if name not in ("rwkv6 decode", "rwkv6 loss", "ragged"):
+            continue
+        states = [args[-1]]
+        if name == "rwkv6 decode":
+            states += [args[-1].clone() for _ in range(
+                math.ceil(120e6 / (4 * args[-1].numel())) - 1)]
+        iters = 50 if s == 1 else 5
+        t_kernel = time_ms(lambda i: wkv6(*args[:-1], states[i], chunk=ch),
+                           len(states), iters)
+        t_plain = time_ms(lambda i: wkv6_plain(*args[:-1], states[i],
+                                               chunk=ch), len(states), iters)
+        t_bound, by = wkv6_bound_ms(b, s, h, p, ch)
+        row.update({"kernel_ms": t_kernel, "plain_ms": t_plain,
+                    "library_ms": None, "bound_ms": t_bound, "bound_by": by,
+                    "state_cold_in_l2": len(states) > 1})
+        del states
+    return out
+
+
+def check_ssd(torch, ssd_chunk, ssd_chunk_plain):
+    """ssd_chunk at zamba2-2.7b's loss shape (b 2, s 2048, h 80, p 64, n 64,
+    chunk 64), ragged chunks (100, 1000), one decode-sized step, and the JAX
+    tests' shapes; every row also with the state written in place; the
+    model's shapes timed (inputs of 170 MB: cold in L2)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 10)
+    H, P, N = 80, 64, 64
+    cases = [("zamba2 loss", 2, 2048, H, P, N, 64, False),
+             ("ragged", 1, 100, H, P, N, 100, True),
+             ("ragged", 1, 1000, H, P, N, 1000, True),
+             ("one step", 4, 1, H, P, N, 1, True),
+             ("jax-test", 2, 64, 2, 16, 8, 16, False),
+             ("jax-test", 1, 96, 4, 32, 16, 32, False),
+             ("jax-test", 2, 32, 1, 8, 4, 8, False),
+             ("jax-test nonzero state", 1, 32, 2, 8, 4, 8, True)]
+    out = []
+    for name, b, s, h, p, n, ch, state in cases:
+        args = ssd_inputs(torch, gen, b, s, h, p, n, state)
+        what = f"ssd_chunk {name} (b, s, h, p, n) = {(b, s, h, p, n)} chunk {ch}"
+        row = {"case": name, "b": b, "s": s, "h": h, "p": p, "n": n,
+               "chunk": ch,
+               **recurrence_case(torch, ssd_chunk, ssd_chunk_plain, args, ch,
+                                 what)}
+        out.append(row)
+        if name not in ("zamba2 loss", "ragged"):
+            continue
+        t_kernel = time_ms(lambda i: ssd_chunk(*args, chunk=ch), 1, 5)
+        t_plain = time_ms(lambda i: ssd_chunk_plain(*args, chunk=ch), 1, 5)
+        t_bound, by = ssd_bound_ms(b, s, h, p, n, ch)
+        row.update({"kernel_ms": t_kernel, "plain_ms": t_plain,
+                    "library_ms": None, "bound_ms": t_bound, "bound_by": by})
+    return out
+
+
+@contextlib.contextmanager
+def plain_route(ssm_mod, wkv6_plain, ssd_chunk_plain):
+    """The model's two recurrences on their plain versions (for a reference
+    on the card); restored on exit."""
+    def wkv(*args, chunk, state_out=None):
+        y, S = wkv6_plain(*args, chunk=chunk)
+        return y, (S if state_out is None else state_out.copy_(S))
+
+    def ssd(*args, chunk, state_out=None):
+        y, S = ssd_chunk_plain(*args, chunk=chunk)
+        return y, (S if state_out is None else state_out.copy_(S))
+
+    saved = ssm_mod.wkv6, ssm_mod.ssd_chunk
+    ssm_mod.wkv6, ssm_mod.ssd_chunk = wkv, ssd
+    try:
+        yield
+    finally:
+        ssm_mod.wkv6, ssm_mod.ssd_chunk = saved
+
+
+class Counters:
+    """The launch counts of the kernels a path may run."""
+
+    def __init__(self, **wrappers):
+        self.wrappers = wrappers
+
+    def zero(self):
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def read(self):
+        return {name: fn.launches for name, fn in self.wrappers.items()}
+
+
+def logits_alone(torch, api, params, prompt, fed, backend, use_backend,
+                 get_backend, shape_cls):
+    """The logits of one request alone after ``prompt`` and ``fed`` (an
+    ssm/hybrid prompt is absorbed by decode steps at batch 1)."""
+    state = api.make_decode_state(shape_cls("serve", MAX_LEN, 1, "decode"))
+    with use_backend(get_backend(backend)):
+        for t in list(prompt) + list(fed):
+            logits, state = api.decode_step(
+                params, state, torch.tensor([[t]], device=DEVICE))
+    return logits[0].float()
+
+
+def serve_ssm(torch, arch, cfg, params, mods, counters):
+    """rwkv6-1.6b or zamba2-2.7b through the launcher at full width, the
+    phi4 phase's traffic under ``reference``: GEMM and kernel counts, tokens
+    equal to a ``slots=1`` run's, tokens under ``ideal`` equal up to ties."""
+    serve_mod, use_backend, get_backend = (mods.serve, mods.use_backend,
+                                           mods.get_backend)
+    per_step = sum(w[2] for w in SSM_GEMMS[arch](cfg).values())
+    argv = ["--arch", arch, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--requests", str(REQUESTS), "--max-new", str(MAX_NEW), "--mixed",
+            "--seed", str(SEED)]
+    for backend in ("reference", "ideal"):          # warm-up, uncounted
+        serve_mod.run(serve_mod.parse_args(
+            ["--arch", arch, "--slots", "2", "--max-len", str(MAX_LEN),
+             "--requests", "2", "--max-new", "2", "--backend", backend]),
+            params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts set to 0 just before, read just after
+    counters.zero()
+    run = serve_mod.run(serve_mod.parse_args(argv + ["--backend",
+                                                     "reference"]), params)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    stats, tel = run.stats, run.stats.backend_telemetry
+    steps = stats.model_steps
+    if stats.completed != REQUESTS or stats.truncated or stats.unserved:
+        fail(f"serve_ssm {arch}: {stats.completed} of {REQUESTS} completed, "
+             f"{stats.truncated} truncated, {stats.unserved} unserved")
+    if not launches["systolic_mac"] == tel["calls"] == per_step * steps:
+        fail(f"serve_ssm {arch}: {launches['systolic_mac']} systolic_mac "
+             f"launches, {tel['calls']} backend GEMMs, expected {per_step} "
+             f"x {steps} model steps")
+    want_wkv6 = cfg.n_layers * steps if cfg.family == "ssm" else 0
+    if launches["wkv6"] != want_wkv6 or launches["ssd_chunk"] != 0:
+        fail(f"serve_ssm {arch}: wkv6 launched {launches['wkv6']} times "
+             f"(expected {want_wkv6}), ssd_chunk {launches['ssd_chunk']}")
+    if tel["flags"] != 0:
+        fail(f"serve_ssm {arch}: {tel['flags']} flags at nominal rails")
+    for r in run.requests:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                0 <= t < cfg.padded_vocab for t in r.out_tokens):
+            fail(f"serve_ssm {arch}: request {r.uid} produced "
+                 f"{r.out_tokens}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- beside it: one slot at a time (must be equal), and under ideal
+    # (equal up to ties, the C1 rule: where the streams part, the
+    # reference's token lies within 2 x TOL_LOGITS of the ideal logits'
+    # maximum; how far apart the two backends' logits lie there is printed)
+    run1 = serve_mod.run(serve_mod.parse_args(
+        argv[:2] + ["--slots", "1"] + argv[4:] + ["--backend", "reference"]),
+        params)
+    if [r.out_tokens for r in run.requests] != [r.out_tokens
+                                               for r in run1.requests]:
+        fail(f"serve_ssm {arch}: tokens differ from a slots=1 run")
+    ideal = serve_mod.run(serve_mod.parse_args(argv + ["--backend", "ideal"]),
+                          params)
+    api = mods.model_api(cfg)
+    parted, worst_gap, worst_err = 0, 0.0, 0.0
+    for r_ref, r_id in zip(run.requests, ideal.requests):
+        a, b = r_ref.out_tokens, r_id.out_tokens
+        if a == b:
+            continue
+        parted += 1
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        alone = [logits_alone(torch, api, params, r_ref.prompt, a[:i], be,
+                              use_backend, get_backend, mods.ShapeConfig)
+                 for be in ("ideal", "reference")]
+        scale = float(alone[0].abs().max())
+        gap = float(alone[0].max() - alone[0][a[i]]) / scale
+        err = float((alone[1] - alone[0]).abs().max()) / scale
+        worst_gap, worst_err = max(worst_gap, gap), max(worst_err, err)
+        if gap > 2 * TOL_LOGITS:
+            fail(f"serve_ssm {arch}: request {r_ref.uid} parts from ideal "
+                 f"at token {i} with a gap of {gap} of max|logits| (limit "
+                 f"{2 * TOL_LOGITS}); the backends' logits lie {err} apart")
+    return {
+        "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": mods.param_count(params), "backend": "reference",
+        "slots": SLOTS,
+        "max_len": MAX_LEN, "requests": REQUESTS,
+        "completed": stats.completed, "prefill_steps": stats.prefill_steps,
+        "decode_steps": stats.decode_steps, "model_steps": steps,
+        "tokens_generated": stats.tokens_generated,
+        "gemm_calls": tel["calls"], "gemms_per_model_step": per_step,
+        "launches": launches,
+        "wkv6_launches_per_model_step": launches["wkv6"] / steps,
+        "macs": tel["macs"], "flags": tel["flags"], "wall_s": run.wall_s,
+        "model_step_ms": 1e3 * run.wall_s / steps,
+        "tokens_per_s": stats.tokens_generated / run.wall_s,
+        "ttft_mean_s": sum(stats.ttft_s) / len(stats.ttft_s),
+        "peak_device_memory_gb": peak_gb,
+        "tokens_equal_to_slots_1": True,
+        "ideal_tokens_per_s": ideal.stats.tokens_generated / ideal.wall_s,
+        "ideal_model_step_ms": 1e3 * ideal.wall_s / ideal.stats.model_steps,
+        "requests_parting_from_ideal": parted,
+        "worst_gap_at_parting": worst_gap, "worst_logits_err_at_parting":
+        worst_err, "tie_limit": 2 * TOL_LOGITS}
+
+
+def decode_vs_parallel(torch, cfg, params, api, ssm_mod, layers_mod,
+                       shape_cls, counters, wkv6_plain, ssd_chunk_plain):
+    """Last-position logits of the parallel forward (the loss path's
+    backbone: wkv6 / ssd_chunk at the model's chunk) against token-by-token
+    decode_step, both under ``ideal``, within TOL_LOGITS of max|logits|, at
+    prompts of 64 tokens (chunk 64), 60 and 100 (one ragged chunk of the
+    whole prompt); for zamba2 also three Mamba2 layers alone (the first, a
+    middle and the last), ``mamba2_forward`` against ``mamba2_step`` over
+    the same input, within TOL_DECODE_PARALLEL.
+
+    One exception, the reference's own: rwkv6's chunked form centres a
+    chunk's decay exponents at half its total and clamps them at +-60, so
+    where a channel decays by more than 120 within one chunk the chunked form
+    departs from the recurrence (ROADMAP.md C6; the JAX package's parallel
+    forward departs the same way).  There the departure must come with such
+    a chunk, and the parallel forward must equal the one on the plain
+    versions within TOL_LOGITS."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 11)
+    backbone = (ssm_mod.rwkv6_backbone if cfg.family == "ssm"
+                else ssm_mod.zamba2_backbone)
+    decays = []
+    kernel_wkv6 = ssm_mod.wkv6
+
+    def recording_wkv6(r, k, v, w_log, u, state, *, chunk, **kw):
+        total = -w_log.reshape(w_log.shape[0], -1, chunk,
+                               *w_log.shape[2:]).sum(2)
+        decays.append(float(total.max()) / 2)
+        return kernel_wkv6(r, k, v, w_log, u, state, chunk=chunk, **kw)
+
+    def parallel(toks):
+        with torch.inference_mode():
+            y = backbone(params, layers_mod.embed(toks, params), cfg)
+            return layers_mod.logits_last(y[:, -1:], params["embedding"])
+
+    out = []
+    for T in (64, 60, 100):
+        toks = torch.randint(3, cfg.vocab_size, (1, T), generator=gen,
+                             device=DEVICE)
+        decays.clear()
+        counters.zero()
+        ssm_mod.wkv6 = recording_wkv6
+        try:
+            full = parallel(toks)
+        finally:
+            ssm_mod.wkv6 = kernel_wkv6
+        torch.cuda.synchronize()
+        launches = counters.read()
+        want = {"wkv6": cfg.n_layers if cfg.family == "ssm" else 0,
+                "ssd_chunk": cfg.n_layers if cfg.family == "hybrid" else 0}
+        if any(launches[k] != v for k, v in want.items()):
+            fail(f"decode_vs_parallel {cfg.name} T={T}: launches {launches}, "
+                 f"expected {want}")
+        state = api.make_decode_state(shape_cls("t", T, 1, "decode"))
+        for t in range(T):
+            dec, state = api.decode_step(params, state, toks[:, t:t + 1])
+        scale = float(full.abs().max())
+        err = float((dec - full).abs().max()) / scale
+        row = {"T": T, "chunk": ssm_mod._chunk(cfg.ssm_chunk, T),
+               "parallel_launches": {k: launches[k] for k in want},
+               "max_err_rel": err, "limit": TOL_LOGITS}
+        if decays:
+            row["max_half_chunk_decay"] = max(decays)
+        if not math.isfinite(err):
+            fail(f"decode_vs_parallel {cfg.name} T={T}: not finite")
+        if err >= TOL_LOGITS:
+            if not (decays and max(decays) > WKV6_CLAMP):
+                fail(f"decode_vs_parallel {cfg.name} T={T}: {err} of "
+                     f"max|logits| (limit {TOL_LOGITS})")
+            counters.zero()
+            with plain_route(ssm_mod, wkv6_plain, ssd_chunk_plain):
+                ref = parallel(toks)
+            if any(counters.read()[k] for k in want):
+                fail(f"decode_vs_parallel {cfg.name} T={T}: the plain route "
+                     f"launched a kernel")
+            gap = float((full - ref).abs().max()) / float(ref.abs().max())
+            if not gap < TOL_LOGITS:
+                fail(f"decode_vs_parallel {cfg.name} T={T}: the parallel "
+                     f"forward is {gap} of max|logits| from the plain "
+                     f"route's (limit {TOL_LOGITS})")
+            row.update({"departs_as_the_reference": "ROADMAP.md C6",
+                        "parallel_vs_plain_route_rel": gap})
+        if cfg.family == "hybrid":
+            row["mamba2_layers_alone"] = mamba2_alone(
+                torch, cfg, params, ssm_mod, gen, T)
+        out.append(row)
+    return out
+
+
+def mamba2_alone(torch, cfg, params, ssm_mod, gen, T):
+    """Mamba2 layers 0, L/2 and L-1 of zamba2 on one N(0, 1) input of T
+    tokens: the parallel forward (ssd_chunk at the model's chunk) against
+    T recurrent steps, within TOL_DECODE_PARALLEL of the largest output."""
+    dims = ssm_mod.mamba2_dims(cfg)
+    x = torch.randn((1, T, cfg.d_model), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    rows = []
+    with torch.inference_mode():
+        for i in (0, cfg.n_layers // 2, cfg.n_layers - 1):
+            lp = {k: v[i] for k, v in params["mamba"].items()}
+            y_par = ssm_mod.mamba2_forward(x, lp, cfg)
+            ssm_s = torch.zeros((1, dims["n_heads"], dims["d_state"],
+                                 dims["p"]), device=DEVICE)
+            conv_s = torch.zeros((1, 3, dims["conv_dim"]), device=DEVICE,
+                                 dtype=torch.bfloat16)
+            ys = []
+            for t in range(T):
+                y, ssm_s, conv_s = ssm_mod.mamba2_step(x[:, t:t + 1], lp, cfg,
+                                                       ssm_s, conv_s)
+                ys.append(y)
+            y_dec = torch.cat(ys, dim=1)
+            err = float((y_dec.float() - y_par.float()).abs().max()
+                        / y_par.float().abs().max())
+            if not (math.isfinite(err) and err < TOL_DECODE_PARALLEL):
+                fail(f"decode_vs_parallel {cfg.name} Mamba2 layer {i} T={T}: "
+                     f"{err} of the largest output (limit "
+                     f"{TOL_DECODE_PARALLEL})")
+            rows.append({"layer": i, "max_err_rel": err,
+                         "limit": TOL_DECODE_PARALLEL})
+    return rows
+
+
+def loss_phase(torch, cfg, params, api, ssm_mod, plains, counters):
+    """``ModelAPI.loss`` on a seeded (2, 2048) batch under ``ideal``:
+    finite and near ln(V) for random weights, equal (TOL_LOSS relative) to
+    the same loss with the two recurrences on their plain versions; seconds
+    per call, the kernels' launches and a profile by CUDA kernel."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 12)
+    b, s = LOSS_BATCH
+    toks = torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
+                         device=DEVICE)
+    labels = torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
+                           device=DEVICE)
+    batch = {"tokens": toks, "labels": labels}
+    api.loss(params, batch)                      # warm-up
+    torch.cuda.synchronize()
+    counters.zero()
+    t0 = time.monotonic()
+    loss = float(api.loss(params, batch))
+    seconds = time.monotonic() - t0
+    launches = counters.read()
+    kernel = "wkv6" if cfg.family == "ssm" else "ssd_chunk"
+    if launches[kernel] != cfg.n_layers:
+        fail(f"loss {cfg.name}: {kernel} launched {launches[kernel]} times, "
+             f"expected {cfg.n_layers}")
+    ln_v = math.log(cfg.padded_vocab)
+    if not (math.isfinite(loss) and 0.5 * ln_v < loss < 2 * ln_v):
+        fail(f"loss {cfg.name}: {loss} (random weights: near ln V = {ln_v})")
+    times = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        float(api.loss(params, batch))
+        times.append(time.monotonic() - t0)
+    counters.zero()
+    with plain_route(ssm_mod, *plains):
+        loss_plain = float(api.loss(params, batch))
+    if counters.read()[kernel] != 0:
+        fail(f"loss {cfg.name}: the plain route launched {kernel}")
+    gap = abs(loss - loss_plain) / abs(loss_plain)
+    if not gap <= TOL_LOSS:
+        fail(f"loss {cfg.name}: {loss} on the kernels, {loss_plain} on the "
+             f"plain versions (gap {gap}, limit {TOL_LOSS})")
+    rows = profile_calls(torch, {"loss": lambda: api.loss(params, batch)})
+    by_name = {}
+    for r in rows["loss"] or []:
+        acc = by_name.setdefault(r["kernel"], [0.0, 0])
+        acc[0] += r["ms"]
+        acc[1] += r["calls"]
+    device_ms = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    k_ms, k_calls = by_name.get(f"{kernel}_kernel", [None, 0])
+    seconds_mean = (seconds + sum(times)) / 3
+    return {"arch": cfg.name, "batch": [b, s], "backend": "ideal",
+            "loss": loss, "loss_plain_route": loss_plain,
+            "loss_gap_rel": gap, "loss_gap_limit": TOL_LOSS,
+            "ln_padded_vocab": ln_v, "seconds_per_call": seconds_mean,
+            "tokens_per_s": b * s / seconds_mean, "launches": launches,
+            f"{kernel}_ms_per_launch": (k_ms / k_calls if k_calls else None),
+            f"{kernel}_ms_per_call": k_ms,
+            "device_ms_per_call": device_ms or None,
+            "profile_top_kernels": [
+                {"kernel": k, "ms": v[0], "calls": v[1],
+                 "share": v[0] / device_ms} for k, v in top] or None}
+
+
+SSM_GEMMS = {"rwkv6-1.6b": rwkv6_gemms, "zamba2-2.7b": zamba2_gemms}
+
+
+def recurrence_entry(name, source, replaces, rows, timed_case, launches,
+                     per_step, timed):
+    """A recurrence kernel's entry of the ``kernels`` line: the timed row
+    (times ``per_step`` launches) and the largest error of any row beside
+    its limit."""
+    worst = max(rows, key=lambda r: max(r["max_err_y"] / r["max_err_y_limit"],
+                                        r["max_err_state"]
+                                        / r["max_err_state_limit"]))
+    tag = ("y" if worst["max_err_y"] / worst["max_err_y_limit"]
+           >= worst["max_err_state"] / worst["max_err_state_limit"]
+           else "state")
+    row = timed_case
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": worst[f"max_err_{tag}"],
+        "max_err_limit": worst[f"max_err_{tag}_limit"],
+        "max_err_of": f"{tag}, {worst['case']} (b, s) = "
+                      f"{(worst['b'], worst['s'])}",
+        "timed": timed,
+        "ms": per_step * row["kernel_ms"],
+        "plain_ms": per_step * row["plain_ms"],
+        "bound_ms": per_step * row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None,
+        "library": f"none: no single PyTorch call computes {name}"}
+
+
 def path_entry(name, source, replaces, rows, launches, err_key):
     """A kernel's entry of the ``kernels`` line: one call at each of the
     model's weight shapes at M = 256, bf16, summed; the largest error of
@@ -1002,6 +1597,7 @@ def main() -> int:
     from repro_torch.backend import get_backend, use_backend
     from repro_torch.backend.base import largest_common_block
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.examples import precision_islands as islands
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.precision_island import (precision_island,
@@ -1012,8 +1608,12 @@ def main() -> int:
     from repro_torch.kernels.systolic_mac import (systolic_mac,
                                                   systolic_mac_plain)
     from repro_torch.kernels.tuning import select_blocks
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import layers as layers_mod
     from repro_torch.models import model_api, param_count
+    from repro_torch.models import ssm as ssm_mod
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1033,9 +1633,16 @@ def main() -> int:
                                for s in _build.sources()]})
 
     cfg = get_config(ARCH)
-    shapes = check_serving_shapes(torch, cfg, systolic_mac,
+    shapes = check_serving_shapes(torch, ARCH, dense_gemms(cfg), systolic_mac,
                                   systolic_mac_plain, largest_common_block)
     shapes += check_faulting(torch, systolic_mac, systolic_mac_plain)
+    for arch in SSM_ARCHS:      # M = 1..4: a prompt's token, or the slots
+        shapes += check_serving_shapes(
+            torch, arch, SSM_GEMMS[arch](get_config(arch)), systolic_mac,
+            systolic_mac_plain, largest_common_block, ms=range(1, 5),
+            timed_ms=(DECODE_M,))
+    wkv6_rows = check_wkv6(torch, wkv6, wkv6_plain)
+    ssd_rows = check_ssd(torch, ssd_chunk, ssd_chunk_plain)
     razor_rows = check_razor(
         torch, cfg, (razor_matmul, razor_matmul_plain, quant_rows), ref,
         select_blocks)
@@ -1043,7 +1650,8 @@ def main() -> int:
         torch, cfg, (precision_island, precision_island_plain))
     emit("kernel_checks", {"systolic_mac": shapes,
                            "razor_matmul": razor_rows,
-                           "precision_island": island_rows})
+                           "precision_island": island_rows,
+                           "wkv6": wkv6_rows, "ssd_chunk": ssd_rows})
 
     # where one call's time goes, at the widest weight (w1/wg), bf16
     gen = torch.Generator(device="cuda")
@@ -1079,12 +1687,42 @@ def main() -> int:
     if launches <= 0:
         fail("the served path launched the systolic_mac kernel no time")
 
+    # ---- the state-space models: served, decode against parallel, scored
+    counters = Counters(systolic_mac=systolic_mac, wkv6=wkv6,
+                        ssd_chunk=ssd_chunk)
+    mods = types.SimpleNamespace(
+        serve=serve_mod, use_backend=use_backend, get_backend=get_backend,
+        model_api=model_api, ShapeConfig=ShapeConfig, param_count=param_count)
+    ssm_launches = {}
+    for arch in SSM_ARCHS:
+        cfg_a = get_config(arch)
+        t0 = time.monotonic()
+        api = model_api(cfg_a)
+        params = api.init_params(SEED)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        row = serve_ssm(torch, arch, cfg_a, params, mods, counters)
+        row["init_params_s"] = init_s
+        emit("serve_ssm", row)
+        ssm_launches[arch, "serve"] = row["launches"]
+        emit("decode_vs_parallel", {"arch": arch, "backend": "ideal", "rows":
+                                    decode_vs_parallel(
+                                        torch, cfg_a, params, api, ssm_mod,
+                                        layers_mod, ShapeConfig, counters,
+                                        wkv6_plain, ssd_chunk_plain)})
+        row = loss_phase(torch, cfg_a, params, api, ssm_mod,
+                         (wkv6_plain, ssd_chunk_plain), counters)
+        emit("loss", row)
+        ssm_launches[arch, "loss"] = row["launches"]
+        del api, params
+        torch.cuda.empty_cache()
+
     emit("total", {"seconds": time.monotonic() - t_start})
 
     # one decode step's GEMMs (225 launches at M = slots), from the
     # per-shape measurements above
     step = [s for s in shapes if s.get("M") == DECODE_M
-            and "launches_per_model_step" in s]
+            and s.get("arch") == ARCH and "launches_per_model_step" in s]
     total = lambda key: sum(s[key] * s["launches_per_model_step"]
                             for s in step)
     bounds = {s["bound_by"] for s in step}
@@ -1104,7 +1742,14 @@ def main() -> int:
                  f"weight cold in L2",
         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"), "bound_by": bound_by,
-        "library_ms": total("library_ms")}]
+        "library_ms": total("library_ms"),
+        "decode_step_by_arch": {
+            arch: {key: sum(s[key] * s["launches_per_model_step"]
+                            for s in shapes if s.get("arch") == arch
+                            and "launches_per_model_step" in s)
+                   for key in ("kernel_ms", "plain_ms", "library_ms",
+                               "bound_ms")}
+            for arch in SSM_ARCHS}}]
     for name, source, replaces, rows, n, err_key in (
             ("razor_matmul", "src/repro_torch/csrc/razor_matmul.cu",
              "src/repro/kernels/razor_matmul.py:39", razor_rows, n_razor,
@@ -1113,6 +1758,30 @@ def main() -> int:
              "src/repro/kernels/precision_island.py:29", island_rows,
              n_island, "max_err_f32")):
         kernels.append(path_entry(name, source, replaces, rows, n, err_key))
+    rwkv6_layers = get_config("rwkv6-1.6b").n_layers
+    decode_row = next(r for r in wkv6_rows if r["case"] == "rwkv6 decode"
+                      and r["b"] == DECODE_M)
+    loss_row = next(r for r in wkv6_rows if r["case"] == "rwkv6 loss")
+    entry = recurrence_entry(
+        "wkv6", "src/repro_torch/csrc/wkv6.cu",
+        "src/repro/kernels/wkv6.py:28", wkv6_rows, decode_row,
+        ssm_launches["rwkv6-1.6b", "serve"]["wkv6"], rwkv6_layers,
+        f"the {rwkv6_layers} launches of one rwkv6-1.6b decode step at "
+        f"b={DECODE_M} (s=1, h 32, p 64), each state cold in L2; launches: "
+        f"the serve_ssm run")
+    entry["loss_shape"] = {k: loss_row[k] for k in (
+        "b", "s", "h", "p", "chunk", "kernel_ms", "plain_ms", "bound_ms",
+        "bound_by")}
+    entry["loss_shape"]["launches_per_loss_call"] = ssm_launches[
+        "rwkv6-1.6b", "loss"]["wkv6"]
+    kernels.append(entry)
+    kernels.append(recurrence_entry(
+        "ssd_chunk", "src/repro_torch/csrc/ssd_chunk.cu",
+        "src/repro/kernels/ssd_chunk.py:26", ssd_rows,
+        next(r for r in ssd_rows if r["case"] == "zamba2 loss"),
+        ssm_launches["zamba2-2.7b", "loss"]["ssd_chunk"], 1,
+        "one call at zamba2-2.7b's loss shape (b 2, s 2048, h 80, p 64, "
+        "n 64, chunk 64); launches: one ModelAPI.loss call"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

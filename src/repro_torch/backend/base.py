@@ -412,6 +412,14 @@ def use_backend(spec: Any, **kw: Any):
 # ---------------------------------------------------------------------------
 
 
+def routes_ideal() -> bool:
+    """Whether :func:`matmul` takes the plain ``torch.matmul`` path right now
+    (no backend scoped or installed, or the ideal one).  Unlike
+    ``current_backend().is_ideal`` it makes no backend, so it needs no GPU."""
+    be = _STACK[-1] if _STACK else _DEFAULT
+    return be is None or be.is_ideal
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Dense GEMM through the active backend.  ``a``: (..., K); ``b``: (K, N).
 
@@ -419,9 +427,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``torch.matmul(a, b)``; any other backend receives the flattened (M, K)
     problem.
     """
-    be = _STACK[-1] if _STACK else _DEFAULT
-    if be is None or be.is_ideal:
+    if routes_ideal():
         return torch.matmul(a, b)
+    be = _STACK[-1] if _STACK else _DEFAULT
     lead = a.shape[:-1]
     out = be.traced_matmul(a.reshape(-1, a.shape[-1]), b)
     return out.reshape(*lead, b.shape[-1])

@@ -176,3 +176,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                    # block_m, block_n, dtype
         p]                          # stream
     lib.precision_island_launch.restype = ctypes.c_int
+    lib.wkv6_launch.argtypes = [
+        p, p, p, p,                 # r, k, v, w_log
+        *[ll] * 12,                 # strides (b, s, h) of r, k, v, w_log
+        p, p, p, p,                 # u, state, y, state_out
+        i, i, i, i, i,              # B, S, H, P, chunk
+        p]                          # stream
+    lib.wkv6_launch.restype = ctypes.c_int
+    lib.ssd_chunk_launch.argtypes = [
+        p, p, p, p, p, p,           # x, dt, A_log, B, C, D
+        p, p, p,                    # state, y, state_out
+        ll, ll, ll, ll, ll, ll,     # strides (b, s, h) of x and dt
+        ll, ll, ll, ll,             # strides (b, s) of B and C
+        i, i, i, i, i, i,           # B, S, H, P, N, chunk
+        p]                          # stream
+    lib.ssd_chunk_launch.restype = ctypes.c_int

@@ -3,8 +3,7 @@
 ``voltage_scaled_matmul`` is the paper on one GEMM: static tier/voltage
 assignment over weight tiles -> partitioned kernel execution -> Razor flags
 -> one runtime (Algorithm 2) adjustment step — usable as a drop-in matmul
-for experiments.  Counterpart of ``repro.kernels.ops``; the aliases of the
-kernels not ported yet (``wkv6_op``, ``ssd_op``) are absent.
+for experiments.  Counterpart of ``repro.kernels.ops``.
 """
 
 from __future__ import annotations
@@ -18,8 +17,10 @@ from ..core.precision import static_tier_assignment, tile_headroom
 from ..core.voltage import static_voltage_scaling
 from .precision_island import precision_island
 from .razor_matmul import razor_matmul
+from .ssd_chunk import ssd_chunk
 from .systolic_mac import systolic_mac
 from .tuning import select_square_block
+from .wkv6 import wkv6
 
 
 def systolic_matmul(a, b, v_map, v_safe, **kw):
@@ -32,6 +33,14 @@ def razor_mm(a, b, tol: float = 0.05, **kw):
 
 def precision_mm(a, b, tiers, **kw):
     return precision_island(a, b, tiers, **kw)
+
+
+def wkv6_op(r, k, v, w_log, u, state, chunk: Optional[int] = None, **kw):
+    return wkv6(r, k, v, w_log, u, state, chunk=chunk, **kw)
+
+
+def ssd_op(x, dt, A_log, B, C, D, state, chunk: Optional[int] = None, **kw):
+    return ssd_chunk(x, dt, A_log, B, C, D, state, chunk=chunk, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,7 @@
 
 Semantics shared between kernel and oracle are defined HERE; a kernel must
 reproduce them bit for bit up to dtype tolerance.  Counterpart of
-``repro.kernels.ref``; the oracles of the kernels not ported yet (wkv6,
-ssd) arrive with their kernels.
+``repro.kernels.ref``.
 
 The integer products of razor_matmul and precision_island are exact, as the
 JAX oracle's int32 products are: on the CPU in int32, on a GPU (where PyTorch
@@ -18,6 +17,8 @@ from typing import Optional, Tuple
 import torch
 
 from .tuning import select_square_block
+
+EXP_CLAMP = 30.0
 
 
 # ---------------------------------------------------------------------------
@@ -220,3 +221,49 @@ def precision_island(a: torch.Tensor, b: torch.Tensor, tiers: torch.Tensor,
     m, n = a.shape[0], b.shape[1]
     block = select_square_block(m, n) if block is None else block
     return precision_island_tiles(a, b, tiers, block, block)
+
+
+# ---------------------------------------------------------------------------
+# wkv6: RWKV6 recurrence (naive scan oracle)
+# ---------------------------------------------------------------------------
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w_log: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive per-token recurrence.  r,k,v,w_log: (b, s, h, p); u: (h, p);
+    state: (b, h, p, p).  y_t = r_t.(S + (u*k_t) v_t^T); S' = diag(w)S + k v^T.
+    """
+    S = state.to(torch.float32)
+    ys = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = (x[:, t] for x in (r, k, v, w_log))
+        kv = torch.einsum("bhp,bhq->bhpq", k_t, v_t)
+        ys.append(torch.einsum("bhp,bhpq->bhq", r_t,
+                               S + u[None, :, :, None] * kv))
+        S = S * torch.exp(w_t)[..., None] + kv
+    return torch.stack(ys, dim=1), S
+
+
+# ---------------------------------------------------------------------------
+# ssd: Mamba2 state-space recurrence (naive scan oracle)
+# ---------------------------------------------------------------------------
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+        state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive SSD recurrence.  x: (b, s, h, p); dt: (b, s, h); B, C: (b, s, n);
+    A_log, D: (h,); state: (b, h, n, p).
+      h' = h * exp(dt * -exp(A_log)) + dt * B (x) x ; y = C . h' + D * x
+    """
+    S = state.to(torch.float32)
+    ys = []
+    for t in range(x.shape[1]):
+        x_t, dt_t, B_t, C_t = x[:, t], dt[:, t], B[:, t], C[:, t]
+        da = torch.exp(torch.clamp(dt_t * -torch.exp(A_log), -EXP_CLAMP, 0.0))
+        S = (S * da[:, :, None, None]
+             + torch.einsum("bn,bh,bhp->bhnp", B_t, dt_t, x_t))
+        ys.append(torch.einsum("bn,bhnp->bhp", C_t, S)
+                  + D[None, :, None] * x_t)
+    return torch.stack(ys, dim=1), S

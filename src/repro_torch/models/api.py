@@ -2,6 +2,7 @@
 
     api = model_api(cfg, device="cpu")
     api.param_specs() / api.init_params(seed)
+    api.loss(params, batch) -> mean cross-entropy (a forward pass)
     api.prefill(params, batch) -> (logits, state)
     api.decode_step(params, state, tokens) -> (logits, state)
     api.decode_state_specs(shape) -> decode-state ParamSpecs
@@ -10,13 +11,15 @@
         (continuous batching: one batch row is admitted/evicted without
         recomputing the rest of the batch)
 
-Counterpart of ``repro.models.api``.  The dense family is ported; the other
-families raise ``NotImplementedError`` naming their ROADMAP item.  The
+Counterpart of ``repro.models.api``.  The dense, ssm (rwkv6) and hybrid
+(zamba2) families are ported; the other families raise
+``NotImplementedError`` naming their ROADMAP item.  As in the JAX package,
+ssm/hybrid prompts are absorbed by ``decode_step`` (``prefill`` raises).  The
 decode state is updated **in place**: ``decode_step``, ``slot_update`` and
 ``slot_reset`` write into the tensors they are given and return that tree.
-Steps and state surgery run under ``torch.inference_mode()``; a decode state
-is made by ``make_decode_state`` / ``prefill`` and only ever handed back to
-these methods.
+Steps, losses and state surgery run under ``torch.inference_mode()``; a
+decode state is made by ``make_decode_state`` / ``prefill`` and only ever
+handed back to these methods.
 """
 
 from __future__ import annotations
@@ -29,17 +32,17 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig, ShapeConfig
-from . import lm
+from . import lm, ssm
 from .shardlib import init_param_tree, tree_map
 
 Params = Dict[str, Any]
 
+#: families ported so far
+PORTED = ("dense", "ssm", "hybrid")
+
 _ROADMAP_ITEM = {
     "moe": "queue A: MoE and VLM configs",
     "vlm": "queue A: MoE and VLM configs",
-    "ssm": "queue A/B: models/ssm.py with kernels B4 wkv6 and B5 ssd_chunk",
-    "hybrid": "queue A/B: models/ssm.py with kernels B4 wkv6 and B5 "
-              "ssd_chunk",
     "encdec": "queue A: models/encdec.py",
 }
 
@@ -56,7 +59,7 @@ class ModelAPI:
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
-        if self.cfg.family != "dense":
+        if self.cfg.family not in PORTED:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {self.cfg.family} family is not "
                 f"ported yet (ROADMAP.md "
@@ -78,6 +81,11 @@ class ModelAPI:
     # ---- params --------------------------------------------------------------
 
     def param_specs(self) -> Params:
+        f = self.cfg.family
+        if f == "ssm":
+            return ssm.rwkv6_param_tree(self.cfg)
+        if f == "hybrid":
+            return ssm.zamba2_param_tree(self.cfg)
         return lm.param_specs(self.cfg)
 
     def init_params(self, seed: int = 0,
@@ -93,22 +101,50 @@ class ModelAPI:
 
     # ---- steps ---------------------------------------------------------------
 
+    def loss(self, params: Params,
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]``: a forward pass, no gradient (the training
+        substrate is not ported yet)."""
+        f = self.cfg.family
+        with self._scope(), torch.inference_mode():
+            if f == "ssm":
+                return ssm.rwkv6_loss(params, batch, self.cfg)
+            if f == "hybrid":
+                return ssm.zamba2_loss(params, batch, self.cfg)
+            return lm.loss_fn(params, batch, self.cfg)
+
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"prefill for {self.cfg.family}: SSM/hybrid prompts are "
+                "absorbed by running decode_step over the prompt (O(1) "
+                "state)")
         with self._scope(), torch.inference_mode():
             return lm.prefill(params, batch, self.cfg, max_len)
 
     def decode_step(self, params: Params, state: Params,
                     tokens: torch.Tensor):
+        f = self.cfg.family
         with self._scope(), torch.inference_mode():
+            if f == "ssm":
+                return ssm.rwkv6_decode_step(params, state, tokens, self.cfg)
+            if f == "hybrid":
+                return ssm.zamba2_decode_step(params, state, tokens, self.cfg)
             return lm.decode_step(params, state, tokens, self.cfg)
 
     # ---- specs ---------------------------------------------------------------
 
     def decode_state_specs(self, shape: ShapeConfig) -> Params:
         b, s = shape.global_batch, shape.seq_len
-        return lm.decode_state_specs(self.cfg, b, s,
-                                     long_context=shape.name == "long_500k")
+        long_ctx = shape.name == "long_500k"
+        if self.cfg.family == "ssm":
+            return ssm.rwkv6_state_specs(self.cfg, b)
+        if self.cfg.family == "hybrid":
+            return ssm.zamba2_state_specs(self.cfg, b, s,
+                                          long_context=long_ctx)
+        return lm.decode_state_specs(self.cfg, b, s, long_context=long_ctx)
 
     # ---- per-slot state surgery (continuous batching) ------------------------
     #

@@ -1,7 +1,7 @@
 """Shared model building blocks: norms, RoPE, GQA attention (prefill /
 cached decode, causal + sliding-window), SwiGLU/GELU MLPs, embedding and
-unembedding.  Counterpart of ``repro.models.layers``; MoE and the chunked
-cross-entropy are not ported yet.
+unembedding, and the sequence-chunked cross-entropy (forward only).
+Counterpart of ``repro.models.layers``; MoE is not ported yet.
 
 Numerics policy: params bf16 (norm scales f32), matmuls bf16 with f32
 softmax/normalization.  Every dense GEMM goes through
@@ -382,6 +382,33 @@ def embed_param_specs(cfg: ModelConfig) -> Params:
 def embed(tokens: torch.Tensor, p: Params) -> torch.Tensor:
     x = p["embedding"][tokens]
     return shard(x, "batch", None, None)
+
+
+def chunked_softmax_xent(x: torch.Tensor, emb: torch.Tensor,
+                         labels: torch.Tensor, chunk: int = 256,
+                         unroll: bool = False) -> torch.Tensor:
+    """Sequence-chunked cross-entropy against the (tied) unembedding, as a
+    0-d float32 tensor: the mean over (b, s) of ``logsumexp - gold``.
+
+    Never materialises the full (b, s, V) logits: chunks of ``chunk``
+    positions produce (b, chunk, V) logits, reduce to a scalar and are
+    dropped.  Every logits GEMM goes through ``backend.matmul``; ``emb.T``
+    is a view.  ``unroll`` is accepted for the JAX package's signature (a
+    Python loop is what both of its settings compute)."""
+    b, s, _ = x.shape
+    ch = min(chunk, s)
+    if s % ch:
+        ch = s
+    loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    for ci in range(s // ch):
+        xc = x[:, ci * ch:(ci + 1) * ch]
+        yc = labels[:, ci * ch:(ci + 1) * ch].to(torch.int64)
+        logits = bmm(xc, emb.T).to(torch.float32)            # (b, ch, V)
+        logits = shard(logits, "batch", None, "tp")
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        loss = loss + (lse - gold).sum()
+    return loss / (b * s)
 
 
 def logits_last(x_last: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:

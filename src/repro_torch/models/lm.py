@@ -1,6 +1,7 @@
 """Decoder-only transformer LM: the dense architectures (phi4-mini,
 starcoder2, granite, qwen1.5).  Counterpart of ``repro.models.lm``; the MoE
-and VLM branches and ``loss_fn`` are not ported yet.
+and VLM branches are not ported yet, and ``loss_fn`` is a forward pass (no
+training substrate yet).
 
 Layers are stacked on a leading L axis (the JAX package's layout, so its
 parameter trees convert leaf by leaf) and driven by a Python loop over that
@@ -20,9 +21,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from .layers import (KVCacheSpec, _quant_kv, attention,
-                     attention_param_specs, decode_attention, embed,
-                     embed_param_specs, logits_last, mlp, mlp_param_specs,
-                     rmsnorm, rmsnorm_spec)
+                     attention_param_specs, chunked_softmax_xent,
+                     decode_attention, embed, embed_param_specs, logits_last,
+                     mlp, mlp_param_specs, rmsnorm, rmsnorm_spec)
 from .shardlib import ParamSpec, tree_map
 
 Params = Dict[str, Any]
@@ -52,6 +53,34 @@ def param_specs(cfg: ModelConfig) -> Params:
 def _layer(tree: Params, i: int) -> Params:
     """Layer ``i`` of a stacked tree, as views."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    h = rmsnorm(x, lp["norm_attn"])
+    x = x + attention(h, lp["attn"], cfg, causal=True, positions=positions)
+    h = rmsnorm(x, lp["norm_mlp"])
+    return x + mlp(h, lp["mlp"], cfg)
+
+
+def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig,
+             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Embedding-space input -> final-norm output (a loop over the layer
+    stack)."""
+    for i in range(cfg.n_layers):
+        x = _block(x, _layer(params["blocks"], i), cfg, positions)
+    return rmsnorm(x, params["final_norm"])
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (a 0-d float32 tensor)."""
+    x = embed(batch["tokens"], params)
+    y = backbone(params, x, cfg)
+    return chunked_softmax_xent(y, params["embedding"], batch["labels"],
+                                chunk=cfg.loss_chunk,
+                                unroll=cfg.unroll_layers)
 
 
 # ---------------------------------------------------------------------------

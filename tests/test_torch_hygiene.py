@@ -18,8 +18,11 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import precision_island as island_mod
 from repro_torch.kernels import razor_matmul as razor_mod
+from repro_torch.kernels import ssd_chunk as ssd_mod
+from repro_torch.kernels import wkv6 as wkv6_mod
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model_api
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.serve import ServeEngine, WaveServeEngine
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -39,7 +42,9 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("repro_torch.core.cadflow", "repro_torch.flow.__main__",
                  "repro_torch.kernels.razor_matmul",
                  "repro_torch.kernels.precision_island",
-                 "repro_torch.examples.precision_islands"):
+                 "repro_torch.examples.precision_islands",
+                 "repro_torch.kernels.wkv6", "repro_torch.kernels.ssd_chunk",
+                 "repro_torch.models.ssm"):
         assert name in mods
     code = (
         "import importlib, sys\n"
@@ -89,6 +94,10 @@ def test_no_gpu_no_device_raises_everywhere(monkeypatch):
                   lambda: ServeEngine(cfg, params),
                   lambda: WaveServeEngine(cfg, params),
                   lambda: launch_serve.main(["--arch", "phi4-mini-3.8b",
+                                             "--smoke"]),
+                  lambda: model_api(get_config("rwkv6-1.6b", smoke=True)),
+                  lambda: model_api(get_config("zamba2-2.7b", smoke=True)),
+                  lambda: launch_serve.main(["--arch", "rwkv6-1.6b",
                                              "--smoke"])):
         with pytest.raises(RuntimeError, match="GPU|CUDA"):
             entry()
@@ -125,13 +134,14 @@ def test_failed_compile_raises_with_the_compilers_output(monkeypatch,
 def test_build_is_keyed_by_its_sources():
     srcs = _build.sources()
     assert [s.name for s in srcs] == ["precision_island.cu", "quant_rows.cu",
-                                      "razor_matmul.cu", "systolic_mac.cu"]
+                                      "razor_matmul.cu", "ssd_chunk.cu",
+                                      "systolic_mac.cu", "wkv6.cu"]
     assert _build._digest(srcs) == _build._digest(srcs)
     texts = {s.name: s.read_text() for s in srcs}
     texts.update((h.name, h.read_text())
                  for h in sorted(_build.CSRC_DIR.glob("*.cuh")))
-    assert sorted(texts) == sorted(s.name for s in srcs) + [
-        "tile_products.cuh"]
+    assert sorted(texts) == sorted([s.name for s in srcs]
+                                   + ["tile_products.cuh"])
     for name, text in texts.items():
         for banned in ("cublas", "cutlass", "torch/extension.h", "ATen",
                        "mma.h"):
@@ -139,8 +149,14 @@ def test_build_is_keyed_by_its_sources():
     assert "fmaf" in texts["systolic_mac.cu"]
     assert "__dp4a" in texts["tile_products.cuh"]
     for name in ("systolic_mac", "quant_rows", "razor_matmul",
-                 "precision_island"):
+                 "precision_island", "wkv6", "ssd_chunk"):
         assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]
+    # the recurrences: f32 fmaf on the CUDA cores, accurate expf (no
+    # __expf), the Pallas kernels' clamps
+    for name, clamp in (("wkv6.cu", "60.0f"), ("ssd_chunk.cu", "30.0f")):
+        assert "fmaf" in texts[name] and "expf" in texts[name]
+        assert "__expf" not in texts[name]
+        assert f"EXP_CLAMP = {clamp}" in texts[name]
     # true IEEE division and round-half-even in the quantizer
     assert "__fdiv_rn" in texts["quant_rows.cu"]
     assert "rintf" in texts["quant_rows.cu"]
@@ -159,7 +175,8 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("kernel", ["razor_matmul", "precision_island"])
+@pytest.mark.parametrize("kernel", ["razor_matmul", "precision_island",
+                                    "wkv6", "ssd_chunk", "wkv6_chunked"])
 def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
         kernel, monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
@@ -173,17 +190,32 @@ def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
 
     monkeypatch.setattr(razor_mod, "razor_matmul_plain", plain)
     monkeypatch.setattr(island_mod, "precision_island_plain", plain)
-    a = torch.zeros(256, 64).as_subclass(_CudaLooking)
-    b = torch.zeros(64, 256).as_subclass(_CudaLooking)
+    monkeypatch.setattr(wkv6_mod, "wkv6_plain", plain)
+    monkeypatch.setattr(ssd_mod, "ssd_chunk_plain", plain)
+
+    def cuda(*shape):
+        return torch.zeros(*shape).as_subclass(_CudaLooking)
+
+    a, b = cuda(256, 64), cuda(64, 256)
+    seq = cuda(2, 8, 2, 16)
     with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
         if kernel == "razor_matmul":
             razor_mod.razor_matmul(a, b)
-        else:
+        elif kernel == "precision_island":
             tiers = torch.zeros(2, 2, dtype=torch.int32).as_subclass(
                 _CudaLooking)
             island_mod.precision_island(a, b, tiers)
+        elif kernel == "wkv6":
+            wkv6_mod.wkv6(seq, seq, seq, seq, cuda(2, 16), cuda(2, 2, 16, 16))
+        elif kernel == "ssd_chunk":
+            ssd_mod.ssd_chunk(seq, cuda(2, 8, 2), cuda(2), cuda(2, 8, 4),
+                              cuda(2, 8, 4), cuda(2), cuda(2, 2, 4, 16))
+        else:                                  # the model's chunked form
+            ssm_mod.wkv6_chunked(seq, seq, seq, seq, cuda(2, 16),
+                                 cuda(2, 2, 16, 16), 4)
     assert razor_mod.razor_matmul.launches == 0
     assert island_mod.precision_island.launches == 0
+    assert wkv6_mod.wkv6.launches == ssd_mod.ssd_chunk.launches == 0
 
 
 def test_chip_smoke_fails_here_and_prints_no_result():

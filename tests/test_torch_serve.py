@@ -1,6 +1,8 @@
 """The slice as a whole, on the CPU: the same prompts and the same
 (converted) weights through ``repro.serve.ServeEngine`` and
-``repro_torch.serve.ServeEngine``.
+``repro_torch.serve.ServeEngine``, for phi4-mini-3.8b (dense: prompts
+absorbed by one prefill) and rwkv6-1.6b and zamba2-2.7b (ssm, hybrid:
+prompts absorbed by decode steps at batch 1) at smoke size.
 
 Prompts are drawn with ``np.random.default_rng``.  Token streams are compared
 for equality up to ties: the two stacks' logits differ by bf16 rounding noise
@@ -22,12 +24,14 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.configs.base import ShapeConfig as JShape
 from repro.launch import serve as j_launch
 from repro.models import model_api as j_model_api
 from repro.obs import ObsBus as JObsBus
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import serve as t_launch
 from repro_torch.models import model_api, params_from_numpy
 from repro_torch.obs import ObsBus
@@ -44,6 +48,11 @@ MAX_NEW = [4, 7, 2, 5, 3]
 #: than twice that are tied as far as a greedy token can tell
 BF16_TOL = 4 * 2.0 ** -8
 CLOCK_FIELDS = ("ttft_s", "ttft_mean_s")
+#: model GEMMs per model step of each smoke model: phi4 7 a layer x 2 + the
+#: logits; rwkv6 10 a layer (r, k, v, g, the two decay LoRA factors, o, and
+#: the channel mix's three) x 2 + 1; zamba2 2 a Mamba2 layer x 4 + 8 a shared
+#: block application (down, q, k, v, o, and the MLP's three) x 2 + 1
+GEMMS_PER_STEP = {"phi4-mini-3.8b": 15, "rwkv6-1.6b": 21, "zamba2-2.7b": 25}
 
 
 def _np_tree(tree):
@@ -54,11 +63,11 @@ def _np_tree(tree):
     return np.asarray(tree)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg = j_get_config("phi4-mini-3.8b", smoke=True)
+@pytest.fixture(scope="module", params=sorted(GEMMS_PER_STEP))
+def pair(request):
+    jcfg = j_get_config(request.param, smoke=True)
     jparams = j_model_api(jcfg).init_params(jax.random.PRNGKey(0))
-    tcfg = get_config("phi4-mini-3.8b", smoke=True)
+    tcfg = get_config(request.param, smoke=True)
     tparams = params_from_numpy(
         _np_tree(jparams), model_api(tcfg, device="cpu").param_specs(), "cpu")
     return jcfg, jparams, tcfg, tparams
@@ -92,11 +101,18 @@ def test_tie_rule_accepts_only_tied_tokens():
 
 def _jax_logits_alone(api, params, prompt, fed, max_len):
     """The JAX model's logits after ``prompt`` and then ``fed``, one request
-    alone."""
-    logits, state = api.prefill(params, {"tokens": jnp.asarray([prompt])},
-                                max_len=max_len)
+    alone; an ssm/hybrid prompt is absorbed by decode steps, as the JAX
+    engine absorbs it."""
+    step = jax.jit(api.decode_step)
+    if api.cfg.family in ("ssm", "hybrid"):
+        state = api.make_decode_state(JShape("serve", max_len, 1, "decode"))
+        for t in prompt:
+            logits, state = step(params, state, jnp.asarray([[t]]))
+    else:
+        logits, state = api.prefill(params, {"tokens": jnp.asarray([prompt])},
+                                    max_len=max_len)
     for t in fed:
-        logits, state = api.decode_step(params, state, jnp.asarray([[t]]))
+        logits, state = step(params, state, jnp.asarray([[t]]))
     return np.asarray(logits)[0]
 
 
@@ -150,7 +166,7 @@ def test_engine_matches_jax_engine(pair, backend):
         {k: v for k, v in jd.items() if k not in CLOCK_FIELDS}
     if backend == "reference":
         bt = td["backend_telemetry"]
-        assert bt["calls"] == 15 * tstats.model_steps    # 7 x 2 layers + 1
+        assert bt["calls"] == GEMMS_PER_STEP[tcfg.name] * tstats.model_steps
         assert (bt["calls"], bt["macs"], bt["flags"]) == tuple(
             jd["backend_telemetry"][k] for k in ("calls", "macs", "flags"))
         assert bt["flags"] == 0
@@ -182,9 +198,17 @@ def test_two_virtual_time_runs_render_identically(pair):
 
 def _alone(api, params, prompt, max_new, max_len):
     """Greedy decode of one request alone (the slots=1 ground truth): the
-    tokens and each step's logits."""
-    logits, state = api.prefill(params, {"tokens": torch.tensor([prompt])},
-                                max_len=max_len)
+    tokens and each step's logits.  An ssm/hybrid prompt is absorbed by
+    decode steps."""
+    if api.cfg.family in ("ssm", "hybrid"):
+        state = api.make_decode_state(ShapeConfig("serve", max_len, 1,
+                                                  "decode"))
+        for t in prompt:
+            logits, state = api.decode_step(params, state,
+                                            torch.tensor([[t]]))
+    else:
+        logits, state = api.prefill(params, {"tokens": torch.tensor([prompt])},
+                                    max_len=max_len)
     out, steps = [int(logits[0].argmax())], [logits[0].numpy()]
     while len(out) < max_new:
         logits, state = api.decode_step(params, state,
@@ -287,6 +311,29 @@ def test_launcher_writes_the_jax_launchers_json(tmp_path, monkeypatch, capsys):
         assert t[key] == j[key], key
     assert t["backend_telemetry"] == j["backend_telemetry"]
     assert "serve_decode_steps_total" in (tmp_path / "m.prom").read_text()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+@pytest.mark.parametrize("backend", ["ideal", "reference"])
+def test_launcher_serves_the_ssm_archs_as_the_jax_launcher(
+        arch, backend, tmp_path, monkeypatch, capsys):
+    flags = ["--arch", arch, "--smoke", "--backend", backend, "--requests",
+             "3", "--slots", "2", "--max-new", "3", "--mixed"]
+    t_out, j_out = tmp_path / "torch.json", tmp_path / "jax.json"
+    t_launch.main(flags + ["--device", "cpu", "--json-out", str(t_out)])
+    monkeypatch.setattr(sys, "argv", ["serve"] + flags
+                        + ["--json-out", str(j_out)])
+    j_launch.main()
+    capsys.readouterr()
+    t, j = json.loads(t_out.read_text()), json.loads(j_out.read_text())
+    assert list(t) == list(j)
+    for key in ("arch", "engine", "slots", "max_len", "requests",
+                "prefill_steps", "decode_steps", "admitted", "completed",
+                "truncated", "tokens_generated", "slot_busy_steps", "backend",
+                "model_steps", "occupancy"):
+        assert t[key] == j[key], key
+    assert t["prefill_steps"] > 0 and t["completed"] == 3
+    assert t["backend_telemetry"] == j["backend_telemetry"]
 
 
 @pytest.mark.parametrize("flags", [["--backend", "emulated"],
