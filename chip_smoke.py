@@ -1154,6 +1154,14 @@ def check_wkv6(torch, wkv6, wkv6_plain):
         row.update({"kernel_ms": t_kernel, "plain_ms": t_plain,
                     "library_ms": None, "bound_ms": t_bound, "bound_by": by,
                     "state_cold_in_l2": len(states) > 1})
+        if s == 1:
+            # back-to-back launches this small are timed at the host's launch
+            # rate; the profiler gives the device's own time of one launch
+            prof = profile_calls(torch, {"wkv6": lambda: wkv6(
+                *args[:-1], states[-1], chunk=ch)})["wkv6"]
+            row["kernel_device_ms"] = next(
+                (r["ms"] / r["calls"] for r in prof or []
+                 if r["kernel"] == "wkv6_kernel"), None)
         del states
     return out
 
@@ -1769,6 +1777,11 @@ def main() -> int:
         f"the {rwkv6_layers} launches of one rwkv6-1.6b decode step at "
         f"b={DECODE_M} (s=1, h 32, p 64), each state cold in L2; launches: "
         f"the serve_ssm run")
+    if decode_row.get("kernel_device_ms") is not None:
+        entry["device_ms"] = rwkv6_layers * decode_row["kernel_device_ms"]
+        entry["device_ms_of"] = ("the same 24 launches, device time by "
+                                 "torch.profiler: ms above is the host's "
+                                 "launch rate")
     entry["loss_shape"] = {k: loss_row[k] for k in (
         "b", "s", "h", "p", "chunk", "kernel_ms", "plain_ms", "bound_ms",
         "bound_by")}

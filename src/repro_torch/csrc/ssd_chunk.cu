@@ -22,14 +22,16 @@
 //     itself.
 //   * Any chunk length works: a chunk's rows are taken in tiles of 32 and the
 //     (32 x 32) weight tile is formed one pair of row tiles at a time, with
-//     the cumsum recomputed per tile in the same sequential order.
+//     the cumsum recomputed per tile in the same sequential order (one
+//     thread, from the tile's dt staged in shared memory).
 //   * f32 throughout, fmaf on the CUDA cores (no TF32, no tensor cores); da is
 //     rounded before it is summed, as the cumsum of the plain version does.
 //
 // Bound on this card: at zamba2's shapes (h 80, p 64, n 64, chunk 64) the
-// bytes of x, dt, B, C and y (the arithmetic is about 16 f32 operations per
-// byte, under the 20 at which the f32 peak binds).  This first version runs
-// one block per (b, h), 160 blocks for a batch of two.
+// f32 operations, about 60 per byte of x, dt, B, C and y (the f32 peak
+// binds past 20; the scores are taken once per head, as the Pallas kernel
+// takes them).  This first version runs one block per (b, h), 160 blocks
+// for a batch of two, on the CUDA cores.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +61,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   __shared__ float tB[TILE][LD];     // B of an s tile (times the tail)
   __shared__ float tx_[TILE][LD];    // x * dt of an s tile
   __shared__ float Wt[TILE][TILE + 1];
-  __shared__ float cum_t[TILE], cum_s[TILE];
+  __shared__ float cum_t[TILE], cum_s[TILE], dt_s[TILE];
   __shared__ float cum_end;
 
   const int tid = threadIdx.x;
@@ -72,6 +74,19 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   auto Bv = [&](int t, int n) { return Bm[b * B_sb + t * B_ss + n]; };
   auto Cv = [&](int t, int n) { return Cm[b * C_sb + t * C_ss + n]; };
 
+  // one tile's dt into dt_s, 32 threads at once (thread 0's walks below then
+  // read them from shared memory)
+  auto stage_dt = [&](int row0, int rows) {
+    if (tid < TILE) dt_s[tid] = tid < rows ? DT(row0 + tid) : 0.f;
+  };
+  // thread 0: cum of the staged tile's rows from the running ``pre``
+  auto walk = [&](float& pre, float* cum, int rows) {
+    for (int i = 0; i < rows; ++i) {
+      pre = __fadd_rn(pre, __fmul_rn(dt_s[i], a));
+      cum[i] = pre;
+    }
+  };
+
   // the whole state, read before anything is written (s_out may be s0)
   const float* s0b = s0 + (long long)bh * N * P;
   for (int e = tid; e < N * P; e += THREADS) Ss[e / P][e % P] = s0b[e];
@@ -82,26 +97,27 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
   for (int c = 0; c < n_chunks; ++c) {
     const int c0 = c * ch;
-    if (tid == 0) {                           // the sequential cumsum's total
-      float tot = 0.f;
-      for (int t = 0; t < ch; ++t) tot = __fadd_rn(tot, __fmul_rn(DT(c0 + t), a));
-      cum_end = tot;
+    float tot = 0.f;                          // the sequential cumsum's total
+    for (int ti = 0; ti < n_tiles; ++ti) {
+      const int rows = min(TILE, ch - ti * TILE);
+      stage_dt(c0 + ti * TILE, rows);
+      __syncthreads();
+      if (tid == 0) walk(tot, cum_s, rows);
+      __syncthreads();
     }
+    if (tid == 0) cum_end = tot;
     float pre_t = 0.f;                        // cum before the t tile (tid 0)
     __syncthreads();
 
     for (int ti = 0; ti < n_tiles; ++ti) {
       const int t0 = ti * TILE, nt = min(TILE, ch - t0);
-      if (tid == 0) {
-        for (int i = 0; i < nt; ++i) {
-          pre_t = __fadd_rn(pre_t, __fmul_rn(DT(c0 + t0 + i), a));
-          cum_t[i] = pre_t;
-        }
-      }
+      stage_dt(c0 + t0, nt);
       for (int e = tid; e < TILE * DMAX; e += THREADS) {
         const int i = e / DMAX, n = e % DMAX;
         tC[i][n] = (i < nt && n < N) ? Cv(c0 + t0 + i, n) : 0.f;
       }
+      __syncthreads();
+      if (tid == 0) walk(pre_t, cum_t, nt);
       __syncthreads();
 
       // inter-chunk: (C S) * exp(cum) with the state at the chunk's start
@@ -119,12 +135,9 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       float pre_s = 0.f;                      // cum before the s tile (tid 0)
       for (int sj = 0; sj <= ti; ++sj) {
         const int s0_ = sj * TILE, ns = min(TILE, ch - s0_);
-        if (tid == 0) {
-          for (int i = 0; i < ns; ++i) {
-            pre_s = __fadd_rn(pre_s, __fmul_rn(DT(c0 + s0_ + i), a));
-            cum_s[i] = pre_s;
-          }
-        }
+        stage_dt(c0 + s0_, ns);
+        __syncthreads();
+        if (tid == 0) walk(pre_s, cum_s, ns);
         for (int e = tid; e < TILE * DMAX; e += THREADS) {
           const int i = e / DMAX, q = e % DMAX;
           const bool in = i < ns;
@@ -182,12 +195,9 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     float pre_s = 0.f;
     for (int sj = 0; sj < n_tiles; ++sj) {
       const int s0_ = sj * TILE, ns = min(TILE, ch - s0_);
-      if (tid == 0) {
-        for (int i = 0; i < ns; ++i) {
-          pre_s = __fadd_rn(pre_s, __fmul_rn(DT(c0 + s0_ + i), a));
-          cum_s[i] = pre_s;
-        }
-      }
+      stage_dt(c0 + s0_, ns);
+      __syncthreads();
+      if (tid == 0) walk(pre_s, cum_s, ns);
       __syncthreads();
       for (int e = tid; e < TILE * DMAX; e += THREADS) {
         const int i = e / DMAX, q = e % DMAX;

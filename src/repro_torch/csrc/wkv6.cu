@@ -26,15 +26,18 @@
 //   * Any chunk length works: the rows of a chunk are taken in tiles of 32,
 //     the score tile (32 x 32) is formed one pair of row tiles at a time, and
 //     the centring m and the clamps are those of the whole chunk.  The
-//     cumsum is the sequential sum, recomputed per tile in the same order, so
-//     every tile sees the same lw values to the bit.
+//     cumsum is the sequential sum, recomputed per tile in the same order
+//     (one thread per channel, from the tile's decays staged in shared
+//     memory by all threads), so every tile sees the same lw values to the
+//     bit.
 //   * f32 throughout, fmaf on the CUDA cores (no TF32, no tensor cores).
 //
-// Bound on this card: at the model's shapes (p = 64, chunk 64) the bytes of
-// r, k, v, w and y in the loss path (about 17 f32 operations per byte) and
-// launch latency at decode (s = 1, 2 MB of state each way per layer at four
-// slots).  This first version keeps one block per (b, h) (64 to 160 blocks
-// on 132 SMs) and recomputes each tile's cumsum by one thread per channel.
+// Bound on this card: in the loss path (p = 64, chunk 64) the f32
+// operations, about 25 per byte of r, k, v, w and y (the f32 peak binds
+// past 20); at decode (s = 1) the state's bytes, 2 MB each way per layer at
+// four slots, far under one launch's cost.  This first version keeps one
+// block per (b, h) (64 to 128 blocks on 132 SMs) and takes the four
+// products on the CUDA cores: occupancy, not the bound, sets its time.
 
 #include <cuda_runtime.h>
 
@@ -78,6 +81,15 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
   auto V = [&](int t, int p) { return v[ob_v + t * sv.s + p]; };
   auto W = [&](int t, int p) { return w[ob_w + t * sw.s + p]; };
 
+  // one tile of decays into tk, all threads at once (the walks below then
+  // read them from shared memory); rows past the tile are zero
+  auto stage_w = [&](int row0, int rows) {
+    for (int e = tid; e < TILE * PMAX; e += THREADS) {
+      const int i = e / PMAX, p = e % PMAX;
+      tk[i][p] = (i < rows && p < P) ? W(row0 + i, p) : 0.f;
+    }
+  };
+
   // the whole state, read before anything is written (s_out may be s0)
   const float* s0b = s0 + (long long)bh * P * P;
   for (int e = tid; e < P * P; e += THREADS) Ss[e / P][e % P] = s0b[e];
@@ -89,9 +101,17 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
   for (int c = 0; c < n_chunks; ++c) {
     const int c0 = c * ch;
     // chunk totals, in the order of the sequential cumsum
+    float tot = 0.f;
+    for (int ti = 0; ti < n_tiles; ++ti) {
+      stage_w(c0 + ti * TILE, min(TILE, ch - ti * TILE));
+      __syncthreads();
+      if (tid < P) {
+#pragma unroll
+        for (int i = 0; i < TILE; ++i) tot += tk[i][tid];   // zero past the tile
+      }
+      __syncthreads();
+    }
     if (tid < P) {
-      float tot = 0.f;
-      for (int t = 0; t < ch; ++t) tot += W(c0 + t, tid);
       end_s[tid] = tot;
       m_s[tid] = 0.5f * tot;
     }
@@ -100,10 +120,14 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
 
     for (int ti = 0; ti < n_tiles; ++ti) {
       const int t0 = ti * TILE, nt = min(TILE, ch - t0);
-      if (tid < P) {
+      stage_w(c0 + t0, nt);
+      __syncthreads();
+      if (tid < P) {                          // in place: w -> lw_prev
+#pragma unroll
         for (int i = 0; i < TILE; ++i) {
+          const float w_i = tk[i][tid];
           tk[i][tid] = pre_t;
-          if (i < nt) pre_t += W(c0 + t0 + i, tid);
+          pre_t += w_i;
         }
       }
       __syncthreads();
@@ -139,27 +163,37 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
       float pre_s = 0.f;                      // lw before the s tile (tid < P)
       for (int sj = 0; sj <= ti; ++sj) {
         const int s0_ = sj * TILE, ns = min(TILE, ch - s0_);
-        if (tid < P) {
+        stage_w(c0 + s0_, ns);
+        __syncthreads();
+        if (tid < P) {                        // in place: w -> lw
+#pragma unroll
           for (int i = 0; i < TILE; ++i) {
-            float kk = 0.f;
-            if (i < ns) {
-              const float lw = pre_s + W(c0 + s0_ + i, tid);
-              kk = K(c0 + s0_ + i, tid) *
-                   expf(clip(m_s[tid] - lw, -EXP_CLAMP, EXP_CLAMP));
-              pre_s = lw;
-            }
-            tk[i][tid] = kk;
+            pre_s += tk[i][tid];
+            tk[i][tid] = pre_s;
           }
+        }
+        __syncthreads();
+        for (int e = tid; e < TILE * PMAX; e += THREADS) {
+          const int i = e / PMAX, p = e % PMAX;
+          tk[i][p] = (i < ns && p < P)
+                         ? K(c0 + s0_ + i, p) *
+                               expf(clip(m_s[p] - tk[i][p], -EXP_CLAMP, EXP_CLAMP))
+                         : 0.f;
         }
         for (int e = tid; e < TILE * PMAX; e += THREADS) {
           const int i = e / PMAX, q = e % PMAX;
           tv[i][q] = (i < ns && q < P) ? V(c0 + s0_ + i, q) : 0.f;
         }
-        if (sj == ti && tid < nt) {
+        if (sj == ti) {                       // sum_p r u k, 8 threads a row
+          const int row = tid / 8, part = tid % 8;
           float d = 0.f;
-          for (int p = 0; p < P; ++p)
-            d += R(c0 + t0 + tid, p) * u[h * P + p] * K(c0 + t0 + tid, p);
-          diag_s[tid] = d;
+          if (row < nt)
+            for (int p = part; p < P; p += 8)
+              d += R(c0 + t0 + row, p) * u[h * P + p] * K(c0 + t0 + row, p);
+          d += __shfl_xor_sync(0xffffffffu, d, 4);
+          d += __shfl_xor_sync(0xffffffffu, d, 2);
+          d += __shfl_xor_sync(0xffffffffu, d, 1);
+          if (part == 0) diag_s[row] = d;
         }
         __syncthreads();
         {
@@ -211,17 +245,22 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
     float pre_s = 0.f;
     for (int sj = 0; sj < n_tiles; ++sj) {
       const int s0_ = sj * TILE, ns = min(TILE, ch - s0_);
-      if (tid < P) {
+      stage_w(c0 + s0_, ns);
+      __syncthreads();
+      if (tid < P) {                          // in place: w -> lw
+#pragma unroll
         for (int i = 0; i < TILE; ++i) {
-          float kt = 0.f;
-          if (i < ns) {
-            const float lw = pre_s + W(c0 + s0_ + i, tid);
-            kt = K(c0 + s0_ + i, tid) *
-                 expf(clip(end_s[tid] - lw, -EXP_CLAMP, EXP_CLAMP));
-            pre_s = lw;
-          }
-          tk[i][tid] = kt;
+          pre_s += tk[i][tid];
+          tk[i][tid] = pre_s;
         }
+      }
+      __syncthreads();
+      for (int e = tid; e < TILE * PMAX; e += THREADS) {
+        const int i = e / PMAX, p = e % PMAX;
+        tk[i][p] = (i < ns && p < P)
+                       ? K(c0 + s0_ + i, p) *
+                             expf(clip(end_s[p] - tk[i][p], -EXP_CLAMP, EXP_CLAMP))
+                       : 0.f;
       }
       for (int e = tid; e < TILE * PMAX; e += THREADS) {
         const int i = e / PMAX, q = e % PMAX;

@@ -11,10 +11,10 @@ weight tiles ``(C B^T) * exp(cum_t - cum_s)`` under an inclusive mask; the
 the carried state's factor at [-30, 0], as in the Pallas kernel.
 
 What bounds it on an H100: at zamba2's shapes (h 80, p 64, n 64, chunk 64)
-the bytes of x, dt, B, C and y.  One block per (b, h) walks the chunks in
-order with the state in shared memory; B and C, shared by every head, are
-read per batch row through their strides (the Pallas wrapper repeats them
-once per head in device memory first).
+the f32 operations of the four products.  One block per (b, h) walks the
+chunks in order with the state in shared memory; B and C, shared by every
+head, are read per batch row through their strides (the Pallas wrapper
+repeats them once per head in device memory first).
 
 :func:`ssd_chunk` launches the kernel for CUDA tensors (or raises) and
 computes :func:`ssd_chunk_plain` for CPU tensors; there is no other route

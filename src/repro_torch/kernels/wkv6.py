@@ -9,11 +9,11 @@ score tiles and carries the (p, p) state from chunk to chunk; exponents are
 centred at half the chunk's total decay and clamped at +-60 (the Pallas
 kernel's ``EXP_CLAMP``), the carried state's factor at [-60, 0].
 
-What bounds it on an H100: in the loss path (chunk 64, p 64) the bytes of
-r, k, v, w and y; at decode (s = 1) the state's bytes and, below them, the
-launch.  One block per (b, h) walks the chunks in order with the state in
-shared memory and reads the (b, s, h, p) inputs through their strides, so
-no input is moved or copied first.
+What bounds it on an H100: in the loss path (chunk 64, p 64) the f32
+operations of the four products; at decode (s = 1) the state's bytes, far
+under the cost of one launch.  One block per (b, h) walks the chunks in
+order with the state in shared memory and reads the (b, s, h, p) inputs
+through their strides, so no input is moved or copied first.
 
 :func:`wkv6` launches the kernel for CUDA tensors (or raises) and computes
 :func:`wkv6_plain` for CPU tensors; there is no other route between the two.
