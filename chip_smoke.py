@@ -132,6 +132,18 @@ def time_ms(fn, n_variants: int, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, n_variants: int, iters: int):
+    """Mean device milliseconds of ``fn(i)`` by ``torch.profiler``: the
+    summed time of the CUDA kernels (and memsets) that ``iters`` calls run,
+    cycling ``n_variants`` operand copies as :func:`time_ms` does, over
+    ``iters``.  Unlike back-to-back events it leaves out the host's launch
+    work.  None where the profiler sees no device time (not measured)."""
+    import torch
+    rows = profile_calls(torch, {"calls": lambda: [
+        fn(i % n_variants) for i in range(iters)]})["calls"]
+    return None if rows is None else sum(r["ms"] for r in rows) / iters
+
+
 def bound_ms(m: int, k: int, n: int, gm: int, gn: int, dtype_name: str):
     """Least time the card could take for one systolic_mac call: every input
     (a, b, v_map, v_safe) read once, every output (C f32, flags, count)
@@ -164,6 +176,23 @@ def check_epilogue(torch, c, flags, block_m, block_n, keep_bits, what):
     if bool((~any_low & ~fired).any()):
         fail(f"{what}: a clean cell has its low mantissa bits masked "
              f"(keep_bits={keep_bits})")
+
+
+def check_counted(torch, systolic_mac, args, kw, c, flags, what):
+    """The reference backend's launch, ``counter=``: on the same operands
+    and rails as the fresh-count call that gave ``c`` and ``flags``, it adds
+    exactly ``flags.sum()`` into a count that does not start at zero, and
+    its result and flags equal that call's bit for bit."""
+    start = 1000
+    counter = torch.full((), start, dtype=torch.int32, device=c.device)
+    c2, flags2 = systolic_mac(*args, **kw, counter=counter)
+    if not (torch.equal(c2.view(torch.int32), c.view(torch.int32))
+            and torch.equal(flags2, flags)):
+        fail(f"{what}: counter= gives another result or flag map than "
+             f"count_flags=True")
+    if int(counter) != start + int(flags.sum()):
+        fail(f"{what}: counter= added {int(counter) - start}, flags.sum() "
+             f"is {int(flags.sum())}")
 
 
 def dense_gemms(cfg):
@@ -210,11 +239,16 @@ def zamba2_gemms(cfg):
 
 def check_serving_shapes(torch, arch, weights, systolic_mac,
                          systolic_mac_plain, largest_common_block,
-                         ms=range(1, 8), timed_ms=(1, DECODE_M, 7)):
+                         ms=range(1, 8),
+                         timed_ms=(1, DECODE_M, 7)):
     """Every (K, N) a model multiplies by (``weights``, from
     :func:`dense_gemms` and its siblings), nominal rails, on the flag grid
     the reference backend uses: checked at every M in ``ms`` (a prompt's
-    length in prefill, the slots in decode), timed at ``timed_ms``."""
+    length in prefill, the slots in decode), timed at ``timed_ms``.  The
+    timed call is the reference backend's launch (``counter=``, a running
+    count), back to back by events (``kernel_ms``) and on
+    the device by the profiler (``device_ms``); ``torch.matmul`` of the same
+    operands beside it (``library_ms``, ``library_device_ms``)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -267,20 +301,31 @@ def check_serving_shapes(torch, arch, weights, systolic_mac,
             if m not in timed_ms:
                 continue
             iters = 4 if transposed else 24
-            t_kernel = time_ms(
-                lambda i: systolic_mac(a, bs[i], v_map, v_safe, block_m=block,
-                                       block_n=block, count_flags=True),
-                copies, iters)
+            counter = torch.zeros((), dtype=torch.int32, device=dev)
+
+            def kernel(i):
+                return systolic_mac(a, bs[i], v_map, v_safe, block_m=block,
+                                    block_n=block, counter=counter)
+
+            def library(i):
+                return torch.matmul(a, bs[i])
+
+            t_kernel = time_ms(kernel, copies, iters)
             t_plain = time_ms(
                 lambda i: systolic_mac_plain(a, bs[i], v_map, v_safe,
                                              block_m=block, block_n=block),
                 copies, iters)
-            t_lib = time_ms(lambda i: torch.matmul(a, bs[i]), copies, iters)
+            t_lib = time_ms(library, copies, iters)
             t_bound, by = bound_ms(m, k, n, gm, gn, dname)
             entry.update({
                 "launches_per_model_step": per_step, "kernel_ms": t_kernel,
+                "device_ms": device_ms(kernel, copies, iters),
                 "plain_ms": t_plain, "library_ms": t_lib,
+                "library_device_ms": device_ms(library, copies, iters),
                 "bound_ms": t_bound, "bound_by": by})
+            if int(counter) != 0:
+                fail(f"systolic_mac {arch} {name} M={m}: cells fired at "
+                     f"nominal rails")
         del store, bs
     return out
 
@@ -334,6 +379,9 @@ def check_faulting(torch, systolic_mac, systolic_mac_plain):
                 fail(f"{what}: result is not the nominal result with the "
                      f"flagged cells' low {23 - keep_bits} bits cleared")
             check_epilogue(torch, c, flags, bm, bn, keep_bits, what)
+            check_counted(torch, systolic_mac, (a, b, v_map, v_safe),
+                          {"block_m": bm, "block_n": bn,
+                           "keep_bits": keep_bits}, c, flags, what)
             scale = float(c_ref.abs().max())
             diff = (c - c_ref).abs()
             err_clean = float(diff[~bad].max())
@@ -350,6 +398,7 @@ def check_faulting(torch, systolic_mac, systolic_mac_plain):
                 "flag_cell": [bm, bn], "keep_bits": keep_bits,
                 "fired": fired, "flags_equal": True,
                 "count_equals_flag_sum": True, "masked_bit_for_bit": True,
+                "counter_adds_flag_sum": True,
                 "max_err_clean": err_clean,
                 "max_err_clean_limit": TOL_CLEAN * scale,
                 "max_err_corrupt": err_bad, "max_err_corrupt_limit": lim_bad}
@@ -367,6 +416,188 @@ def check_faulting(torch, systolic_mac, systolic_mac_plain):
             entry.update({"kernel_ms": t_kernel, "plain_ms": t_plain,
                           "library_ms": t_lib, "bound_ms": t_bound,
                           "bound_by": by})
+    return out
+
+
+def model_weight(torch, gen, k, n, dtype, transposed):
+    """A (K, N) weight as a model holds it: row-major, or the tied
+    unembedding's transposed view of a (N, K) table."""
+    dev = gen.device
+    if transposed:
+        return torch.randn((n, k), generator=gen, device=dev).mul_(
+            0.02).to(dtype).T
+    return torch.randn((k, n), generator=gen, device=dev).mul_(
+        1 / math.sqrt(k)).to(dtype)
+
+
+def check_row_invariance(torch, systolic_mac, shapes):
+    """Contract 1 of the kernel, at nominal rails: for every (K, N) in
+    ``shapes`` (every model's weights) and both types, row 0 of the calls at
+    M = 1..8 is bit-equal to the M = 1 call (phi4-mini's w2 also at M = 64
+    and 256), and a second identical call at M = 4 is bit-equal to the
+    first (contract 2; every one of these shapes but the logits splits K)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    v, vs = torch.ones((1, 1), device=dev), torch.zeros((1, 1), device=dev)
+    out = []
+    for (k, n, transposed), wide in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            b = model_weight(torch, gen, k, n, dtype, transposed)
+            a = torch.randn((256, k), generator=gen, device=dev).to(dtype)
+            ref = systolic_mac(a[:1], b, v, vs)[0][0].view(torch.int32)
+            ms = list(range(1, 9)) + ([64, 256] if wide else [])
+            for m in ms:
+                c = systolic_mac(a[:m], b, v, vs)[0]
+                if not torch.equal(c[0].view(torch.int32), ref):
+                    fail(f"systolic_mac row invariance ({k}, {n}) {name}: row "
+                         f"0 at M={m} differs from M=1")
+            c4 = systolic_mac(a[:4], b, v, vs)[0]
+            again = systolic_mac(a[:4], b, v, vs)[0]
+            if not torch.equal(c4.view(torch.int32), again.view(torch.int32)):
+                fail(f"systolic_mac ({k}, {n}) {name} M=4: a second identical "
+                     f"call differs")
+            out.append({"K": k, "N": n, "b_transposed_view": transposed,
+                        "dtype": name, "M": ms,
+                        "row0_bit_equal_to_M1": True,
+                        "repeat_bit_equal": True})
+            del a, b
+    torch.cuda.synchronize()
+    return out
+
+
+def check_ragged(torch, systolic_mac, systolic_mac_plain):
+    """The shapes the bulk copies cannot take, in both types and both
+    layouts of b: M in {1, 3, 9, 17}, K in {1, 15, 1000}, N in {1, 7, 1001};
+    and offset views (a[:, 1:], b[1:, 1:]: base pointers and row strides not
+    16-byte aligned) at (1000, 1001) and at the aligned shape (1024, 1024).
+    Rails drawn around the safe voltage on 1 x 7 (or 1 x 1) cells: flags
+    equal, the count equal to flags.sum(), both tolerances, and the result
+    equal to the kernel's own nominal result with the flagged cells' low
+    bits cleared."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    keep = -(1 << (23 - 8))
+    out = []
+    cases = [(m, k, n, False) for m in (1, 3, 9, 17) for k in (1, 15, 1000)
+             for n in (1, 7, 1001)]
+    cases += [(m, k, n, True) for m in (1, 3, 9, 17)
+              for k, n in ((1000, 1001), (1024, 1024))]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for transposed in (False, True):
+            for m, k, n, offset in cases:
+                o = 1 if offset else 0
+                a = torch.randn((m, k + o), generator=gen,
+                                device=dev).to(dtype)[:, o:]
+                if transposed:
+                    b = torch.randn((n + o, k + o), generator=gen,
+                                    device=dev).to(dtype)[o:, o:].T
+                else:
+                    b = torch.randn((k + o, n + o), generator=gen,
+                                    device=dev).to(dtype)[o:, o:]
+                bm, bn = 1, (7 if n % 7 == 0 else 1)
+                gm, gn = m // bm, n // bn
+                v_safe = torch.full((gm, gn), 0.85, device=dev)
+                v_map = 0.85 + 0.1 * (torch.rand((gm, gn), generator=gen,
+                                                 device=dev) - 0.5)
+                what = (f"systolic_mac ragged {name} (M, K, N) = {(m, k, n)} "
+                        f"b {'transposed' if transposed else 'row-major'}"
+                        f"{' offset views' if offset else ''}")
+                c, flags, count = systolic_mac(a, b, v_map, v_safe,
+                                               block_m=bm, block_n=bn,
+                                               count_flags=True)
+                c_nom, _ = systolic_mac(a, b, torch.ones_like(v_map), v_safe,
+                                        block_m=bm, block_n=bn)
+                torch.cuda.synchronize()
+                c_ref, flags_ref = systolic_mac_plain(
+                    a, b, v_map, v_safe, block_m=bm, block_n=bn)
+                if not torch.equal(flags, flags_ref):
+                    fail(f"{what}: flag maps differ")
+                fired = int(flags.sum())
+                if int(count) != fired:
+                    fail(f"{what}: count {int(count)} vs flags.sum() {fired}")
+                bad = flags_ref.bool().repeat_interleave(
+                    bm, 0).repeat_interleave(bn, 1)
+                want = torch.where(bad, c_nom.view(torch.int32) & keep,
+                                   c_nom.view(torch.int32))
+                if not torch.equal(c.view(torch.int32), want):
+                    fail(f"{what}: not the nominal result with the flagged "
+                         f"cells masked")
+                check_counted(torch, systolic_mac, (a, b, v_map, v_safe),
+                              {"block_m": bm, "block_n": bn}, c, flags, what)
+                scale = float(c_ref.abs().max())
+                diff = (c - c_ref).abs()
+                err_clean = float(diff[~bad].max()) if bool((~bad).any()) \
+                    else 0.0
+                err_bad = float(diff[bad].max()) if bool(bad.any()) else 0.0
+                if not (math.isfinite(err_clean)
+                        and err_clean <= TOL_CLEAN * scale):
+                    fail(f"{what}: clean cells off by {err_clean} (limit "
+                         f"{TOL_CLEAN * scale})")
+                if not err_bad <= tol_corrupt(8) * scale:
+                    fail(f"{what}: corrupted cells off by {err_bad} (limit "
+                         f"{tol_corrupt(8) * scale})")
+                out.append({
+                    "M": m, "K": k, "N": n, "dtype": name,
+                    "b_transposed_view": transposed, "offset_views": offset,
+                    "flag_cell": [bm, bn], "fired": fired,
+                    "flags_equal": True, "count_equals_flag_sum": True,
+                    "counter_adds_flag_sum": True,
+                    "masked_bit_for_bit": True,
+                    "max_err_clean": err_clean,
+                    "max_err_clean_limit": TOL_CLEAN * scale,
+                    "max_err_corrupt": err_bad,
+                    "max_err_corrupt_limit": tol_corrupt(8) * scale})
+    return out
+
+
+#: host-cost shape: one of rwkv6-1.6b's d x d GEMMs at decode, bf16 (its
+#: device work, some 5 us, is well under any of the three calls' host work)
+HOST_COST_SHAPE = (DECODE_M, 2048, 2048)
+
+
+def host_cost(torch, systolic_mac, backend_mod, largest_common_block,
+              calls=2000, reps=5):
+    """Host microseconds per call, median of ``reps`` runs of ``calls``
+    calls each, timed from a synchronised start to the last enqueue (no
+    synchronisation inside): ``systolic_mac(..., count_flags=True)`` called
+    directly; the routed model GEMM, ``backend.matmul`` under
+    ``use_backend("reference")``; and ``torch.matmul`` at the same shape."""
+    m, k, n = HOST_COST_SHAPE
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 22)
+    a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+    block = largest_common_block(m, n)
+    v_map = torch.ones((m // block, n // block), device=dev)
+    v_safe = torch.zeros_like(v_map)
+
+    def per_call_us(fn):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            runs.append(1e6 * (time.perf_counter() - t0) / calls)
+            torch.cuda.synchronize()
+        return sorted(runs)[len(runs) // 2]
+
+    out = {"M": m, "K": k, "N": n, "dtype": "bfloat16", "calls": calls,
+           "reps": reps}
+    out["systolic_mac_us"] = per_call_us(lambda: systolic_mac(
+        a, b, v_map, v_safe, block_m=block, block_n=block, count_flags=True))
+    with backend_mod.use_backend("reference") as be:
+        out["reference_route_us"] = per_call_us(
+            lambda: backend_mod.matmul(a, b))
+        be.pop_telemetry()
+    out["torch_matmul_us"] = per_call_us(lambda: torch.matmul(a, b))
     return out
 
 
@@ -1613,6 +1844,7 @@ def main() -> int:
     from repro_torch.kernels.quant_rows import quant_rows
     from repro_torch.kernels.razor_matmul import (razor_matmul,
                                                   razor_matmul_plain)
+    from repro_torch import backend as backend_mod
     from repro_torch.kernels.systolic_mac import (systolic_mac,
                                                   systolic_mac_plain)
     from repro_torch.kernels.tuning import select_blocks
@@ -1647,8 +1879,19 @@ def main() -> int:
     for arch in SSM_ARCHS:      # M = 1..4: a prompt's token, or the slots
         shapes += check_serving_shapes(
             torch, arch, SSM_GEMMS[arch](get_config(arch)), systolic_mac,
-            systolic_mac_plain, largest_common_block, ms=range(1, 5),
-            timed_ms=(DECODE_M,))
+            systolic_mac_plain, largest_common_block, ms=range(1, 5), timed_ms=(DECODE_M,))
+    # every model weight's (K, N, transposed view?); phi4-mini's w2 also at
+    # M = 64 and 256
+    model_shapes = {}
+    for arch, table in ((ARCH, dense_gemms(cfg)),
+                        *((x, SSM_GEMMS[x](get_config(x)))
+                          for x in SSM_ARCHS)):
+        for name, (k, n, _, transposed, _) in table.items():
+            key = (k, n, transposed)
+            model_shapes[key] = model_shapes.get(key, False) or (
+                arch == ARCH and name == "w2")
+    invariance_rows = check_row_invariance(torch, systolic_mac, model_shapes)
+    ragged_rows = check_ragged(torch, systolic_mac, systolic_mac_plain)
     wkv6_rows = check_wkv6(torch, wkv6, wkv6_plain)
     ssd_rows = check_ssd(torch, ssd_chunk, ssd_chunk_plain)
     razor_rows = check_razor(
@@ -1657,9 +1900,14 @@ def main() -> int:
     island_rows = check_precision_island(
         torch, cfg, (precision_island, precision_island_plain))
     emit("kernel_checks", {"systolic_mac": shapes,
+                           "systolic_mac_row_invariance": invariance_rows,
+                           "systolic_mac_ragged": ragged_rows,
                            "razor_matmul": razor_rows,
                            "precision_island": island_rows,
                            "wkv6": wkv6_rows, "ssd_chunk": ssd_rows})
+
+    host = host_cost(torch, systolic_mac, backend_mod, largest_common_block)
+    emit("host_cost", host)
 
     # where one call's time goes, at the widest weight (w1/wg), bf16
     gen = torch.Generator(device="cuda")
@@ -1738,24 +1986,42 @@ def main() -> int:
         fail(f"decode-step GEMMs are bound by {sorted(bounds)}: report them "
              f"apart")
     bound_by = bounds.pop()
+
+    def device_total(rows, key):
+        """Sum over a decode step's GEMMs, null if any is not measured."""
+        vals = [r[key] for r in rows]
+        if any(v is None for v in vals):
+            return None
+        return sum(v * r["launches_per_model_step"]
+                   for v, r in zip(vals, rows))
+
     kernels = [{
         "name": "systolic_mac", "route": "cuda",
         "source": "src/repro_torch/csrc/systolic_mac.cu",
         "replaces": "src/repro/kernels/systolic_mac.py:33",
         "launches": launches,
         "max_abs_err": max(s.get("max_err", s.get("max_err_clean", 0.0))
-                           for s in shapes),
+                           for s in shapes + ragged_rows),
         "timed": f"the {sum(s['launches_per_model_step'] for s in step)} "
                  f"GEMMs of one decode step at M={DECODE_M}, bf16, each "
-                 f"weight cold in L2",
+                 f"weight cold in L2, as the reference backend launches "
+                 f"them (counter=, a running count)",
         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"), "bound_by": bound_by,
         "library_ms": total("library_ms"),
+        "device_ms": device_total(step, "device_ms"),
+        "library_device_ms": device_total(step, "library_device_ms"),
+        "device_ms_of": "the same GEMMs, device time by torch.profiler "
+                        "(ms above: back to back by CUDA events, the "
+                        "host's launch work included)",
+        "host_us_per_launch": {key: host[key] for key in (
+            "systolic_mac_us", "reference_route_us", "torch_matmul_us")},
         "decode_step_by_arch": {
-            arch: {key: sum(s[key] * s["launches_per_model_step"]
-                            for s in shapes if s.get("arch") == arch
-                            and "launches_per_model_step" in s)
-                   for key in ("kernel_ms", "plain_ms", "library_ms",
+            arch: {key: device_total(
+                [s for s in shapes if s.get("arch") == arch
+                 and "launches_per_model_step" in s], key)
+                   for key in ("kernel_ms", "device_ms", "plain_ms",
+                               "library_ms", "library_device_ms",
                                "bound_ms")}
             for arch in SSM_ARCHS}}]
     for name, source, replaces, rows, n, err_key in (

@@ -203,21 +203,24 @@ class MatmulBackend:
 
     # -- subclass hook --------------------------------------------------------
 
-    def _execute(self, a: torch.Tensor, b: torch.Tensor, count_flags: bool
-                 ) -> Tuple[torch.Tensor, BackendTelemetry,
-                            Optional[torch.Tensor]]:
+    def _execute(self, a: torch.Tensor, b: torch.Tensor, count_flags: bool,
+                 counter: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, BackendTelemetry]:
         """Exact-product (M, K) @ (K, N) on this backend's machinery.
 
         Returns the (possibly fault-injected) product in the backend's
-        working precision, single-call telemetry, and — when the flag count
-        of this call still lies on the device — that count as a 0-d integer
-        tensor (``None`` when ``telemetry.flags`` is already final)."""
+        working precision and single-call telemetry.  With ``count_flags``,
+        ``counter`` is a 0-d int32 tensor on the operands' device: a backend
+        whose flag count lies on the device adds it there (read once, when
+        the telemetry is settled); one that knows it on the host puts it in
+        ``telemetry.flags`` and leaves ``counter`` alone."""
         raise NotImplementedError
 
     # -- the protocol ---------------------------------------------------------
 
     def _run(self, a: torch.Tensor, b: torch.Tensor,
-             precision: Optional[str], count_flags: bool):
+             precision: Optional[str], count_flags: bool,
+             counter: Optional[torch.Tensor]):
         if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
             raise ValueError(
                 f"matmul expects (M, K) @ (K, N); got {tuple(a.shape)} @ "
@@ -233,20 +236,20 @@ class MatmulBackend:
         if precision == "int8":
             qa, sa = quantize_sym_i8(a)
             qb, sb = quantize_sym_i8(b.T)             # per-column scales of b
-            prod, tel, dev_flags = self._execute(
-                qa.to(torch.float32), qb.T.to(torch.float32), count_flags)
+            prod, tel = self._execute(qa.to(torch.float32),
+                                      qb.T.to(torch.float32), count_flags,
+                                      counter)
             # shared float32 dequant: bit-identical across backends given the
             # exact integer product each backend guarantees
             out = prod.to(torch.float32) * sa * sb.T
         else:
-            raw, tel, dev_flags = self._execute(a, b, count_flags)
+            raw, tel = self._execute(a, b, count_flags, counter)
             out = raw.to(out_dtype)
         if not count_flags:
             tel = dataclasses.replace(tel, flags=0, partition_flags=None)
-            dev_flags = None
         if t0 is not None:
             self._obs_cb_hist.observe(self._obs.clock() - t0)
-        return out, tel, dev_flags
+        return out, tel
 
     def _as_operand(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -264,22 +267,27 @@ class MatmulBackend:
         model GEMMs go through :func:`matmul` instead, which defers it.
         Telemetry is returned AND accumulated on the backend
         (``pop_telemetry`` drains it)."""
-        out, tel, dev_flags = self._run(self._as_operand(a),
-                                        self._as_operand(b), precision,
-                                        count_flags)
-        if dev_flags is not None:
-            tel = dataclasses.replace(tel, flags=int(dev_flags))
+        a, b = self._as_operand(a), self._as_operand(b)
+        counter = (torch.zeros((), dtype=torch.int32, device=a.device)
+                   if count_flags else None)
+        out, tel = self._run(a, b, precision, count_flags, counter)
+        if counter is not None:
+            tel = dataclasses.replace(tel, flags=tel.flags + int(counter))
         self._record(tel)
         return out, tel
 
     # -- model routing --------------------------------------------------------
 
     def _route(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        out, tel, dev_flags = self._run(a, b, None, True)
-        if dev_flags is not None:
-            self._deferred_flags = (dev_flags.to(torch.int64)
-                                    if self._deferred_flags is None else
-                                    self._deferred_flags + dev_flags)
+        # one running count on the operands' device, made at the first GEMM
+        # after a settling and added into by every routed GEMM
+        if (self._deferred_flags is not None
+                and self._deferred_flags.device != a.device):
+            self._settle_flags()
+        if self._deferred_flags is None:
+            self._deferred_flags = torch.zeros((), dtype=torch.int32,
+                                               device=a.device)
+        out, tel = self._run(a, b, None, True, self._deferred_flags)
         self._record(tel)
         return out
 

@@ -29,14 +29,14 @@ class IdealBackend(MatmulBackend):
     name = "ideal"
     is_ideal = True
 
-    def _execute(self, a, b, count_flags):
+    def _execute(self, a, b, count_flags, counter):
         res = torch.promote_types(a.dtype, b.dtype)
         if not res.is_floating_point:
             res = torch.float32
         out = torch.matmul(a.to(res), b.to(res))
         m, k = a.shape
         tel = BackendTelemetry(calls=1, macs=m * k * b.shape[1])
-        return out, tel, None
+        return out, tel
 
 
 class ReferenceBackend(MatmulBackend):
@@ -65,7 +65,7 @@ class ReferenceBackend(MatmulBackend):
                 torch.zeros(grid, dtype=torch.float32, device=device))
         return self._rails[key]
 
-    def _execute(self, a, b, count_flags):
+    def _execute(self, a, b, count_flags, counter):
         m, k = a.shape
         n = b.shape[1]
         if a.dtype != b.dtype or a.dtype not in (torch.float32,
@@ -75,17 +75,10 @@ class ReferenceBackend(MatmulBackend):
             a, b = a.to(torch.float32), b.to(torch.float32)
         block = largest_common_block(m, n)
         v_map, v_safe = self._nominal((m // block, n // block), a.device)
-        tel = BackendTelemetry(calls=1, macs=m * k * n)
-        if not count_flags:
-            c, _ = systolic_mac(a, b, v_map, v_safe, block_m=block,
-                                block_n=block)
-            return c, tel, None
-        c, _, fired = systolic_mac(a, b, v_map, v_safe, block_m=block,
-                                   block_n=block, count_flags=True)
-        if fired.device.type == "cpu":
-            tel.flags = int(fired)
-            return c, tel, None
-        return c, tel, fired
+        # the kernel adds its fired cells into the caller's count
+        c, _ = systolic_mac(a, b, v_map, v_safe, block_m=block, block_n=block,
+                            counter=counter if count_flags else None)
+        return c, BackendTelemetry(calls=1, macs=m * k * n)
 
 
 register_backend("ideal", IdealBackend)

@@ -7,237 +7,628 @@
 //   (block_m x block_n) partition cells; cell (i, j) carries a rail voltage
 //   v_map[i, j] and a minimum safe voltage v_safe[i, j].  A cell with
 //   v_map < v_safe fails timing: the low (23 - keep_bits) mantissa bits of
-//   its f32 accumulators are masked off and its Razor flag is raised.
+//   its f32 result are masked off and its Razor flag is raised.
 //
 // How it differs from the kernel it replaces:
 //   * There the K axis is a sequential grid dimension with the accumulator in
-//     scratch memory and the fired count carried from cell to cell.  Here
-//     blocks run in any order: the K loop is inside the block, accumulators
-//     live in registers, and the count is an integer atomicAdd (exact).
+//     scratch memory and the fired count carried from cell to cell.  Here K
+//     is cut into splits that run as the blocks of one thread-block cluster;
+//     the splits' partial tiles are summed through the cluster's distributed
+//     shared memory, and the count is an integer atomicAdd (exact).
 //   * The partition cell is not the launch tile.  block_m / block_n are
 //     arguments (1x1 cells occur on the serving path); the epilogue looks up
 //     v_map[row / block_m, col / block_n] per element, and the thread that
 //     owns a cell's top-left element writes that cell's flag.
 //   * a and b are addressed through element strides, so a transposed view of
 //     a weight (the tied unembedding) is read in place, never copied.
-//   * Ragged M, N, K are masked here; nothing is padded by the caller.
+//   * Ragged M, N, K and unaligned operands are handled here; nothing is
+//     padded or copied by the caller.
 //
-// Every output element is one accumulator summed with fmaf over k = 0..K-1
-// in that order, in every launch configuration: a row's result does not
-// depend on how many other rows the call carries.
-//
-// Bound on this card: at serving shapes (M = 1..8) the bytes of b, K*N*2 for
-// bf16; the skinny configuration streams b through shared memory with the
-// next tile's loads started before the current tile's arithmetic.  At large M
-// the kernel is bound by the f32 FMA rate: it does not use the tensor cores.
-// What still keeps it far from the byte bound (measured, see PERF.md): a
-// block has one K tile of 2-byte loads in flight per memory round trip, and
-// N <= 3072 gives fewer blocks than the card has SMs.  Wider loads and a
-// split of K across blocks are the next steps.
+// What bounds it on this card.  Every served GEMM has M = 1..16 rows against
+// a (K, N) weight: the bytes of b (K * N * 2 in bf16) bound it, about 1 us
+// of memory latency has to be covered by some 3.4 MB in flight across the
+// 132 SMs, and one block streams only a fraction of the card's rate, so a
+// decode GEMM needs most SMs busy.  At large M (256 rows in the flow's
+// checks) it is the tensor cores (bf16) or the f32 FMA rate (f32).  What the
+// design does:
+//   * Split-K across the blocks of a cluster (a power of two, at most 16),
+//     chosen from K, N and the type alone (kernels/systolic_mac.py::
+//     launch_plan): about one block per SM at N <= 8192, no split for the
+//     logits.
+//   * a and b stream through a ring of STAGES shared-memory tiles filled by
+//     the Tensor Memory Accelerator: one 2-D tensor-map copy per 128-byte-row
+//     box.  One producer warp issues the copies (one box a lane) as stages
+//     come free; four MMA warps wait for a stage to be full and hand it back
+//     (an mbarrier each way), so no block-wide barrier sits in the loop and
+//     a tile's copies are in flight while the previous ones are multiplied.  The boxes run along b's
+//     contiguous axis (N for a row-major weight, K for the transposed view),
+//     in the 128-byte swizzle, so ldmatrix reads them without bank conflicts;
+//     what lies outside the matrices (ragged M, N, K) arrives as zeros.
+//   * bf16 runs on the tensor cores: mma.sync m16n8k16 (f32 accumulate) fed
+//     by ldmatrix, one instruction at every M (rows padded to 16).  f32 stays
+//     on the CUDA cores with fmaf, no TF32.
+//   * Each split leaves its partial tile in its own shared memory; after a
+//     cluster barrier every block sums a slice of the tile over all splits
+//     (ld.shared::cluster) and applies the epilogue to it: no workspace in
+//     device memory, no fence or semaphore.  The producer warp looks up the
+//     slice's rails once its copies are issued, off the MMA warps' path.
+//   * An operand the TMA cannot take (a base pointer or a row stride that is
+//     not 16-byte aligned) is loaded by the threads into the same swizzled
+//     layout: unconditional loads from an address clamped into the matrix,
+//     zeroed after (a load under a branch is not moved past it).
 
+// Numerical contracts:
+//   1. One summation order per (K, N, dtype), never a function of M, so a
+//      row's result does not depend on how many rows share the call.  The
+//      splits come from K, N and dtype; split s sums k-tiles
+//      [s * k_tiles / splits, (s + 1) * k_tiles / splits) in ascending order;
+//      bf16 sums each 64-deep k-tile as four MMAs into a fresh fragment and
+//      adds that into the f32 register sum (an MMA element depends only on
+//      its own row and column); f32 is one fmaf chain in ascending k; the
+//      splits' partials are added in split order 0, 1, ..., splits - 1.
+//   2. Deterministic: no float atomics.  The mask, flag and count are applied
+//      after the whole sum, by one writer per element.
+//   3. Held to 1e-5 x max|C| against the plain f32 product (chip_smoke.py),
+//      K = 10240 included: the per-tile f32 register sum keeps the tensor
+//      core's own accumulation to 64 products at a time.
+//   A row's rail bits and flags come from the cells it lies in, never from
+//   the launch tile, so they hold at every M too.
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int BM = 16;        // rows of a block: one m16 MMA fragment
+constexpr int BN = 128;       // columns of a block: 4 warps x 32
+constexpr int THREADS = 128;  // the four MMA warps
+constexpr int BLOCK = THREADS + 32;   // and one warp that issues the copies
+constexpr int STAGES = 4;     // ring of k-tiles, STAGES - 1 in flight
+constexpr int MAX_SPLITS = 16;  // blocks of a cluster (non-portable size)
+constexpr int RED_LD = BN + 4;  // row of a partial tile, in floats
+constexpr int ROW = 128;        // bytes of a tile row: one swizzle row
 
-// One block computes a BM x BN tile of C.  Threads form a TY x TX grid
-// (TX = BN / TN along columns, TY = BM / TM along rows); a thread owns rows
-// ty*TM + i and columns tx + j*TX, so that neighbouring threads read
-// neighbouring shared-memory words and write neighbouring columns of C.
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-systolic_mac_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                    const float* __restrict__ v_map,
-                    const float* __restrict__ v_safe, float* __restrict__ c,
-                    int* __restrict__ flags, int* __restrict__ count, int M,
-                    int N, int K, long long sa_m, long long sa_k,
-                    long long sb_k, long long sb_n, int block_m, int block_n,
-                    int grid_n, unsigned int keep_mask) {
-  constexpr int TX = BN / TN;
-  constexpr int TY = BM / TM;
-  constexpr int THREADS = TX * TY;
-  constexpr int A_ELEMS = BM * BK;
-  constexpr int B_ELEMS = BK * BN;
-  constexpr int A_PER = (A_ELEMS + THREADS - 1) / THREADS;
-  constexpr int B_PER = (B_ELEMS + THREADS - 1) / THREADS;
+// Every tile in shared memory is made of boxes of 128-byte rows in the TMA's
+// 128-byte swizzle: the 16-byte chunk c of row r sits at chunk c ^ (r % 8),
+// so the 8 rows an ldmatrix phase reads fall in 8 distinct bank groups.
+template <typename T>
+struct Tile {
+  static constexpr int ES = static_cast<int>(sizeof(T));
+  static constexpr int BK = ROW / ES;            // k-tile: 64 bf16, 32 f32
+  static constexpr int W = ROW / ES;             // columns of a KN box
+  static constexpr int A_BYTES = BM * ROW;       // a tile [BM][BK]
+  static constexpr int B_BYTES = BN * ROW;       // b tile, either layout:
+  // KN: BN / W boxes of [BK][W] (BK rows of 128 B each); NK: one [BN][BK]
+  static constexpr int KN_BOX = BK * ROW;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + align
+  static constexpr int A_SCALAR = BM * BK / 32;     // a lane's, by hand
+  static constexpr int B_SCALAR = BK * BN / 32;
+  static_assert(BK * ES == ROW && BN % W == 0, "tile rows");
+  static_assert(STAGE_BYTES % 1024 == 0 && A_BYTES % 1024 == 0 &&
+                    KN_BOX % 1024 == 0,
+                "swizzled boxes start on 1024-byte boundaries");
+  static_assert(BM * RED_LD * 4 <= STAGE_BYTES, "partial tile fits a stage");
+};
 
-  // +1 column of padding: the transposed-b fill writes down a column
-  __shared__ float As[BM][BK + 1];
-  __shared__ float Bs[BK][BN + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  // which axis of b is contiguous decides which axis neighbouring threads
-  // walk when they fill the tile (coalesced either way)
-  const bool b_k_fastest = (sb_k == 1 && sb_n != 1);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  float a_reg[A_PER];
-  float b_reg[B_PER];
-
-  // Loads are unconditional, from an address clamped into the matrix, and
-  // the out-of-range lanes are zeroed afterwards: a load under a branch is
-  // not moved past it, and a tile's loads would then wait for one another.
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < A_PER; ++p) {
-      const int idx = min(tid + p * THREADS, A_ELEMS - 1);
-      const int row = row0 + idx / BK, k = k0 + idx % BK;
-      const float v = to_f32(a[(long long)min(row, M - 1) * sa_m +
-                               (long long)min(k, K - 1) * sa_k]);
-      a_reg[p] = (row < M && k < K) ? v : 0.0f;
-    }
-#pragma unroll
-    for (int p = 0; p < B_PER; ++p) {
-      const int idx = min(tid + p * THREADS, B_ELEMS - 1);
-      const int kk = b_k_fastest ? idx % BK : idx / BN;
-      const int nn = b_k_fastest ? idx / BK : idx % BN;
-      const int k = k0 + kk, col = col0 + nn;
-      const float v = to_f32(b[(long long)min(k, K - 1) * sb_k +
-                               (long long)min(col, N - 1) * sb_n]);
-      b_reg[p] = (k < K && col < N) ? v : 0.0f;
-    }
-  };
-
-  auto stash = [&]() {
-#pragma unroll
-    for (int p = 0; p < A_PER; ++p) {
-      const int idx = tid + p * THREADS;
-      if (idx < A_ELEMS) As[idx / BK][idx % BK] = a_reg[p];
-    }
-#pragma unroll
-    for (int p = 0; p < B_PER; ++p) {
-      const int idx = tid + p * THREADS;
-      if (idx < B_ELEMS) {
-        const int kk = b_k_fastest ? idx % BK : idx / BN;
-        const int nn = b_k_fastest ? idx / BK : idx % BN;
-        Bs[kk][nn] = b_reg[p];
-      }
-    }
-  };
-
-  if (K > 0) fetch(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stash();
-    __syncthreads();
-    // next tile's global loads are in flight during this tile's arithmetic
-    if (k0 + BK < K) fetch(k0 + BK);
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[ty * TM + i][kk];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: per-element rail lookup, bit-cast + mask, flags, fired count
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + ty * TM + i;
-    if (row >= M) continue;
-    const int cell_i = row / block_m;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + tx + j * TX;
-      if (col >= N) continue;
-      const int cell_j = col / block_n;
-      const long long cell = (long long)cell_i * grid_n + cell_j;
-      const bool fail = v_map[cell] < v_safe[cell];
-      float v = acc[i][j];
-      if (fail) v = __uint_as_float(__float_as_uint(v) & keep_mask);
-      c[(long long)row * N + col] = v;
-      if (row == cell_i * block_m && col == cell_j * block_n) {
-        flags[cell] = fail ? 1 : 0;
-        if (fail && count != nullptr) atomicAdd(count, 1);
-      }
-    }
-  }
-}
-
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-void launch(const void* a, const void* b, const float* v_map,
-            const float* v_safe, float* c, int* flags, int* count, int M,
-            int N, int K, long long sa_m, long long sa_k, long long sb_k,
-            long long sb_n, int block_m, int block_n, unsigned int keep_mask,
-            cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  dim3 block((BM / TM) * (BN / TN));
-  systolic_mac_kernel<T, BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), v_map, v_safe, c,
-      flags, count, M, N, K, sa_m, sa_k, sb_k, sb_n, block_m, block_n,
-      N / block_n, keep_mask);
+// byte offset of byte `b` of row `r` in a box of swizzled 128-byte rows
+__device__ __forceinline__ uint32_t swz(int r, int b) {
+  return r * ROW + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
 }
 
 template <typename T>
-void dispatch(const void* a, const void* b, const float* v_map,
-              const float* v_safe, float* c, int* flags, int* count, int M,
-              int N, int K, long long sa_m, long long sa_k, long long sb_k,
-              long long sb_n, int block_m, int block_n, unsigned int keep_mask,
-              cudaStream_t stream) {
-  if (M <= 8) {
-    // skinny (decode / short prefill): 8 x 32 tile with a deep K tile, so
-    // that a block keeps 4 KB of b in flight (measured best of K tiles 32,
-    // 64 and 128 over a decode step's GEMMs)
-    launch<T, 8, 32, 64, 2, 1>(a, b, v_map, v_safe, c, flags, count, M, N, K,
-                               sa_m, sa_k, sb_k, sb_n, block_m, block_n,
-                               keep_mask, stream);
-  } else {
-    launch<T, 64, 64, 32, 4, 4>(a, b, v_map, v_safe, c, flags, count, M, N, K,
-                                sa_m, sa_k, sb_k, sb_n, block_m, block_n,
-                                keep_mask, stream);
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(static_cast<unsigned short>(0));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier and tensor copies (the Tensor Memory Accelerator)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}\n" ::"r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
+}
+// one box of a 2-D tensor map at element coordinates (c0 inner, c1 outer);
+// what lies outside the tensor arrives as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the cluster: barrier and distributed shared memory
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ float cluster_load(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// ---- tensor cores
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Which of a block's BM x BN sums a thread accumulates: element e of 16.
+// bf16 follows the MMA accumulator layout (warp w holds columns w*32..+31 as
+// four n8 fragments; lane l holds rows l/4 and l/4 + 8, columns 2*(l%4) and
+// +1 of each); f32 gives thread t column t and all 16 rows.
+template <typename T>
+__device__ __forceinline__ int elem_row(int tid, int e) {
+  if (sizeof(T) == 2) return ((tid & 31) >> 2) + ((e & 2) ? 8 : 0);
+  return e;
+}
+template <typename T>
+__device__ __forceinline__ int elem_col(int tid, int e) {
+  if (sizeof(T) == 2)
+    return (tid >> 5) * 32 + (e >> 2) * 8 + 2 * (tid & 3) + (e & 1);
+  return tid;
+}
+
+// KFAST: b's contiguous axis is K (the transposed view), else N
+template <typename T, bool KFAST>
+__global__ void __launch_bounds__(BLOCK)
+systolic_mac_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const T* __restrict__ a, const T* __restrict__ b,
+                    const float* __restrict__ v_map,
+                    const float* __restrict__ v_safe, float* __restrict__ c,
+                    int* __restrict__ flags, int* __restrict__ count, int N,
+                    int K, int row_base, int m_rows, long long sa_m,
+                    long long sa_k, long long sb_k, long long sb_n,
+                    int block_m, int block_n, int grid_n,
+                    unsigned int keep_mask, int splits, int k_tiles,
+                    int a_tma, int b_tma) {
+  using L = Tile<T>;
+  constexpr int BK = L::BK;
+  constexpr int ES = L::ES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ bool fails[BM * BN];              // the slice's rail verdicts
+  // swizzled boxes need 1024-byte alignment (SMEM_BYTES has the slack)
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int tid = threadIdx.x;
+  const bool producer = tid >= THREADS;
+  const int split = blockIdx.y;                // = rank in the cluster
+  const int col0 = blockIdx.x * BN;
+  const int row0 = row_base + blockIdx.z * BM;   // first row, in C
+  const int row_end = row_base + m_rows;
+  const int rows_valid = min(BM, row_end - row0);
+  const int cols_valid = min(BN, N - col0);
+  const int t_lo = static_cast<int>((long long)split * k_tiles / splits);
+  const int t_hi = static_cast<int>((long long)(split + 1) * k_tiles / splits);
+  const int nt = t_hi - t_lo;
+  const bool by_hand = !a_tma || !b_tma;
+
+  if (tid == 0) {
+    // a stage is full when the copy issuer has arrived (with the bytes it
+    // expects) and, where some of the tile is loaded by hand, every lane of
+    // the producer warp; it is empty again when every MMA warp is done
+    const uint32_t arrivals = ((a_tma || b_tma) ? 1u : 0u) + (by_hand ? 32u : 0u);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(full + s), arrivals);
+      mbar_init(smem_u32(empty + s), THREADS / 32);
+    }
+  }
+  __syncthreads();
+
+  // the producer warp fills a stage: lane 0 issues the TMA copies, and
+  // every lane loads by hand what the TMA cannot take
+  auto load_stage = [&](int stage, int kt, int lane) {
+    unsigned char* As = smem + stage * L::STAGE_BYTES;
+    unsigned char* Bs = As + L::A_BYTES;
+    const uint32_t bar = smem_u32(full + stage);
+    const int k0 = kt * BK;
+    if (a_tma || b_tma) {
+      if (lane == 0) {
+        fence_proxy_async();        // the stage's last reads came before
+        mbar_arrive_expect_tx(bar, (a_tma ? L::A_BYTES : 0) +
+                                       (b_tma ? L::B_BYTES : 0));
+      }
+      __syncwarp();
+      // one box a lane, issued together: lane 0 a's, lanes 1.. b's
+      constexpr int B_BOXES = KFAST ? 1 : BN / L::W;
+      if (a_tma && lane == 0) tma_load(smem_u32(As), &map_a, bar, k0, row0);
+      if (b_tma && lane >= 1 && lane <= B_BOXES) {
+        const int j = lane - 1;
+        if (KFAST)
+          tma_load(smem_u32(Bs), &map_b, bar, k0, col0);
+        else
+          tma_load(smem_u32(Bs + j * L::KN_BOX), &map_b, bar,
+                   col0 + j * L::W, k0);
+      }
+    }
+    if (!by_hand) return;
+    if (!a_tma) {
+#pragma unroll 8
+      for (int p = 0; p < L::A_SCALAR; ++p) {
+        const int idx = lane + p * 32;
+        const int r = idx / BK, kc = idx % BK;
+        const int row = row0 + r, k = k0 + kc;
+        const T v = a[(long long)min(row, row_end - 1) * sa_m +
+                      (long long)min(k, K - 1) * sa_k];
+        *reinterpret_cast<T*>(As + swz(r, kc * ES)) =
+            (row < row_end && k < K) ? v : zero_of<T>();
+      }
+    }
+    if (!b_tma) {
+#pragma unroll 8
+      for (int p = 0; p < L::B_SCALAR; ++p) {
+        const int idx = lane + p * 32;
+        // neighbouring lanes walk b's contiguous axis
+        const int kr = KFAST ? idx % BK : idx / BN;
+        const int nr = KFAST ? idx / BK : idx % BN;
+        const int k = k0 + kr, n = col0 + nr;
+        const T v = b[(long long)min(k, K - 1) * sb_k +
+                      (long long)min(n, N - 1) * sb_n];
+        const uint32_t at =
+            KFAST ? swz(nr, kr * ES)
+                        : (nr / L::W) * L::KN_BOX + swz(kr, (nr % L::W) * ES);
+        *reinterpret_cast<T*>(Bs + at) = (k < K && n < N) ? v : zero_of<T>();
+      }
+    }
+    mbar_arrive(bar);               // release: the stores above are seen
+  };
+
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int q = lane >> 3, r8 = lane & 7;
+
+  auto compute_stage = [&](int stage) {
+    const unsigned char* As = smem + stage * L::STAGE_BYTES;
+    const unsigned char* Bs = As + L::A_BYTES;
+    if constexpr (ES == 2) {
+      float tacc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) tacc[j][x] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t af[4];
+        ldsm_x4(af, As + swz(r8 + (q & 1) * 8, (kk + (q >> 1) * 8) * 2));
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int n0 = warp * 32 + jp * 16;
+          uint32_t bf[4];
+          if constexpr (KFAST) {
+            ldsm_x4(bf, Bs + swz(n0 + r8 + (q >> 1) * 8,
+                                 (kk + (q & 1) * 8) * 2));
+          } else {
+            const int n = n0 + (q >> 1) * 8;
+            ldsm_x4_trans(bf, Bs + (n / L::W) * L::KN_BOX +
+                                  swz(kk + r8 + (q & 1) * 8, (n % L::W) * 2));
+          }
+          mma_bf16(tacc[2 * jp], af, bf[0], bf[1]);
+          mma_bf16(tacc[2 * jp + 1], af, bf[2], bf[3]);
+        }
+      }
+      // the k-tile's sum into the f32 register sum, in one fixed order
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[e] += tacc[e >> 2][e & 3];
+    } else {
+      const unsigned char* Bcol =
+          KFAST ? Bs : Bs + (tid / L::W) * L::KN_BOX;
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        const float bv = *reinterpret_cast<const float*>(
+            Bcol + (KFAST ? swz(tid, kk * 4) : swz(kk, (tid % L::W) * 4)));
+#pragma unroll
+        for (int r = 0; r < 16; ++r)
+          acc[r] = fmaf(*reinterpret_cast<const float*>(As + swz(r, kk * 4)),
+                        bv, acc[r]);
+      }
+    }
+  };
+
+  // this block's slice of the tile for the epilogue
+  const int n_valid = rows_valid * cols_valid;
+  const int lo = static_cast<int>((long long)split * n_valid / splits);
+  const int hi = static_cast<int>((long long)(split + 1) * n_valid / splits);
+
+  // ---- the split's k-tiles through the ring: the producer warp refills a
+  // stage as soon as the MMA warps are done with it
+  if (producer) {
+    const int lane = tid - THREADS;
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % STAGES;
+      if (i >= STAGES) mbar_wait(smem_u32(empty + s), ((i / STAGES) + 1) & 1);
+      load_stage(s, t_lo + i, lane);
+    }
+    // with its copies issued, the warp looks up the slice's rails while the
+    // MMA warps finish: whether each element's cell fails timing
+    for (int idx = lo + lane; idx < hi; idx += 32) {
+      const int row = row0 + idx / cols_valid, col = col0 + idx % cols_valid;
+      const long long cell =
+          (long long)(row / block_m) * grid_n + col / block_n;
+      fails[idx - lo] = v_map[cell] < v_safe[cell];
+    }
+  } else {
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(smem_u32(full + s), (i / STAGES) & 1);
+      compute_stage(s);
+      __syncwarp();                 // the warp's reads of the stage are done
+      if ((tid & 31) == 0) mbar_arrive(smem_u32(empty + s));
+    }
+  }
+
+  // ---- partial tile to shared memory; the splits summed in split order
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  if (!producer) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      red[elem_row<T>(tid, e) * RED_LD + elem_col<T>(tid, e)] = acc[e];
+  }
+  if (splits > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  // ---- epilogue on the slice: rail bits, bit-cast + mask, flags, count
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int idx = lo + tid + j * THREADS;
+    if (producer || idx >= hi) break;
+    const int r = idx / cols_valid, cc = idx % cols_valid;
+    float v;
+    if (splits == 1) {
+      v = red[r * RED_LD + cc];
+    } else {
+      const uint32_t addr = smem_u32(red + r * RED_LD + cc);
+      float part[MAX_SPLITS];
+#pragma unroll
+      for (int s = 0; s < MAX_SPLITS; ++s)
+        part[s] = s < splits ? cluster_load(addr, s) : 0.0f;
+      v = part[0];
+#pragma unroll
+      for (int s = 1; s < MAX_SPLITS; ++s)
+        if (s < splits) v += part[s];
+    }
+    const int row = row0 + r, col = col0 + cc;
+    const int cell_i = row / block_m, cell_j = col / block_n;
+    const bool fail = fails[idx - lo];
+    if (fail) v = __uint_as_float(__float_as_uint(v) & keep_mask);
+    c[(long long)row * N + col] = v;
+    if (row == cell_i * block_m && col == cell_j * block_n) {
+      flags[(long long)cell_i * grid_n + cell_j] = fail ? 1 : 0;
+      if (fail && count != nullptr) atomicAdd(count, 1);
+    }
+  }
+  // no block leaves while another may still read its partial tile
+  if (splits > 1) cluster_sync();
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (no link
+// against libcuda); null where it is missing
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  static bool looked = false;
+  if (!looked) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+    looked = true;
+  }
+  return fn;
+}
+
+// A 2-D map of a matrix whose inner axis is contiguous: (inner, outer)
+// elements, outer rows `stride` elements apart, boxes of 128-byte rows in
+// the 128-byte swizzle.  False where the TMA cannot take it (unaligned base
+// or stride): the kernel then loads that operand by hand.
+template <typename T>
+bool encode(CUtensorMap* map, const T* base, long long inner, long long outer,
+            long long stride, int box_inner, int box_outer) {
+  const long long es = static_cast<long long>(sizeof(T));
+  if (outer == 1) stride = (inner + 16 / es - 1) / (16 / es) * (16 / es);
+  if (!aligned16(base) || (stride * es) % 16 != 0) return false;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride * es)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map,
+            sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            2, const_cast<T*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+int launch(const void* a_, const void* b_, const float* v_map,
+           const float* v_safe, float* c, int* flags, int* count, int splits,
+           int M, int N, int K, long long sa_m, long long sa_k,
+           long long sb_k, long long sb_n, int block_m, int block_n,
+           unsigned int keep_mask, cudaStream_t stream) {
+  using L = Tile<T>;
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    const decltype(&systolic_mac_kernel<T, false>) kernels[] = {
+        systolic_mac_kernel<T, false>, systolic_mac_kernel<T, true>};
+    for (auto kernel : kernels) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    attrs_set = true;
+  }
+  const T* a = static_cast<const T*>(a_);
+  const T* b = static_cast<const T*>(b_);
+  const int k_tiles = (K + L::BK - 1) / L::BK;
+  const int n_tiles = (N + BN - 1) / BN;
+  if (splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1)) != 0 ||
+      splits > (k_tiles > 1 ? k_tiles : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int b_k_fastest = (sb_k == 1 && sb_n != 1) ? 1 : 0;
+  CUtensorMap map_a = {}, map_b = {};
+  const int a_tma = K > 0 && (sa_k == 1 || K == 1) &&
+                    encode<T>(&map_a, a, K, M, sa_m, L::BK, BM);
+  const int b_tma =
+      K > 0 &&
+      (b_k_fastest
+           ? encode<T>(&map_b, b, K, N, sb_n, L::BK, BN)
+           : (sb_n == 1 || N == 1) && encode<T>(&map_b, b, N, K, sb_k, L::W,
+                                                L::BK));
+  // CUDA's grid.z bounds the rows of one launch
+  const long long rows = 65535LL * BM;
+  for (long long r0 = 0; r0 < M; r0 += rows) {
+    const int m_rows = static_cast<int>(M - r0 < rows ? M - r0 : rows);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_tiles, splits, (m_rows + BM - 1) / BM);
+    cfg.blockDim = dim3(BLOCK);
+    cfg.dynamicSmemBytes = L::SMEM_BYTES;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = splits;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = splits > 1 ? 1 : 0;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg,
+        b_k_fastest ? systolic_mac_kernel<T, true>
+                    : systolic_mac_kernel<T, false>,
+        map_a, map_b, a, b, v_map, v_safe, c, flags, count, N, K,
+        static_cast<int>(r0), m_rows, sa_m, sa_k, sb_k, sb_n, block_m, block_n,
+        N / block_n, keep_mask, splits, k_tiles, a_tma, b_tma);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (a and b share it).  Strides in elements.
-// count may be null (no fused reduction); otherwise the caller zeroes it.
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int systolic_mac_launch(const void* a, const void* b,
-                                   const void* v_map, const void* v_safe,
-                                   void* c, void* flags, void* count, int M,
-                                   int N, int K, long long sa_m,
-                                   long long sa_k, long long sb_k,
-                                   long long sb_n, int block_m, int block_n,
-                                   int keep_bits, int dtype, void* stream) {
+// count may be null (no fused reduction); zero_count = 1 zeroes it on the
+// stream first, 0 adds this call's fired cells to what it holds.  splits is
+// launch_plan's: a power of two, at most 16 and at most the k-tiles.
+// Returns the launch's error (0 = launched).
+extern "C" int systolic_mac_launch(
+    const void* a, const void* b, const void* v_map, const void* v_safe,
+    void* c, void* flags, void* count, int zero_count, int splits, int M,
+    int N, int K, long long sa_m, long long sa_k, long long sb_k,
+    long long sb_n, int block_m, int block_n, int keep_bits, int dtype,
+    void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || block_m <= 0 || block_n <= 0 ||
       M % block_m != 0 || N % block_n != 0 || keep_bits < 0 ||
       keep_bits > 23 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int keep_mask = 0xFFFFFFFFu << (23 - keep_bits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (count != nullptr && zero_count) {
+    const cudaError_t e = cudaMemsetAsync(count, 0, sizeof(int), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  auto* vm = static_cast<const float*>(v_map);
+  auto* vs = static_cast<const float*>(v_safe);
+  auto* cf = static_cast<float*>(c);
+  auto* fl = static_cast<int*>(flags);
+  auto* ct = static_cast<int*>(count);
   if (dtype == 0)
-    dispatch<float>(a, b, static_cast<const float*>(v_map),
-                    static_cast<const float*>(v_safe), static_cast<float*>(c),
-                    static_cast<int*>(flags), static_cast<int*>(count), M, N,
-                    K, sa_m, sa_k, sb_k, sb_n, block_m, block_n, keep_mask, s);
-  else
-    dispatch<__nv_bfloat16>(
-        a, b, static_cast<const float*>(v_map),
-        static_cast<const float*>(v_safe), static_cast<float*>(c),
-        static_cast<int*>(flags), static_cast<int*>(count), M, N, K, sa_m,
-        sa_k, sb_k, sb_n, block_m, block_n, keep_mask, s);
-  return static_cast<int>(cudaGetLastError());
+    return launch<float>(a, b, vm, vs, cf, fl, ct, splits, M, N, K, sa_m,
+                         sa_k, sb_k, sb_n, block_m, block_n, keep_mask, s);
+  return launch<__nv_bfloat16>(a, b, vm, vs, cf, fl, ct, splits, M, N, K,
+                               sa_m, sa_k, sb_k, sb_n, block_m, block_n,
+                               keep_mask, s);
 }

@@ -110,6 +110,8 @@ def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use.  Raises
     :class:`KernelCompileError` when it cannot be built."""
     global _lib, _build_seconds, _build_log
+    if _lib is not None:            # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -147,6 +149,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.systolic_mac_launch.argtypes = [
         p, p, p, p, p, p, p,        # a, b, v_map, v_safe, c, flags, count
+        i, i,                       # zero_count, splits
         i, i, i,                    # M, N, K
         ll, ll, ll, ll,             # strides of a (m, k) and b (k, n)
         i, i, i, i,                 # block_m, block_n, keep_bits, dtype

@@ -8,25 +8,56 @@ Replaces the Pallas kernel ``src/repro/kernels/systolic_mac.py::_kernel``
 
 Each (i, j) cell of the ``v_map`` grid is one partition with a rail voltage
 ``v_map[i, j]`` and a minimum safe voltage ``v_safe[i, j]``.  Under-volted
-cells have the low mantissa bits of their f32 accumulators masked off (the
-model shared with :func:`repro_torch.kernels.ref.corrupt_low_bits`) and raise
-a flag — the per-partition Razor flag the runtime scheme consumes.  With
-``count_flags=True`` the kernel also accumulates the number of fired cells
-(an integer ``atomicAdd``), so callers that only need "how many partitions
-failed" read one integer instead of the flag map.
+cells have the low mantissa bits of their f32 results masked off (the model
+shared with :func:`repro_torch.kernels.ref.corrupt_low_bits`) and raise a
+flag — the per-partition Razor flag the runtime scheme consumes.  With
+``count_flags=True`` the kernel also counts the fired cells (an integer
+``atomicAdd``), so callers that only need "how many partitions failed" read
+one integer instead of the flag map; with ``counter=`` it adds that count
+into a caller's running device counter instead.
 
-What bounds it on an H100: at the serving shapes (M = 1..8 rows against a
-(K, N) bf16 weight) the bytes of ``b``, ``K * N * 2``; at large M the f32
-FMA rate, because this first version accumulates with ``fmaf`` in registers
-and leaves the tensor cores idle.  What the design does about the first:
-``b`` is read once, in place through its strides (a transposed view of the
-embedding is never copied or up-cast), coalesced along whichever of its axes
-is contiguous, with the next K tile's loads started before the current tile's
-arithmetic.  The partition cell (``block_m x block_n``, as small as 1x1 on
-the serving path) is independent of the launch tile, which is chosen in the
-CUDA source from M alone: 8x32 for M <= 8, else 64x64.  Every output element
-is summed over k in ascending order in both, so a row's value does not depend
-on how many rows share the call.
+What bounds it on an H100: at the serving shapes (M = 1..16 rows against a
+(K, N) weight) the bytes of ``b``, and how many SMs stream them: one block
+moves only a fraction of the card's memory rate.  At large M the tensor cores
+(bf16) or the f32 FMA rate (f32).  What the design does about it:
+
+* K is split over the blocks of a thread-block cluster
+  (:func:`launch_plan`: from K, N and the type alone, a power of two up to 16,
+  about one block per SM at N <= 8192, no split for the logits).
+* Each block streams its k-tiles through a 4-stage shared-memory ring filled
+  by 2-D tensor-map TMA copies along whichever axis of ``b`` is contiguous (a
+  transposed view of the embedding is read in place, never copied); ragged
+  edges arrive as zeros.  One warp issues the copies and four run the MMAs,
+  handing stages back and forth on mbarriers, so neither waits on a block
+  barrier inside the loop.
+* bf16 multiplies on the tensor cores (``mma.sync`` m16n8k16, rows padded to
+  16), f32 with ``fmaf`` on the CUDA cores.
+* The splits' partial tiles are summed through the cluster's distributed
+  shared memory, so the split-K workspace is on chip (one padded f32 tile per
+  block, :meth:`LaunchPlan.workspace_bytes`); no device memory, fence or
+  semaphore.
+* An operand whose base pointer or row stride is not 16-byte aligned is
+  loaded by the threads instead, from clamped addresses, in the same kernel.
+
+The partition cell (``block_m x block_n``, as small as 1x1 on the serving
+path) is independent of the launch tile.
+
+Numerical contracts (stated in the CUDA source too):
+
+1. One summation order per (K, N, dtype), never a function of M: a row's
+   result does not depend on how many rows share the call.  Split ``s`` sums
+   its k-tiles in ascending order (bf16: each 64-deep tile's MMAs into a
+   fresh fragment, added to an f32 register sum; f32: one ``fmaf`` chain),
+   and the splits are added in split order.
+2. Deterministic: no float atomics; mask, flags and count are applied after
+   the whole sum, by one writer per element.
+3. Within 1e-5 x max|C| of the plain f32 product at every model shape
+   (``chip_smoke.py``, K = 10240 included).
+
+The launch path is kept short for the decode step's hundreds of GEMMs: the
+launcher zeroes a fresh count on the stream (no separate fill), the reference
+backend's routed GEMMs add into its running count (``counter=``), and the
+device guard is entered only when the operands lie off the current device.
 
 :func:`systolic_mac` launches the kernel for CUDA tensors (or raises) and
 computes :func:`systolic_mac_plain` for CPU tensors; there is no other
@@ -35,7 +66,9 @@ route between the two.
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -44,10 +77,65 @@ from .ref import keep_mask, systolic_mac_tiles
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
-#: rows per block of the wide launch tile (csrc/systolic_mac.cu); bounds
-#: grid.y, which CUDA limits to 65535
-_WIDE_TILE_M = 64
-_MAX_GRID_Y = 65535
+
+# ---- the launch plan (mirrors csrc/systolic_mac.cu) -------------------------
+
+#: rows and columns of a block's output tile
+TILE_M, TILE_N = 16, 128
+#: depth of a k-tile by dtype code (0 f32, 1 bf16)
+TILE_K = {0: 32, 1: 64}
+#: blocks the split aims at: one on each of the H100's 132 SMs (a block
+#: streams its k-tiles faster than its SM's share of the memory rate)
+TARGET_BLOCKS = 132
+#: fewest k-tiles a split walks; most splits (the blocks of one cluster)
+MIN_TILES_PER_SPLIT, MAX_SPLITS = 2, 16
+#: a split's partial tile in shared memory (f32, rows padded by 4 floats):
+#: the whole split-K workspace, on chip
+PARTIAL_BYTES = TILE_M * (TILE_N + 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the kernel cuts a (K, N) product: ``splits`` blocks of one
+    cluster along K for every ``TILE_M x TILE_N`` output tile, split ``s``
+    summing k-tiles ``[s * k_tiles // splits, (s + 1) * k_tiles // splits)``.
+    """
+
+    k: int
+    n: int
+    dtype_code: int
+    block_k: int
+    k_tiles: int
+    n_tiles: int
+    splits: int
+
+    def k_ranges(self) -> List[Tuple[int, int]]:
+        """The K range each split sums, in split order (ascending)."""
+        t = self.k_tiles
+        return [(min(self.k, s * t // self.splits * self.block_k),
+                 min(self.k, (s + 1) * t // self.splits * self.block_k))
+                for s in range(self.splits)]
+
+    def workspace_bytes(self) -> int:
+        """Bytes of split partials one output tile holds: one partial tile
+        in the shared memory of each block of its cluster, none in device
+        memory, whatever M is."""
+        return self.splits * PARTIAL_BYTES if self.splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(k: int, n: int, dtype_code: int) -> LaunchPlan:
+    """The split of K for a (K, N) weight of the given type: the largest
+    power of two up to ``TARGET_BLOCKS / n_tiles``, ``MAX_SPLITS`` and
+    ``k_tiles / MIN_TILES_PER_SPLIT``.  M is not an argument: the plan, and
+    with it every element's order of summation, is the same at every M."""
+    bk = TILE_K[dtype_code]
+    k_tiles = -(-k // bk)
+    n_tiles = -(-n // TILE_N)
+    cap = min(TARGET_BLOCKS // n_tiles, k_tiles // MIN_TILES_PER_SPLIT,
+              MAX_SPLITS)
+    splits = 1 << (max(1, cap).bit_length() - 1)
+    return LaunchPlan(k, n, dtype_code, bk, k_tiles, n_tiles, splits)
 
 
 def systolic_mac_plain(a: torch.Tensor, b: torch.Tensor, v_map: torch.Tensor,
@@ -81,68 +169,103 @@ def _check(a, b, v_map, v_safe, block_m, block_n, keep_bits):
         raise ValueError(f"grid ({gm}, {gn}) with cells {block_m}x{block_n} "
                          f"does not tile a ({m}, {n}) output")
     keep_mask(keep_bits)                        # range check
-    for t in (b, v_map, v_safe):
-        if t.device != a.device:
-            raise ValueError(f"systolic_mac operands lie on different "
-                             f"devices: {a.device} and {t.device}")
+    dev = a.device
+    if b.device != dev or v_map.device != dev or v_safe.device != dev:
+        raise ValueError(f"systolic_mac operands lie on different devices: "
+                         f"{a.device}, {b.device}, {v_map.device}, "
+                         f"{v_safe.device}")
     return block_m, block_n
+
+
+def _launch(a, b, v_map, v_safe, block_m, block_n, keep_bits, counter,
+            fresh_count):
+    """One call of the CUDA kernel; returns (C, flags, count): ``count`` is
+    a fresh one (zeroed by the launcher) with ``fresh_count``, else
+    ``counter`` (added into; None for no count)."""
+    lib = _build.load_library()
+    if a.device.index != torch.cuda.current_device():
+        with torch.cuda.device(a.device):
+            return _launch(a, b, v_map, v_safe, block_m, block_n, keep_bits,
+                           counter, fresh_count)
+    m, k = a.shape
+    n = b.shape[1]
+    if m > _INT_MAX or n > _INT_MAX or k > _INT_MAX:
+        raise ValueError(f"systolic_mac: problem ({m}, {k}, {n}) exceeds the "
+                         f"kernel's 32-bit extents")
+    code = _DTYPE_CODE[a.dtype]
+    plan = launch_plan(k, n, code)
+    if v_map.dtype != torch.float32 or not v_map.is_contiguous():
+        v_map = v_map.to(torch.float32).contiguous()
+    if v_safe.dtype != torch.float32 or not v_safe.is_contiguous():
+        v_safe = v_safe.to(torch.float32).contiguous()
+    dev = a.device
+    c = torch.empty((m, n), dtype=torch.float32, device=dev)
+    flags = torch.empty(v_map.shape, dtype=torch.int32, device=dev)
+    count = (torch.empty((), dtype=torch.int32, device=dev)
+             if fresh_count else counter)
+    sa_m, sa_k = a.stride()
+    sb_k, sb_n = b.stride()
+    err = lib.systolic_mac_launch(
+        a.data_ptr(), b.data_ptr(), v_map.data_ptr(), v_safe.data_ptr(),
+        c.data_ptr(), flags.data_ptr(),
+        count.data_ptr() if count is not None else None, int(fresh_count),
+        plan.splits, m, n, k, sa_m, sa_k, sb_k, sb_n, block_m, block_n,
+        keep_bits, code,
+        # the raw handle of PyTorch's current stream (the Stream object
+        # that torch.cuda.current_stream() builds costs more than a launch)
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"systolic_mac launch failed: CUDA error {err} "
+                           f"for ({m}, {k}) @ ({k}, {n}), cells "
+                           f"{block_m}x{block_n}")
+    systolic_mac.launches += 1
+    return c, flags, count
 
 
 def systolic_mac(a: torch.Tensor, b: torch.Tensor, v_map: torch.Tensor,
                  v_safe: torch.Tensor, *, block_m: Optional[int] = None,
                  block_n: Optional[int] = None, keep_bits: int = 8,
-                 count_flags: bool = False):
+                 count_flags: bool = False,
+                 counter: Optional[torch.Tensor] = None):
     """C = a @ b with per-cell voltage-island fault semantics.
 
     a: (M, K); b: (K, N), both float32 or both bfloat16, any strides;
     v_map/v_safe: (M/block_m, N/block_n).  Returns (C f32 (M, N), flags
     int32 (gm, gn)); with ``count_flags=True`` additionally the fused int32
     total of fired cells as a 0-d tensor on the inputs' device (reading it is
-    the caller's synchronisation, not this function's).  ``block_m`` /
-    ``block_n`` default to the cell shape ``v_map`` implies.
+    the caller's synchronisation, not this function's).  ``counter``, a 0-d
+    int32 tensor on the inputs' device, is the other way to count: the call
+    adds its fired cells into it, so a caller that keeps a running total
+    (the reference backend, over a decode step's GEMMs) reads it once and no
+    per-call fill or sum runs on the device.  ``block_m`` / ``block_n``
+    default to the cell shape ``v_map`` implies.
 
     CUDA tensors go to the kernel, CPU tensors to :func:`systolic_mac_plain`.
     """
     block_m, block_n = _check(a, b, v_map, v_safe, block_m, block_n,
                               keep_bits)
+    if counter is not None:
+        if count_flags:
+            raise ValueError("systolic_mac counts into a fresh count "
+                             "(count_flags=True) or into counter=, not both")
+        if (counter.dtype != torch.int32 or counter.dim() != 0
+                or counter.device != a.device):
+            raise ValueError(f"systolic_mac: counter must be a 0-d int32 "
+                             f"tensor on {a.device}; got {counter.dtype} "
+                             f"{tuple(counter.shape)} on {counter.device}")
     if a.device.type == "cpu":
         c, flags = systolic_mac_plain(a, b, v_map, v_safe, block_m=block_m,
                                       block_n=block_n, keep_bits=keep_bits)
+        if counter is not None:
+            counter += flags.sum().to(torch.int32)
         if not count_flags:
             return c, flags
         return c, flags, flags.sum().to(torch.int32)
     if a.device.type != "cuda":
         raise ValueError(f"systolic_mac has no kernel for device {a.device}")
-
-    m, k = a.shape
-    n = b.shape[1]
-    if max(m, n, k) > _INT_MAX or m * n > 2 ** 62:
-        raise ValueError(f"systolic_mac: problem ({m}, {k}, {n}) exceeds the "
-                         f"kernel's 32-bit extents")
-    if -(-m // _WIDE_TILE_M) > _MAX_GRID_Y:
-        raise ValueError(f"systolic_mac: M={m} needs more than "
-                         f"{_MAX_GRID_Y} row blocks")
-    lib = _build.load_library()
-    v_map = v_map.to(torch.float32).contiguous()
-    v_safe = v_safe.to(torch.float32).contiguous()
-    gm, gn = v_map.shape
-    with torch.cuda.device(a.device):
-        c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-        flags = torch.empty((gm, gn), dtype=torch.int32, device=a.device)
-        count = (torch.zeros((), dtype=torch.int32, device=a.device)
-                 if count_flags else None)
-        err = lib.systolic_mac_launch(
-            a.data_ptr(), b.data_ptr(), v_map.data_ptr(), v_safe.data_ptr(),
-            c.data_ptr(), flags.data_ptr(),
-            count.data_ptr() if count is not None else None,
-            m, n, k, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-            block_m, block_n, keep_bits, _DTYPE_CODE[a.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"systolic_mac launch failed: CUDA error {err} "
-                           f"for ({m}, {k}) @ ({k}, {n}), cells "
-                           f"{block_m}x{block_n}")
-    systolic_mac.launches += 1
+    # the launcher zeroes a fresh count on the stream: no separate fill
+    c, flags, count = _launch(a, b, v_map, v_safe, block_m, block_n,
+                              keep_bits, counter, count_flags)
     if not count_flags:
         return c, flags
     return c, flags, count

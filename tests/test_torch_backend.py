@@ -147,15 +147,30 @@ def test_flags_counted_and_count_flags_false():
 
 
 class _Deferring(_Undervolted):
-    """Hands its flag count back as a tensor, as the GPU path does."""
+    """Adds a count of its own into the router's counter with one tensor
+    addition, as a backend whose kernel returns a fresh count would."""
 
-    def _execute(self, a, b, count_flags):
-        c, tel, _ = super()._execute(a, b, count_flags)
-        fired, tel.flags = torch.tensor(tel.flags), 0
-        return c, tel, (fired if count_flags else None)
+    def _execute(self, a, b, count_flags, counter):
+        own = torch.zeros((), dtype=torch.int32) if count_flags else None
+        c, tel = super()._execute(a, b, count_flags, own)
+        if count_flags:
+            counter += own
+        return c, tel
 
 
-@pytest.mark.parametrize("cls", [_Undervolted, _Deferring])
+class _HostCounted(_Undervolted):
+    """Knows its flag count on the host: reports it in the telemetry and
+    leaves the router's counter alone."""
+
+    def _execute(self, a, b, count_flags, counter):
+        own = torch.zeros((), dtype=torch.int32) if count_flags else None
+        c, tel = super()._execute(a, b, count_flags, own)
+        if count_flags:
+            tel.flags = int(own)
+        return c, tel
+
+
+@pytest.mark.parametrize("cls", [_Undervolted, _Deferring, _HostCounted])
 def test_routed_matmul_accumulates_flags_for_pop(cls):
     """Model GEMMs defer their flag counts; pop_telemetry / summary settle
     them: (2, 4) has two 2x2 cells, (2, 2) one."""

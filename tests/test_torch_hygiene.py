@@ -146,7 +146,12 @@ def test_build_is_keyed_by_its_sources():
         for banned in ("cublas", "cutlass", "torch/extension.h", "ATen",
                        "mma.h"):
             assert banned not in text, (name, banned)
+    # systolic_mac: bf16 on the tensor cores by inline PTX mma.sync at
+    # every M, bulk-copy streaming, f32 kept on fmaf (no TF32)
+    assert "mma.sync.aligned.m16n8k16" in texts["systolic_mac.cu"]
+    assert "cp.async.bulk" in texts["systolic_mac.cu"]
     assert "fmaf" in texts["systolic_mac.cu"]
+    assert ".tf32" not in texts["systolic_mac.cu"]
     assert "__dp4a" in texts["tile_products.cuh"]
     for name in ("systolic_mac", "quant_rows", "razor_matmul",
                  "precision_island", "wkv6", "ssd_chunk"):
