@@ -49,7 +49,10 @@ SRC = ROOT / "src"
 # NVIDIA H100 SXM data sheet, dense rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12,      # tensor cores, f32 accumulate
+              "tf32": 495e12,          # tensor cores, f32 accumulate
               "float32": 67e12}        # outside the tensor cores
+#: products a 3xTF32 split takes for one f32 product (ssd_chunk)
+TF32_SPLIT_PASSES = 3
 PEAK_INT8_OPS = 1979e12                # tensor cores
 
 ARCH = "phi4-mini-3.8b"
@@ -84,7 +87,9 @@ ISLAND_BLOCK, ISLAND_TOL = 128, 0.02
 SSM_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
 #: wkv6 / ssd_chunk against their plain versions, y and the final state as
 #: fractions of their largest magnitudes: f32 sums in another order (the
-#: plain version's products run on cuBLAS), no TF32
+#: plain version's products run on cuBLAS in f32); ssd_chunk's products on
+#: TF32 tensor cores with a 3xTF32 split, which drops about 2^-21 of each
+#: term (a single TF32 pass, 2^-11, would not hold this)
 TOL_RECURRENCE = 1e-4
 #: one Mamba2 layer's token-by-token steps against its parallel forward, as
 #: a fraction of the largest output (tests/models/test_consistency.py);
@@ -1279,13 +1284,16 @@ def wkv6_bound_ms(b, s, h, p, chunk):
 
 def ssd_bound_ms(b, s, h, p, n, chunk):
     """The same for ssd_chunk: x, dt, B, C, A_log, D read once, y written
-    once, the state read and written once; per chunk and head the scores
-    (2 ch ch n), their product with x dt (2 ch ch p), the carried state's
-    term and the state update (2 ch n p each)."""
+    once, the state read and written once; the scores C B^T once per (b,
+    chunk) (2 ch ch n: B and C are shared by every head), and per chunk and
+    head their weights' product with x dt (2 ch ch p), the carried state's
+    term and the state update (2 ch n p each); all on the TF32 tensor cores
+    the kernel uses, TF32_SPLIT_PASSES products each."""
     nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + 2 * h
                   + 2 * b * h * n * p)
-    flops = 2.0 * b * h * s * (chunk * (n + p) + 2 * n * p)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    flops = 2.0 * b * s * chunk * n + 2.0 * b * h * s * (chunk * p + 2 * n * p)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = TF32_SPLIT_PASSES * flops / PEAK_FLOPS["tf32"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1345,6 +1353,23 @@ def ssd_inputs(torch, gen, b, s, h, p, n, state=True):
     return [x, dt, A_log, B, C, D, s0]
 
 
+def unaligned_views(torch, args):
+    """ssd_chunk's inputs with the same values in tensors whose rows start
+    off 16-byte boundaries: x one element into a wider last axis, B and C
+    slices of one tensor, the state one element into its storage."""
+    x, dt, A_log, B, C, D, s0 = args
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xw = torch.empty((b, s, h, p + 1), device=x.device)
+    xw[..., 1:] = x
+    bc = torch.empty((b, s, 2 * n + 1), device=x.device)
+    bc[..., 1:n + 1], bc[..., n + 1:] = B, C
+    sw = torch.empty(s0.numel() + 1, device=x.device)
+    sw[1:] = s0.flatten()
+    return [xw[..., 1:], dt, A_log, bc[..., 1:n + 1], bc[..., n + 1:], D,
+            sw[1:].view(s0.shape)]
+
+
 def check_wkv6(torch, wkv6, wkv6_plain):
     """wkv6 at rwkv6-1.6b's decode (b = 1 and 4, s = 1) and loss (b 2, s
     2048, chunk 64) shapes, ragged chunks (100, 1000), the JAX tests' shapes
@@ -1399,9 +1424,12 @@ def check_wkv6(torch, wkv6, wkv6_plain):
 
 def check_ssd(torch, ssd_chunk, ssd_chunk_plain):
     """ssd_chunk at zamba2-2.7b's loss shape (b 2, s 2048, h 80, p 64, n 64,
-    chunk 64), ragged chunks (100, 1000), one decode-sized step, and the JAX
-    tests' shapes; every row also with the state written in place; the
-    model's shapes timed (inputs of 170 MB: cold in L2)."""
+    chunk 64), ragged chunks (100, 1000), one decode-sized step, the JAX
+    tests' shapes, and odd widths in unaligned views (the kernels' 4-byte
+    copy, scalar carry and odd-column store paths); every row also with the
+    state written in place and repeated (the same bits); the model's shapes
+    timed (inputs of 170 MB: cold in L2), back to back by CUDA events and by
+    torch.profiler per pass (state, carry, scan)."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 10)
     H, P, N = 80, 64, 64
@@ -1412,15 +1440,25 @@ def check_ssd(torch, ssd_chunk, ssd_chunk_plain):
              ("jax-test", 2, 64, 2, 16, 8, 16, False),
              ("jax-test", 1, 96, 4, 32, 16, 32, False),
              ("jax-test", 2, 32, 1, 8, 4, 8, False),
-             ("jax-test nonzero state", 1, 32, 2, 8, 4, 8, True)]
+             ("jax-test nonzero state", 1, 32, 2, 8, 4, 8, True),
+             ("unaligned", 2, 256, 12, 47, 37, 128, True)]
     out = []
     for name, b, s, h, p, n, ch, state in cases:
         args = ssd_inputs(torch, gen, b, s, h, p, n, state)
+        if name == "unaligned":
+            args = unaligned_views(torch, args)
         what = f"ssd_chunk {name} (b, s, h, p, n) = {(b, s, h, p, n)} chunk {ch}"
         row = {"case": name, "b": b, "s": s, "h": h, "p": p, "n": n,
                "chunk": ch,
                **recurrence_case(torch, ssd_chunk, ssd_chunk_plain, args, ch,
                                  what)}
+        y1, S1 = ssd_chunk(*args, chunk=ch)
+        y2, S2 = ssd_chunk(*args, chunk=ch)
+        torch.cuda.synchronize()
+        if not (torch.equal(y1, y2) and torch.equal(S1, S2)):
+            fail(f"{what}: a repeated call gives other bits")
+        row["repeat_bit_equal"] = True
+        del y1, S1, y2, S2
         out.append(row)
         if name not in ("zamba2 loss", "ragged"):
             continue
@@ -1429,6 +1467,13 @@ def check_ssd(torch, ssd_chunk, ssd_chunk_plain):
         t_bound, by = ssd_bound_ms(b, s, h, p, n, ch)
         row.update({"kernel_ms": t_kernel, "plain_ms": t_plain,
                     "library_ms": None, "bound_ms": t_bound, "bound_by": by})
+        iters = 5
+        prof = profile_calls(torch, {"ssd_chunk": lambda: [
+            ssd_chunk(*args, chunk=ch) for _ in range(iters)]})["ssd_chunk"]
+        passes = {r["kernel"]: r["ms"] / iters for r in prof or []
+                  if r["kernel"].startswith("ssd_chunk_")}
+        row["kernel_device_ms"] = sum(passes.values()) if passes else None
+        row["kernel_device_ms_by_pass"] = passes or None
     return out
 
 
@@ -1750,15 +1795,20 @@ def loss_phase(torch, cfg, params, api, ssm_mod, plains, counters):
         acc[1] += r["calls"]
     device_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    k_ms, k_calls = by_name.get(f"{kernel}_kernel", [None, 0])
+    # every CUDA kernel of the wrapper: wkv6_kernel, ssd_chunk_<pass>_kernel
+    passes = {k: v[0] for k, v in by_name.items()
+              if k.startswith(f"{kernel}_") and k.endswith("_kernel")}
+    k_ms = sum(passes.values()) if passes else None
     seconds_mean = (seconds + sum(times)) / 3
     return {"arch": cfg.name, "batch": [b, s], "backend": "ideal",
             "loss": loss, "loss_plain_route": loss_plain,
             "loss_gap_rel": gap, "loss_gap_limit": TOL_LOSS,
             "ln_padded_vocab": ln_v, "seconds_per_call": seconds_mean,
             "tokens_per_s": b * s / seconds_mean, "launches": launches,
-            f"{kernel}_ms_per_launch": (k_ms / k_calls if k_calls else None),
+            f"{kernel}_ms_per_launch": (None if k_ms is None
+                                        else k_ms / cfg.n_layers),
             f"{kernel}_ms_per_call": k_ms,
+            f"{kernel}_ms_per_call_by_kernel": passes or None,
             "device_ms_per_call": device_ms or None,
             "profile_top_kernels": [
                 {"kernel": k, "ms": v[0], "calls": v[1],
@@ -2054,13 +2104,19 @@ def main() -> int:
     entry["loss_shape"]["launches_per_loss_call"] = ssm_launches[
         "rwkv6-1.6b", "loss"]["wkv6"]
     kernels.append(entry)
-    kernels.append(recurrence_entry(
+    ssd_loss_row = next(r for r in ssd_rows if r["case"] == "zamba2 loss")
+    entry = recurrence_entry(
         "ssd_chunk", "src/repro_torch/csrc/ssd_chunk.cu",
-        "src/repro/kernels/ssd_chunk.py:26", ssd_rows,
-        next(r for r in ssd_rows if r["case"] == "zamba2 loss"),
+        "src/repro/kernels/ssd_chunk.py:26", ssd_rows, ssd_loss_row,
         ssm_launches["zamba2-2.7b", "loss"]["ssd_chunk"], 1,
         "one call at zamba2-2.7b's loss shape (b 2, s 2048, h 80, p 64, "
-        "n 64, chunk 64); launches: one ModelAPI.loss call"))
+        "n 64, chunk 64); launches: one ModelAPI.loss call")
+    entry["device_ms"] = ssd_loss_row["kernel_device_ms"]
+    entry["device_ms_by_pass"] = ssd_loss_row["kernel_device_ms_by_pass"]
+    entry["device_ms_of"] = ("the same call, its three passes' device time "
+                             "by torch.profiler (ms above: back to back by "
+                             "CUDA events)")
+    kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

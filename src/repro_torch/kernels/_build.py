@@ -189,8 +189,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ssd_chunk_launch.argtypes = [
         p, p, p, p, p, p,           # x, dt, A_log, B, C, D
         p, p, p,                    # state, y, state_out
+        p, p,                       # states and cum scratch
         ll, ll, ll, ll, ll, ll,     # strides (b, s, h) of x and dt
         ll, ll, ll, ll,             # strides (b, s) of B and C
         i, i, i, i, i, i,           # B, S, H, P, N, chunk
+        i,                          # heads_per_block
         p]                          # stream
     lib.ssd_chunk_launch.restype = ctypes.c_int

@@ -10,19 +10,31 @@ weight tiles ``(C B^T) * exp(cum_t - cum_s)`` under an inclusive mask; the
 (n, p) state carries from chunk to chunk; exponents are clamped at +-30 and
 the carried state's factor at [-30, 0], as in the Pallas kernel.
 
-What bounds it on an H100: at zamba2's shapes (h 80, p 64, n 64, chunk 64)
-the f32 operations of the four products.  One block per (b, h) walks the
-chunks in order with the state in shared memory; B and C, shared by every
-head, are read per batch row through their strides (the Pallas wrapper
-repeats them once per head in device memory first).
+One call is three CUDA kernels (:func:`pass_plan` sizes them): a state pass
+over (b, chunk, group of heads) that takes each head's cumsum and the chunk's
+local state term, a carry pass over (b, h, slice of the state) that walks the
+chunks in order and leaves each chunk's incoming state, and a scan pass over
+(b, chunk, group of heads, 64-row tile) that forms the scores ``C B^T`` once
+for all the block's heads (B and C are shared by every head, read per batch
+row through their strides) and then each head's output.  The four products
+run on the TF32 tensor cores with a 3xTF32 split (``hi + lo``, three
+products), close to f32.  No float atomics: a repeated call gives the same
+bits.
 
-:func:`ssd_chunk` launches the kernel for CUDA tensors (or raises) and
+What bounds it on an H100: at zamba2's loss shape (b 2, s 2048, h 80, p 64,
+n 64, chunk 64) the bytes: x, dt, B, C, A_log and D read once, y written
+once, the state read and written once, 176.4 MB over 3.35 TB/s = 0.0527 ms
+(the products at TF32's rate, times three, take 0.049 ms).  The passes also
+write and read a (b, h, chunks, n, p) scratch of states (84 MB there).
+
+:func:`ssd_chunk` launches the kernels for CUDA tensors (or raises) and
 computes :func:`ssd_chunk_plain` for CPU tensors; there is no other route
 between the two.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +45,75 @@ from .tuning import assert_divides, select_chunk
 EXP_CLAMP = 30.0
 #: largest head size p and state size n the kernel takes
 _MAX_DIM = 64
+#: rows of a chunk tile (csrc/ssd_chunk.cu: TILE)
+TILE = 64
+#: most heads one block of the state and scan passes takes (MAX_HEADS)
+MAX_HEADS = 8
+#: state elements of one carry block (CARRY_ELEMS)
+CARRY_ELEMS = 1024
+#: blocks the state and scan passes aim at: two per SM on 132 SMs
+TARGET_BLOCKS = 264
+
+
+@dataclass(frozen=True)
+class PassPlan:
+    """The launch of one :func:`ssd_chunk` call: the three passes' grids,
+    the heads a block of the state and scan passes takes, and the scratch
+    the wrapper allocates (the kernels allocate nothing)."""
+    b: int
+    s: int
+    h: int
+    p: int
+    n: int
+    chunk: int
+    heads_per_block: int
+
+    @property
+    def n_chunks(self) -> int:
+        return self.s // self.chunk
+
+    @property
+    def head_groups(self) -> int:
+        return -(-self.h // self.heads_per_block)
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.chunk // TILE)
+
+    @property
+    def state_grid(self) -> Tuple[int, int, int]:
+        return (self.b * self.n_chunks, self.head_groups, 1)
+
+    @property
+    def carry_grid(self) -> Tuple[int, int, int]:
+        return (self.b * self.h, -(-self.n * self.p // CARRY_ELEMS), 1)
+
+    @property
+    def scan_grid(self) -> Tuple[int, int, int]:
+        return (self.b * self.n_chunks, self.head_groups, self.row_tiles)
+
+    @property
+    def states_shape(self) -> Tuple[int, ...]:
+        """Each chunk's local state term, then (after the carry pass) the
+        state entering it."""
+        return (self.b, self.h, self.n_chunks, self.n, self.p)
+
+    @property
+    def cum_shape(self) -> Tuple[int, ...]:
+        """Each head's cumsum of dt * a from its chunk's start."""
+        return (self.b, self.s, self.h)
+
+
+def pass_plan(b: int, s: int, h: int, p: int, n: int, chunk: int) -> PassPlan:
+    """The launch of ssd_chunk at these extents.  A block of the state and
+    scan passes takes up to MAX_HEADS heads (sharing B, C and the scores);
+    fewer where that would leave fewer than TARGET_BLOCKS blocks, down to
+    one head a block.  The grouping does not change any result: every head's
+    sums run in the same order in any group."""
+    assert_divides(chunk, s, "ssd_chunk sequence chunk")
+    units = b * (s // chunk) * h             # (batch row, chunk, head)
+    g = max(1, min(MAX_HEADS, h, units // TARGET_BLOCKS))
+    return PassPlan(b, s, h, p, n, chunk, g)
 
 
 def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
@@ -140,6 +221,11 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     if p > _MAX_DIM or n > _MAX_DIM or b * h > 2 ** 31 - 1:
         raise ValueError(f"ssd_chunk: x {tuple(x.shape)} with n = {n} exceeds "
                          f"the kernel's extents (p, n <= {_MAX_DIM})")
+    plan = pass_plan(b, s, h, p, n, chunk)
+    if (plan.head_groups > 65535 or plan.row_tiles > 65535
+            or b * plan.n_chunks > 2 ** 31 - 1):
+        raise ValueError(f"ssd_chunk: grid {plan.scan_grid} exceeds the "
+                         f"card's limits")
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         x = x.to(torch.float32)
@@ -152,13 +238,18 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         if state_out is None:
             state_out = torch.empty_like(state)
         y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+        states = torch.empty(plan.states_shape, dtype=torch.float32,
+                             device=x.device)
+        cum = torch.empty(plan.cum_shape, dtype=torch.float32,
+                          device=x.device)
         err = lib.ssd_chunk_launch(
             x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), state.data_ptr(), y.data_ptr(),
-            state_out.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
+            state_out.data_ptr(), states.data_ptr(), cum.data_ptr(),
+            x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2), B.stride(0),
             B.stride(1), C.stride(0), C.stride(1), b, s, h, p, n, chunk,
-            torch.cuda.current_stream().cuda_stream)
+            plan.heads_per_block, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk launch failed: CUDA error {err} for x "
                            f"{(b, s, h, p)}, n {n}, chunk {chunk}")
@@ -166,5 +257,6 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return y, state_out
 
 
-#: kernel launches made by :func:`ssd_chunk` in this process
+#: calls of :func:`ssd_chunk` that launched its kernels (one a call, for
+#: all three passes) in this process
 ssd_chunk.launches = 0

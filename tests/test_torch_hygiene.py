@@ -156,12 +156,22 @@ def test_build_is_keyed_by_its_sources():
     for name in ("systolic_mac", "quant_rows", "razor_matmul",
                  "precision_island", "wkv6", "ssd_chunk"):
         assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]
-    # the recurrences: f32 fmaf on the CUDA cores, accurate expf (no
-    # __expf), the Pallas kernels' clamps
+    # the recurrences: accurate expf (no __expf), the Pallas kernels'
+    # clamps; wkv6 f32 fmaf on the CUDA cores; ssd_chunk's four products on
+    # the TF32 tensor cores with a 3xTF32 split (hi = rna(a), lo = rna(a -
+    # hi), by cvt.rna.tf32's rounding rule in integer operations; three
+    # products a k-step) and no float atomics
     for name, clamp in (("wkv6.cu", "60.0f"), ("ssd_chunk.cu", "30.0f")):
-        assert "fmaf" in texts[name] and "expf" in texts[name]
+        assert "expf" in texts[name]
         assert "__expf" not in texts[name]
         assert f"EXP_CLAMP = {clamp}" in texts[name]
+    assert "fmaf" in texts["wkv6.cu"]
+    ssd = texts["ssd_chunk.cu"]
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in ssd
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in ssd
+    assert "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));" in ssd
+    assert ssd.count("mma_tf32(acc[si][jj], ") == 3
+    assert "atomicAdd(" not in ssd and "atomicCAS(" not in ssd
     # true IEEE division and round-half-even in the quantizer
     assert "__fdiv_rn" in texts["quant_rows.cu"]
     assert "rintf" in texts["quant_rows.cu"]
