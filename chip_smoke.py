@@ -137,16 +137,42 @@ def time_ms(fn, n_variants: int, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, n_variants: int, iters: int):
-    """Mean device milliseconds of ``fn(i)`` by ``torch.profiler``: the
-    summed time of the CUDA kernels (and memsets) that ``iters`` calls run,
-    cycling ``n_variants`` operand copies as :func:`time_ms` does, over
+def device_rows(fn, n_variants: int, iters: int):
+    """Device milliseconds per call of ``fn(i)`` by CUDA kernel (and
+    memset), by ``torch.profiler``: ``iters`` calls cycling ``n_variants``
+    operand copies as :func:`time_ms` does, each kernel's summed time over
     ``iters``.  Unlike back-to-back events it leaves out the host's launch
     work.  None where the profiler sees no device time (not measured)."""
     import torch
     rows = profile_calls(torch, {"calls": lambda: [
         fn(i % n_variants) for i in range(iters)]})["calls"]
-    return None if rows is None else sum(r["ms"] for r in rows) / iters
+    if rows is None:
+        return None
+    return [dict(r, ms=r["ms"] / iters, calls=r["calls"] / iters)
+            for r in rows]
+
+
+def device_ms(fn, n_variants: int, iters: int):
+    """The summed device milliseconds per call of :func:`device_rows`."""
+    rows = device_rows(fn, n_variants, iters)
+    return None if rows is None else sum(r["ms"] for r in rows)
+
+
+def host_us_per_call(torch, fn, calls: int, reps: int) -> float:
+    """Host microseconds per call, median of ``reps`` runs of ``calls``
+    calls each, timed from a synchronised start to the last enqueue (no
+    synchronisation inside)."""
+    for _ in range(min(50, calls)):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return sorted(runs)[len(runs) // 2]
 
 
 def bound_ms(m: int, k: int, n: int, gm: int, gn: int, dtype_name: str):
@@ -582,17 +608,7 @@ def host_cost(torch, systolic_mac, backend_mod, largest_common_block,
     v_safe = torch.zeros_like(v_map)
 
     def per_call_us(fn):
-        for _ in range(50):
-            fn()
-        torch.cuda.synchronize()
-        runs = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            runs.append(1e6 * (time.perf_counter() - t0) / calls)
-            torch.cuda.synchronize()
-        return sorted(runs)[len(runs) // 2]
+        return host_us_per_call(torch, fn, calls, reps)
 
     out = {"M": m, "K": k, "N": n, "dtype": "bfloat16", "calls": calls,
            "reps": reps}
@@ -750,7 +766,11 @@ def razor_case(torch, razor_matmul, razor_matmul_plain, a, b, tol, what,
     m, n = a.shape[0], b.shape[1]
     bm, bn = select_blocks(m, n)
     c, flags, rel, count = razor_matmul(a, b, tol=tol, count_flags=True)
+    again = razor_matmul(a, b, tol=tol, count_flags=True)
     torch.cuda.synchronize()
+    if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip((c, flags, rel, count), again)):
+        fail(f"{what}: a repeated call differs in C, flags, rel or count")
     c_ref, f_ref, rel_ref = razor_matmul_plain(a, b, tol=tol, block_m=bm,
                                                block_n=bn)
     band = (rel_ref - tol).abs() <= TOL_BAND * tol
@@ -777,6 +797,7 @@ def razor_case(torch, razor_matmul, razor_matmul_plain, a, b, tol, what,
             "flag_cell": [bm, bn], "cells": int(flags.numel()),
             "fired": int(flags.sum()), "cells_in_band": in_band,
             "count_equals_flag_sum": True, "main_cells_bit_equal": True,
+            "repeat_bit_equal": True,
             "max_err_shadow": err, "max_err_limit": lim,
             "rel_max_rel_err": rel_err, "rel_limit": TOL_REL}
 
@@ -843,6 +864,20 @@ def check_razor(torch, cfg, kernels, ref, select_blocks):
             t_plain = time_ms(lambda i: razor_matmul_plain(
                 a, bs[i], tol=tol, block_m=bm, block_n=bn), len(bs), iters)
             t_lib = time_ms(lambda i: torch.matmul(a, bs[i]), len(bs), iters)
+            by_kernel = device_rows(lambda i: razor_matmul(a, bs[i], tol=tol),
+                                    len(bs), iters)
+            entry["device_ms"] = (None if by_kernel is None
+                                  else sum(r["ms"] for r in by_kernel))
+            entry["device_ms_by_kernel"] = by_kernel
+            entry["library_device_ms"] = device_ms(
+                lambda i: torch.matmul(a, bs[i]), len(bs), iters)
+            if name == "w1/wg" and dtype == torch.bfloat16:
+                # eight launches a call: few enough calls that the launch
+                # queue never fills and holds the host back
+                entry["host_us_per_call"] = host_us_per_call(
+                    torch, lambda: razor_matmul(a, b, tol=tol,
+                                                count_flags=True),
+                    calls=20, reps=7)
             del bs
             ops_s = (2.0 * m * n * k / PEAK_INT8_OPS
                      + 2.0 * m * n * k / PEAK_FLOPS[dname])
@@ -1856,7 +1891,7 @@ def path_entry(name, source, replaces, rows, launches, err_key):
              f"them apart")
     checked = [r for r in rows if err_key in r]
     worst = max(checked, key=lambda r: r[err_key] / r["max_err_limit"])
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": worst[err_key], "max_err_limit": worst["max_err_limit"],
@@ -1870,6 +1905,18 @@ def path_entry(name, source, replaces, rows, launches, err_key):
         "library_ms": sum(r["library_ms"] for r in timed),
         "library": f"{timed[0]['library']}; no single PyTorch call computes "
                    f"{name}"}
+    if "device_ms" in timed[0]:
+        dev = [r["device_ms"] for r in timed]
+        entry["device_ms"] = None if None in dev else sum(dev)
+        entry["device_ms_by_shape"] = {r["weight"]: r["device_ms"]
+                                       for r in timed}
+        entry["device_ms_of"] = ("the same calls, device time by "
+                                 "torch.profiler (ms above: back to back by "
+                                 "CUDA events)")
+    host = [r["host_us_per_call"] for r in timed if "host_us_per_call" in r]
+    if host:
+        entry["host_us_per_call"] = host[0]
+    return entry
 
 
 def main() -> int:

@@ -15,14 +15,21 @@
 // division is a true IEEE division (__fdiv_rn), rounding is half to even
 // (rintf), and the maximum is exact in any order.  q is written (R, Kp),
 // contiguous in k, with the columns K..Kp-1 zero, so the products read
-// whole 32-byte k tiles without bounds checks.  b is quantized through its
-// strides as the rows of b^T: nothing is transposed in device memory.
+// whole k tiles without bounds checks.  b is quantized through its strides
+// as the rows of b^T: nothing is transposed in device memory by the caller.
 //
-// Two passes over X, both spread over (R / 32) x (K / 256) blocks so that a
-// short operand (the activations, 256 rows) still fills the card: the row
-// maxima by an unsigned atomicMax on the bits of |x| (monotone for
-// non-negative floats, exact and order-free), then the quantization.  Bound:
-// the bytes of X, read twice, and of q.
+// What bounds it on this card: bytes.  Two passes, each reading X once: the
+// row maxima (an unsigned atomicMax on the bits of |x|, monotone for
+// non-negative floats, exact and order-free), then the quantization, which
+// writes q.  Both passes follow whichever axis of X is contiguous, with
+// 16-byte loads where the base and the row stride allow them:
+//   * k-fast (a, or b as a transposed view): a warp walks a row; the
+//     quantization writes 8 int8 of a row a thread (one 8-byte store).
+//   * r-fast (the columns of a row-major b): a thread holds 16 bytes of
+//     neighbouring rows; the quantization transposes a (rows x 64 k) tile
+//     through shared memory and writes q in 16-byte stores along k.
+//   * any other strides: the k-fast kernels with one load an element.
+// Loads at a ragged edge come from clamped addresses and are zeroed after.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,142 +37,293 @@
 
 namespace {
 
-constexpr int TR = 32;                // rows of X per block
-constexpr int TK = 32;                // k per tile
-constexpr int TILES = 8;              // tiles per block along k
 constexpr int THREADS = 256;
-constexpr int PER = TR * TK / THREADS;
+constexpr int K_PAD = 32;             // q's rows are padded to a multiple
+constexpr int AMAX_ROWS = 8;          // k-fast row maxima: a warp a row
+constexpr int AMAX_K = 2048;          // k of a k-fast row-maxima block
+constexpr int RF_LANES = 32;          // r-fast row maxima: 16-byte r-runs
+constexpr int RF_KLANES = 8;          //   x 8 phases along k a block
+constexpr int RF_AMAX_K = 128;        // k of an r-fast row-maxima block
+constexpr int QG = 8;                 // int8 a thread, k-fast quantization
+constexpr int QT_THREADS = 128;       // r-fast quantization tile:
+constexpr int QT_K = 64;              //   (8 runs of 16 bytes) x 64 k
+
+template <typename T>
+struct Run {
+  static constexpr int N = 16 / static_cast<int>(sizeof(T));   // 4 f32, 8 bf16
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Slot p of thread tid in a TR x TK tile.  Neighbouring threads walk the
-// axis of X that is contiguous in memory, so the loads are coalesced either
-// way; a slot's (row, k) is the same in every tile.
-__device__ __forceinline__ void slot(int tid, int p, bool k_fastest, int* r,
-                                     int* kk) {
-  const int idx = tid + p * THREADS;
-  *r = k_fastest ? idx / TK : idx % TR;
-  *kk = k_fastest ? idx % TK : idx / TR;
+// Elements e0 .. e0 + Run::N - 1 of a line whose element e is line[e]
+// (stride 1), zero from `len` on: one 16-byte load where `vec` says the line
+// is 16-byte aligned and the run lies inside it, else one clamped load an
+// element.
+template <typename T>
+__device__ __forceinline__ void load_run(const T* line, int e0, int len,
+                                         bool vec, float (&v)[Run<T>::N]) {
+  constexpr int V = Run<T>::N;
+  if (vec && e0 + V <= len) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(line + e0));
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+    if constexpr (V == 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(u[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {       // bf16 pairs, low half first
+        v[2 * i] = __uint_as_float(u[i] << 16);
+        v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int e = e0 + i;
+    const float x = to_f32(line[min(e, len - 1)]);
+    v[i] = e < len ? x : 0.0f;
+  }
 }
 
+__device__ __forceinline__ int quant(float v, float sc, float levels) {
+  float qv = rintf(__fdiv_rn(v, sc));
+  qv = fminf(fmaxf(qv, -levels), levels);
+  return __float2int_rn(qv);
+}
+
+__device__ __forceinline__ float row_scale(const unsigned int* amax, int row,
+                                           float levels) {
+  return __fdiv_rn(fmaxf(__uint_as_float(amax[row]), 1e-12f), levels);
+}
+
+// ---- row maxima
+
+// k-fast: warp w of block (x, y) takes row 8x + w, k in [2048y, 2048y + 2048)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-row_amax_kernel(const T* __restrict__ x, int R, int K, long long s_r,
-                long long s_k, unsigned int* __restrict__ amax) {
-  __shared__ float red[TR][TK + 1];
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TR;
-  const int kb = blockIdx.y * TK * TILES;
-  const bool k_fastest = (s_k == 1 && s_r != 1);
-  float vmax[PER];
+amax_kfast_kernel(const T* __restrict__ x, int R, int K, long long s_r,
+                  long long s_k, bool vec, unsigned int* __restrict__ amax) {
+  constexpr int V = Run<T>::N;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * AMAX_ROWS + (threadIdx.x >> 5);
+  if (row >= R) return;
+  const int k_lo = blockIdx.y * AMAX_K;
+  const int k_hi = min(K, k_lo + AMAX_K);
+  const T* line = x + (long long)row * s_r;
+  float m = 0.0f;
+  if (s_k == 1) {
+#pragma unroll 4
+    for (int k = k_lo + lane * V; k < k_hi; k += 32 * V) {
+      float v[V];
+      load_run(line, k, K, vec, v);
 #pragma unroll
-  for (int p = 0; p < PER; ++p) vmax[p] = 0.0f;
-  for (int t = 0; t < TILES; ++t) {
-    const int k0 = kb + t * TK;
-    if (k0 >= K) break;
+      for (int i = 0; i < V; ++i) m = fmaxf(m, fabsf(v[i]));
+    }
+  } else {
+#pragma unroll 4
+    for (int k = k_lo + lane; k < k_hi; k += 32)
+      m = fmaxf(m, fabsf(to_f32(line[(long long)k * s_k])));
+  }
 #pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      int r, kk;
-      slot(tid, p, k_fastest, &r, &kk);
-      const int row = row0 + r, k = k0 + kk;
-      // unconditional load from a clamped address, zeroed after
-      const float v = fabsf(to_f32(x[(long long)min(row, R - 1) * s_r +
-                                     (long long)min(k, K - 1) * s_k]));
-      vmax[p] = fmaxf(vmax[p], (row < R && k < K) ? v : 0.0f);
+  for (int off = 16; off > 0; off /= 2)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) atomicMax(&amax[row], __float_as_uint(m));
+}
+
+// r-fast (s_r == 1): thread (tx, ty) takes rows r0 + V tx .. + V - 1 and
+// k = k_lo + ty, + 8, ... in [128y, 128y + 128)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+amax_rfast_kernel(const T* __restrict__ x, int R, int K, long long s_k,
+                  bool vec, unsigned int* __restrict__ amax) {
+  constexpr int V = Run<T>::N;
+  constexpr int SPAN = RF_LANES * V;
+  __shared__ float red[RF_KLANES][SPAN + 1];
+  const int tx = threadIdx.x % RF_LANES, ty = threadIdx.x / RF_LANES;
+  const int r_base = blockIdx.x * SPAN;
+  const int k_lo = blockIdx.y * RF_AMAX_K;
+  const int k_hi = min(K, k_lo + RF_AMAX_K);
+  float m[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) m[i] = 0.0f;
+#pragma unroll 4
+  for (int k = k_lo + ty; k < k_hi; k += RF_KLANES) {
+    float v[V];
+    load_run(x + (long long)k * s_k, r_base + tx * V, R, vec, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) m[i] = fmaxf(m[i], fabsf(v[i]));
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) red[ty][tx * V + i] = m[i];
+  __syncthreads();
+  for (int c = threadIdx.x; c < SPAN; c += THREADS) {
+    float mm = red[0][c];
+#pragma unroll
+    for (int y = 1; y < RF_KLANES; ++y) mm = fmaxf(mm, red[y][c]);
+    if (r_base + c < R) atomicMax(&amax[r_base + c], __float_as_uint(mm));
+  }
+}
+
+// ---- quantization
+
+// k-fast: thread g of the grid writes q[row, 8j .. 8j + 7] for g = row *
+// (Kp / 8) + j, and the row's scale with its first group
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+quantize_kfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
+                      long long s_r, long long s_k, bool vec, float levels,
+                      const unsigned int* __restrict__ amax,
+                      int8_t* __restrict__ q, float* __restrict__ scale) {
+  constexpr int V = Run<T>::N;
+  const int groups = Kp / QG;
+  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (g >= (long long)R * groups) return;
+  const int row = static_cast<int>(g / groups);
+  const int k0 = static_cast<int>(g % groups) * QG;
+  const float sc = row_scale(amax, row, levels);
+  if (k0 == 0) scale[row] = sc;
+  const T* line = x + (long long)row * s_r;
+  float v[QG];
+  if (s_k == 1) {
+#pragma unroll
+    for (int h = 0; h < QG / V; ++h) {
+      float part[V];
+      load_run(line, k0 + h * V, K, vec, part);
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[h * V + i] = part[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < QG; ++i) {
+      const int k = k0 + i;
+      const float xv = to_f32(line[(long long)min(k, K - 1) * s_k]);
+      v[i] = k < K ? xv : 0.0f;
     }
   }
+  uint32_t w[2] = {0u, 0u};
 #pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    int r, kk;
-    slot(tid, p, k_fastest, &r, &kk);
-    red[r][kk] = vmax[p];
-  }
-  __syncthreads();
-  if (tid < TR && row0 + tid < R) {
-    float m = 0.0f;
-    for (int kk = 0; kk < TK; ++kk) m = fmaxf(m, red[tid][kk]);
-    atomicMax(&amax[row0 + tid], __float_as_uint(m));
-  }
+  for (int i = 0; i < QG; ++i)
+    w[i / 4] |= (static_cast<uint32_t>(quant(v[i], sc, levels)) & 0xffu)
+                << (8 * (i % 4));
+  *reinterpret_cast<uint2*>(q + (long long)row * Kp + k0) = make_uint2(w[0],
+                                                                       w[1]);
 }
 
+// r-fast (s_r == 1): a block quantizes rows r0 .. r0 + 8V - 1 at k in
+// [64y, 64y + 64): thread (rv, kq) loads the 16-byte runs of rows r0 + V rv
+// .. at k = 64y + 4kq .. + 3, packs each row's four int8 into one word of a
+// shared tile, and the tile leaves along k in 16-byte stores
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-quantize_kernel(const T* __restrict__ x, int R, int K, int Kp, long long s_r,
-                long long s_k, float levels,
-                const unsigned int* __restrict__ amax,
-                int8_t* __restrict__ q, float* __restrict__ scale) {
+__global__ void __launch_bounds__(QT_THREADS)
+quantize_rfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
+                      long long s_k, bool vec, float levels,
+                      const unsigned int* __restrict__ amax,
+                      int8_t* __restrict__ q, float* __restrict__ scale) {
+  constexpr int V = Run<T>::N;
+  constexpr int TR = 8 * V;
+  constexpr int WORDS = QT_K / 4;
+  __shared__ uint32_t qs[TR][WORDS + 1];
   __shared__ float s_scale[TR];
-  __shared__ int8_t qs[TR][TK + 4];
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TR;
-  const int kb = blockIdx.y * TK * TILES;
-  const bool k_fastest = (s_k == 1 && s_r != 1);
+  const int r0 = blockIdx.x * TR, k0 = blockIdx.y * QT_K;
   if (tid < TR) {
-    const int row = min(row0 + tid, R - 1);
-    const float sc =
-        __fdiv_rn(fmaxf(__uint_as_float(amax[row]), 1e-12f), levels);
+    const float sc = row_scale(amax, min(r0 + tid, R - 1), levels);
     s_scale[tid] = sc;
-    if (blockIdx.y == 0 && row0 + tid < R) scale[row0 + tid] = sc;
+    if (blockIdx.y == 0 && r0 + tid < R) scale[r0 + tid] = sc;
   }
   __syncthreads();
-  for (int t = 0; t < TILES; ++t) {
-    const int k0 = kb + t * TK;
-    if (k0 >= Kp) break;
+  const int rv = tid % 8, kq = tid / 8;
+  float v[4][V];
 #pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      int r, kk;
-      slot(tid, p, k_fastest, &r, &kk);
-      const int row = row0 + r, k = k0 + kk;
-      const float v = to_f32(x[(long long)min(row, R - 1) * s_r +
-                               (long long)min(k, K - 1) * s_k]);
-      float qv = rintf(__fdiv_rn(v, s_scale[r]));
-      qv = fminf(fmaxf(qv, -levels), levels);
-      qs[r][kk] = (k < K) ? static_cast<int8_t>(__float2int_rn(qv)) : 0;
-    }
-    __syncthreads();
-    // written along k, whatever the layout of x
+  for (int j = 0; j < 4; ++j) {
+    const int k = k0 + 4 * kq + j;
+    load_run(x + (long long)min(k, K - 1) * s_k, r0 + rv * V, R, vec, v[j]);
+    if (k >= K) {
 #pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int idx = tid + p * THREADS;
-      const int r = idx / TK, kk = idx % TK;
-      const int row = row0 + r, k = k0 + kk;
-      if (row < R && k < Kp) q[(long long)row * Kp + k] = qs[r][kk];
+      for (int i = 0; i < V; ++i) v[j][i] = 0.0f;
     }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float sc = s_scale[rv * V + i];
+    uint32_t w = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w |= (static_cast<uint32_t>(quant(v[j][i], sc, levels)) & 0xffu)
+           << (8 * j);
+    qs[rv * V + i][kq] = w;
+  }
+  __syncthreads();
+  for (int c = tid; c < TR * (QT_K / 16); c += QT_THREADS) {
+    const int r = c / (QT_K / 16), ch = c % (QT_K / 16);
+    const int row = r0 + r, k = k0 + ch * 16;
+    if (row < R && k < Kp)
+      *reinterpret_cast<uint4*>(q + (long long)row * Kp + k) =
+          make_uint4(qs[r][4 * ch], qs[r][4 * ch + 1], qs[r][4 * ch + 2],
+                     qs[r][4 * ch + 3]);
   }
 }
 
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 template <typename T>
-int launch(const void* x, int R, int K, int Kp, long long s_r, long long s_k,
+int launch(const void* x_, int R, int K, int Kp, long long s_r, long long s_k,
            float levels, unsigned int* amax, int8_t* q, float* scale,
            cudaStream_t stream) {
+  constexpr int V = Run<T>::N;
+  const T* x = static_cast<const T*>(x_);
+  const long long es = static_cast<long long>(sizeof(T));
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned int) * R, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid_max((R + TR - 1) / TR, (K + TK * TILES - 1) / (TK * TILES));
-  row_amax_kernel<T><<<grid_max, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), R, K, s_r, s_k, amax);
+  if (s_r == 1 && s_k != 1) {
+    const bool vec = aligned16(x) && (K == 1 || (s_k * es) % 16 == 0);
+    const dim3 grid_max((R + RF_LANES * V - 1) / (RF_LANES * V),
+                        (K + RF_AMAX_K - 1) / RF_AMAX_K);
+    amax_rfast_kernel<T><<<grid_max, THREADS, 0, stream>>>(x, R, K, s_k, vec,
+                                                           amax);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid_q((R + 8 * V - 1) / (8 * V), (Kp + QT_K - 1) / QT_K);
+    quantize_rfast_kernel<T><<<grid_q, QT_THREADS, 0, stream>>>(
+        x, R, K, Kp, s_k, vec, levels, amax, q, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool vec =
+      s_k == 1 && aligned16(x) && (R == 1 || (s_r * es) % 16 == 0);
+  const dim3 grid_max((R + AMAX_ROWS - 1) / AMAX_ROWS,
+                      (K + AMAX_K - 1) / AMAX_K);
+  amax_kfast_kernel<T><<<grid_max, THREADS, 0, stream>>>(x, R, K, s_r, s_k,
+                                                         vec, amax);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid_q((R + TR - 1) / TR, (Kp + TK * TILES - 1) / (TK * TILES));
-  quantize_kernel<T><<<grid_q, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), R, K, Kp, s_r, s_k, levels, amax, q, scale);
+  const long long threads = (long long)R * (Kp / QG);
+  quantize_kfast_kernel<T>
+      <<<static_cast<unsigned int>((threads + THREADS - 1) / THREADS), THREADS,
+         0, stream>>>(x, R, K, Kp, s_r, s_k, vec, levels, amax, q, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides in elements.  amax is scratch
-// of R uint32; q is (R, Kp) int8 with Kp >= K a multiple of 32; scale (R,).
-// Returns the first CUDA error of the three launches (0 = launched).
+// of R uint32; q is (R, Kp) int8, 16-byte aligned, with Kp >= K a multiple
+// of 32; scale (R,).  Returns the first CUDA error of the memset and the two
+// launches (0 = launched).
 extern "C" int quant_rows_launch(const void* x, int R, int K, int Kp,
                                  long long s_r, long long s_k, float levels,
                                  int dtype, void* amax, void* q, void* scale,
                                  void* stream) {
-  if (R <= 0 || K <= 0 || Kp < K || Kp % TK != 0 ||
-      (Kp + TK * TILES - 1) / (TK * TILES) > 65535 ||
+  if (R <= 0 || K <= 0 || Kp < K || Kp % K_PAD != 0 ||
+      (K + RF_AMAX_K - 1) / RF_AMAX_K > 65535 ||
+      (Kp + QT_K - 1) / QT_K > 65535 ||
+      ((long long)R * (Kp / QG) + THREADS - 1) / THREADS > 0x7FFFFFFFLL ||
+      (reinterpret_cast<uintptr_t>(q) & 15u) != 0 ||
       !(levels >= 1.0f && levels <= 127.0f) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

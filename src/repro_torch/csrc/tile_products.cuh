@@ -1,4 +1,4 @@
-// Block-tile products shared by razor_matmul.cu and precision_island.cu.
+// Block-tile products of precision_island.cu.
 //
 // One block of 256 threads computes a 64 x 64 tile of C, each thread a 4 x 4
 // patch (rows ty*4 + i, columns tx + j*16, so that neighbouring threads read

@@ -162,11 +162,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         p]                          # stream
     lib.quant_rows_launch.restype = ctypes.c_int
     lib.razor_matmul_launch.argtypes = [
-        p, p, p, p, p, p,           # a, b, qa, scale_a, qb, scale_b
-        p, p, p, p, p, p,           # main, shadow, c, flags, rel, count
-        i, i, i, i,                 # M, N, K, Kp
+        p, p, p, ll,                # a, b, workspace, its bytes
+        p, p, p, p,                 # c, flags, rel, count
+        i, i, i,                    # M, N, K
         ll, ll, ll, ll,             # strides of a (m, k) and b (k, n)
-        i, i, f, i,                 # block_m, block_n, tol, dtype
+        i, i, i, f, i,              # block_m, block_n, slices, tol, dtype
         p]                          # stream
     lib.razor_matmul_launch.restype = ctypes.c_int
     lib.precision_island_launch.argtypes = [

@@ -29,8 +29,13 @@ import torch
 
 from . import _build
 from .quant_rows import _DTYPE_CODE, padded_k, quant_rows
-from .razor_matmul import _MAX_GRID_Y, _MAX_K, _TILE_M
+from .razor_matmul import _MAX_K
 from .ref import precision_island_tiles
+
+#: rows per block of the product (csrc/tile_products.cuh BM); bounds grid.y,
+#: which CUDA limits to 65535
+_TILE_M = 64
+_MAX_GRID_Y = 65535
 
 
 def precision_island_plain(a: torch.Tensor, b: torch.Tensor,

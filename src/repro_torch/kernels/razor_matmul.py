@@ -4,8 +4,8 @@ runtime timing sensor as one GEMM).
 Replaces the Pallas kernel ``src/repro/kernels/razor_matmul.py::_kernel``
 (wrappers ``_razor_matmul_call`` / ``razor_matmul``).  The CUDA sources are
 ``csrc/quant_rows.cu`` (the per-row int8 quantization of A's rows and B's
-columns, once per operand), ``csrc/razor_matmul.cu`` and
-``csrc/tile_products.cuh``.
+columns, once per operand) and ``csrc/razor_matmul.cu`` (the product and
+cell passes, and the launcher that runs all of them on one stream).
 
 Main path = int8 x int8 -> int32 (the cheap near-threshold path); shadow
 path = f32 (the delayed shadow register).  Per partition cell the kernel
@@ -13,12 +13,16 @@ emits a mismatch flag (relative Frobenius error > tol) and — like Razor's
 replay — *corrects* flagged cells to the shadow value.  The flags feed
 ``core.precision.PrecisionController`` (Algorithm 2 on precision tiers).
 
-What bounds it on an H100: the arithmetic of its two products (2MNK in f32
-and 2MNK in int8), which this first version issues on the CUDA cores
-(``fmaf`` and ``__dp4a``), not the tensor cores.  The integer product is
-exact int32, as the oracle's is, so a main-path cell equals
-:func:`razor_matmul_plain` bit for bit; the Pallas body multiplies the
-integer values in f32, which stops being exact once partial sums pass 2^24.
+What bounds it on an H100: the tensor cores (2MNK in bf16 or 3xTF32, 2MNK
+in int8) and the bytes of ``b``.  Both products run on ``mma.sync``: the
+integer one on int8 m16n8k32 into int32 (exact, as the oracle's int32
+product, so a main-path cell equals :func:`razor_matmul_plain` bit for bit;
+the Pallas body multiplies the integer values in f32, which stops being
+exact once partial sums pass 2^24), the shadow on bf16 m16n8k16 for bf16
+operands and on a 3xTF32 split for f32 ones.  One producer warp streams the
+operands and their int8 copies into a ring of k-tiles by tensor-map TMA
+while four warps multiply (:func:`launch_plan` holds the tile sizes, the
+grid, the cell slices and the one workspace a call allocates).
 
 :func:`razor_matmul` launches the kernels for CUDA tensors (or raises) and
 computes :func:`razor_matmul_plain` for CPU tensors; there is no other route
@@ -27,22 +31,86 @@ between the two.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
-from .quant_rows import _DTYPE_CODE, padded_k, quant_rows
+from .quant_rows import _DTYPE_CODE, padded_k
 from .ref import razor_matmul_tiles
 from .tuning import select_blocks
 
 _INT_MAX = 2 ** 31 - 1
-#: rows per block of the product pass (csrc/tile_products.cuh BM); bounds
-#: grid.y, which CUDA limits to 65535
-_TILE_M = 64
-_MAX_GRID_Y = 65535
 #: the int32 accumulator holds K * 127^2 while K stays below this
 _MAX_K = _INT_MAX // 127 ** 2
+
+#: the product pass's block tile and k-tile (csrc/razor_matmul.cu BM, BN,
+#: BK), its ring of k-tiles (STAGES), and its threads: four MMA warps and
+#: one producer warp (BLOCK)
+TILE_M = TILE_N = TILE_K = 64
+STAGES = 4
+BLOCK_THREADS = 160
+#: column tiles lie on grid.y, which CUDA limits to 65535
+_MAX_GRID_Y = 65535
+#: the cell passes: a cell is cut into slices of about CELL_SLICE elements,
+#: at most MAX_SLICES (csrc/razor_matmul.cu MAX_SLICES)
+CELL_SLICE = 2048
+MAX_SLICES = 64
+#: alignment of the pieces of the workspace (csrc/razor_matmul.cu WS_ALIGN)
+WS_ALIGN = 256
+
+
+class LaunchPlan(NamedTuple):
+    """How one call is launched: the product pass's grid of TILE_M x TILE_N
+    blocks (row tiles fastest) walking ``k_tiles`` k-tiles of TILE_K in
+    order, the (cell, slice) grids of the two cell passes, and the one
+    workspace that holds the int8 copies, scales, row maxima, the main and
+    shadow planes and the cell partial sums."""
+    m: int
+    n: int
+    k: int
+    block_m: int
+    block_n: int
+    kp: int
+    k_tiles: int
+    row_tiles: int
+    col_tiles: int
+    cells: int
+    slices: int
+
+    def workspace_pieces(self) -> Tuple[Tuple[str, int], ...]:
+        """(name, bytes) in the order the launcher carves them."""
+        m, n, kp = self.m, self.n, self.kp
+        return (("qa", m * kp), ("qb", n * kp), ("scale_a", 4 * m),
+                ("scale_b", 4 * n), ("amax_a", 4 * m), ("amax_b", 4 * n),
+                ("main", 4 * m * n), ("shadow", 4 * m * n),
+                ("partial", 8 * self.cells * self.slices))
+
+    def workspace_bytes(self) -> int:
+        return sum(-(-b // WS_ALIGN) * WS_ALIGN
+                   for _, b in self.workspace_pieces())
+
+    def slice_ranges(self):
+        """[lo, hi) of each slice, in runs of the cell's elements taken in
+        row-major order (runs of 4 where the cell pass loads 16 bytes)."""
+        units = self.block_m * self.block_n // self.run()
+        return [(units * s // self.slices, units * (s + 1) // self.slices)
+                for s in range(self.slices)]
+
+    def run(self) -> int:
+        return 4 if self.block_n % 4 == 0 and self.n % 4 == 0 else 1
+
+
+def launch_plan(m: int, n: int, k: int, block_m: int,
+                block_n: int) -> LaunchPlan:
+    """The launch of one (M, K) @ (K, N) call with (block_m x block_n)
+    cells.  K is walked whole by every block in ascending k-tiles (no split
+    of K), so the plan's summation order depends on K alone."""
+    cell = block_m * block_n
+    slices = max(1, min(MAX_SLICES, cell // CELL_SLICE))
+    return LaunchPlan(m, n, k, block_m, block_n, padded_k(k),
+                      -(-k // TILE_K), -(-m // TILE_M), -(-n // TILE_N),
+                      (m // block_m) * (n // block_n), slices)
 
 
 def razor_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -98,28 +166,26 @@ def razor_matmul(a: torch.Tensor, b: torch.Tensor, *, tol: float = 0.05,
     if a.device.type != "cuda":
         raise ValueError(f"razor_matmul has no kernel for device {a.device}")
 
-    if k > _MAX_K or m * n > 2 ** 62 or -(-m // _TILE_M) > _MAX_GRID_Y:
+    plan = launch_plan(m, n, k, block_m, block_n)
+    if k > _MAX_K or m * n > 2 ** 62 or plan.col_tiles > _MAX_GRID_Y:
         raise ValueError(f"razor_matmul: problem ({m}, {k}, {n}) exceeds the "
                          f"kernel's extents")
     lib = _build.load_library()
     gm, gn = m // block_m, n // block_n
     with torch.cuda.device(a.device):
-        qa, scale_a = quant_rows(a, 127)
-        qb, scale_b = quant_rows(b.T, 127)
-        main = torch.empty((m, n), dtype=torch.float32, device=a.device)
-        shadow = torch.empty_like(main)
-        c = torch.empty_like(main)
+        ws_bytes = plan.workspace_bytes()
+        ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=a.device)
+        c = torch.empty((m, n), dtype=torch.float32, device=a.device)
         flags = torch.empty((gm, gn), dtype=torch.int32, device=a.device)
         rel = torch.empty((gm, gn), dtype=torch.float32, device=a.device)
-        count = (torch.zeros((), dtype=torch.int32, device=a.device)
+        count = (torch.empty((), dtype=torch.int32, device=a.device)
                  if count_flags else None)
         err = lib.razor_matmul_launch(
-            a.data_ptr(), b.data_ptr(), qa.data_ptr(), scale_a.data_ptr(),
-            qb.data_ptr(), scale_b.data_ptr(), main.data_ptr(),
-            shadow.data_ptr(), c.data_ptr(), flags.data_ptr(), rel.data_ptr(),
+            a.data_ptr(), b.data_ptr(), ws.data_ptr(), ws_bytes,
+            c.data_ptr(), flags.data_ptr(), rel.data_ptr(),
             count.data_ptr() if count is not None else None,
-            m, n, k, padded_k(k), a.stride(0), a.stride(1), b.stride(0),
-            b.stride(1), block_m, block_n, float(tol), _DTYPE_CODE[a.dtype],
+            m, n, k, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+            block_m, block_n, plan.slices, float(tol), _DTYPE_CODE[a.dtype],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"razor_matmul launch failed: CUDA error {err} "
@@ -132,5 +198,6 @@ def razor_matmul(a: torch.Tensor, b: torch.Tensor, *, tol: float = 0.05,
 
 
 #: kernel launches made by :func:`razor_matmul` in this process (one per
-#: call: the quantization prologue, product pass and cell pass together)
+#: call: the quantization prologue, the product pass and the cell passes
+#: together)
 razor_matmul.launches = 0

@@ -4,6 +4,7 @@ CPU unasked, or hand back a plain version where a kernel cannot be built."""
 import ast
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -153,6 +154,15 @@ def test_build_is_keyed_by_its_sources():
     assert "fmaf" in texts["systolic_mac.cu"]
     assert ".tf32" not in texts["systolic_mac.cu"]
     assert "__dp4a" in texts["tile_products.cuh"]
+    # razor_matmul: the main path on int8 mma.sync into int32, the bf16
+    # shadow on bf16 mma.sync, TMA streaming, no float atomics (the count
+    # is an integer atomicAdd); precision_island keeps __dp4a above
+    razor = texts["razor_matmul.cu"]
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in razor
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in razor
+    assert "cp.async.bulk.tensor" in razor
+    assert re.findall(r"atomic\w+\([^,]+", razor) == ["atomicAdd(count"]
+    assert "__dp4a" not in razor
     for name in ("systolic_mac", "quant_rows", "razor_matmul",
                  "precision_island", "wkv6", "ssd_chunk"):
         assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]

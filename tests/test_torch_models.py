@@ -318,3 +318,46 @@ def test_loss_matches_jax(pair):
         assert got.dtype == torch.float32 and got.dim() == 0
         assert abs(float(got) - want) <= 5e-3 * abs(want), (s, float(got),
                                                              want)
+
+
+def test_sliding_window_prefill_longer_than_the_cache(pair):
+    """ROADMAP C3: a sliding-window prompt longer than the cache, with a
+    ragged remainder.  ``prefill`` stores the last ``cache_len`` positions
+    at slots 0..cache_len-1 and ``decode_step`` then writes position p at
+    slot p % cache_len; the two agree only when (s - cache_len) is a
+    multiple of cache_len.  Both packages do the same, so the port must
+    equal the reference step for step: logits within BF16_TOL, the cache,
+    and tokens under the C1 tie rule (the reference's token is fed to
+    both, and the port's arg-max must be it or lie within 2 x BF16_TOL of
+    max|logits| of its logit)."""
+    jcfg, _, jparams, tcfg, _, tparams = pair
+    jcfg, tcfg = (dataclasses.replace(c, sliding_window=4)
+                  for c in (jcfg, tcfg))
+    japi, tapi = j_model_api(jcfg), model_api(tcfg, device="cpu")
+    s, max_len = 7, 16
+    toks = np.random.default_rng(PROMPT_SEED[jcfg.name]
+                                 ).integers(3, jcfg.vocab_size, (2, s))
+    jlog, jstate = japi.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                max_len=max_len)
+    tlog, tstate = tapi.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                                max_len=max_len)
+    cache_len = tstate["kv"]["k"].shape[2]
+    assert cache_len == 4 < s and (s - cache_len) % cache_len != 0
+    assert jstate["kv"]["k"].shape == tuple(tstate["kv"]["k"].shape)
+    _close(tstate["kv"]["k"], jstate["kv"]["k"])
+    _close(tstate["kv"]["v"], jstate["kv"]["v"])
+    jstep = jax.jit(japi.decode_step)
+    for step in range(4):
+        _close(tlog, jlog)
+        jl, tl = np.asarray(jlog, np.float32), tlog.numpy()
+        jtok = jl.argmax(-1)
+        for row, t in enumerate(tl.argmax(-1)):
+            assert t == jtok[row] or jl[row, t] >= jl[row].max() - (
+                2 * BF16_TOL * np.abs(jl[row]).max()), (step, row)
+        jlog, jstate = jstep(jparams, jstate, jnp.asarray(jtok[:, None]))
+        tlog, tstate = tapi.decode_step(tparams, tstate,
+                                        torch.from_numpy(jtok[:, None]))
+    _close(tlog, jlog)
+    assert np.array_equal(tstate["index"].numpy(), np.asarray(jstate["index"]))
+    _close(tstate["kv"]["k"], jstate["kv"]["k"])
+    _close(tstate["kv"]["v"], jstate["kv"]["v"])
