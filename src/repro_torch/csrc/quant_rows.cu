@@ -12,8 +12,10 @@
 //   q[r, k]  = clamp(rint(X[r, k] / scale[r]), -levels, levels)   (int8)
 //
 // bit for bit as the oracle (kernels/ref.py quantize_sym_i8/_i4): the
-// division is a true IEEE division (__fdiv_rn), rounding is half to even
-// (rintf), and the maximum is exact in any order.  q is written (R, Kp),
+// quotient is the true IEEE division's (__fdiv_rn, or a multiplication by
+// the reciprocal where the two cannot round to different integers; see
+// quant), rounding is half to even (rintf), and the maximum is exact in any
+// order.  q is written (R, Kp),
 // contiguous in k, with the columns K..Kp-1 zero, so the products read
 // whole k tiles without bounds checks.  b is quantized through its strides
 // as the rows of b^T: nothing is transposed in device memory by the caller.
@@ -40,10 +42,10 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int K_PAD = 32;             // q's rows are padded to a multiple
 constexpr int AMAX_ROWS = 8;          // k-fast row maxima: a warp a row
-constexpr int AMAX_K = 2048;          // k of a k-fast row-maxima block
+constexpr int AMAX_K = 512;           // k of a k-fast row-maxima block
 constexpr int RF_LANES = 32;          // r-fast row maxima: 16-byte r-runs
 constexpr int RF_KLANES = 8;          //   x 8 phases along k a block
-constexpr int RF_AMAX_K = 128;        // k of an r-fast row-maxima block
+constexpr int RF_AMAX_K = 64;         // k of an r-fast row-maxima block
 constexpr int QG = 8;                 // int8 a thread, k-fast quantization
 constexpr int QT_THREADS = 128;       // r-fast quantization tile:
 constexpr int QT_K = 64;              //   (8 runs of 16 bytes) x 64 k
@@ -89,8 +91,18 @@ __device__ __forceinline__ void load_run(const T* line, int e0, int len,
   }
 }
 
-__device__ __forceinline__ int quant(float v, float sc, float levels) {
-  float qv = rintf(__fdiv_rn(v, sc));
+// clamp(rint(v / sc), -levels, levels) with v / sc the true division,
+// multiplying by inv = 1 / sc (rounded) where that cannot differ.  |v / sc|
+// <= levels (to a rounding) <= 128, and y = v * inv lies within 3 * 2^-24 *
+// 128 < 2^-15 of the rounded quotient, so both round to the same integer
+// unless y lies within 2^-14 of a half-integer; there (a fraction of about
+// 2^-13 of random values) the division decides.
+__device__ __forceinline__ int quant(float v, float sc, float inv,
+                                     float levels) {
+  const float y = __fmul_rn(v, inv);
+  float qv = rintf(y);
+  if (fabsf(fabsf(__fsub_rn(y, qv)) - 0.5f) <= 0x1p-14f)
+    qv = rintf(__fdiv_rn(v, sc));
   qv = fminf(fmaxf(qv, -levels), levels);
   return __float2int_rn(qv);
 }
@@ -102,7 +114,7 @@ __device__ __forceinline__ float row_scale(const unsigned int* amax, int row,
 
 // ---- row maxima
 
-// k-fast: warp w of block (x, y) takes row 8x + w, k in [2048y, 2048y + 2048)
+// k-fast: warp w of block (x, y) takes row 8x + w, k in [512y, 512y + 512)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 amax_kfast_kernel(const T* __restrict__ x, int R, int K, long long s_r,
@@ -116,10 +128,11 @@ amax_kfast_kernel(const T* __restrict__ x, int R, int K, long long s_r,
   const T* line = x + (long long)row * s_r;
   float m = 0.0f;
   if (s_k == 1) {
-#pragma unroll 4
-    for (int k = k_lo + lane * V; k < k_hi; k += 32 * V) {
+    // every load of the block's k range issued at once (zero past K)
+#pragma unroll
+    for (int j = 0; j < AMAX_K / (32 * V); ++j) {
       float v[V];
-      load_run(line, k, K, vec, v);
+      load_run(line, k_lo + (j * 32 + lane) * V, K, vec, v);
 #pragma unroll
       for (int i = 0; i < V; ++i) m = fmaxf(m, fabsf(v[i]));
     }
@@ -135,7 +148,7 @@ amax_kfast_kernel(const T* __restrict__ x, int R, int K, long long s_r,
 }
 
 // r-fast (s_r == 1): thread (tx, ty) takes rows r0 + V tx .. + V - 1 and
-// k = k_lo + ty, + 8, ... in [128y, 128y + 128)
+// k = k_lo + ty, + 8, ... in [64y, 64y + 64)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 amax_rfast_kernel(const T* __restrict__ x, int R, int K, long long s_k,
@@ -146,16 +159,18 @@ amax_rfast_kernel(const T* __restrict__ x, int R, int K, long long s_k,
   const int tx = threadIdx.x % RF_LANES, ty = threadIdx.x / RF_LANES;
   const int r_base = blockIdx.x * SPAN;
   const int k_lo = blockIdx.y * RF_AMAX_K;
-  const int k_hi = min(K, k_lo + RF_AMAX_K);
   float m[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) m[i] = 0.0f;
-#pragma unroll 4
-  for (int k = k_lo + ty; k < k_hi; k += RF_KLANES) {
-    float v[V];
-    load_run(x + (long long)k * s_k, r_base + tx * V, R, vec, v);
+  // every load of the block's k range issued at once, from clamped rows
 #pragma unroll
-    for (int i = 0; i < V; ++i) m[i] = fmaxf(m[i], fabsf(v[i]));
+  for (int j = 0; j < RF_AMAX_K / RF_KLANES; ++j) {
+    const int k = k_lo + ty + j * RF_KLANES;
+    float v[V];
+    load_run(x + (long long)min(k, K - 1) * s_k, r_base + tx * V, R, vec, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      m[i] = fmaxf(m[i], k < K ? fabsf(v[i]) : 0.0f);
   }
 #pragma unroll
   for (int i = 0; i < V; ++i) red[ty][tx * V + i] = m[i];
@@ -185,6 +200,7 @@ quantize_kfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
   const int row = static_cast<int>(g / groups);
   const int k0 = static_cast<int>(g % groups) * QG;
   const float sc = row_scale(amax, row, levels);
+  const float inv = __frcp_rn(sc);
   if (k0 == 0) scale[row] = sc;
   const T* line = x + (long long)row * s_r;
   float v[QG];
@@ -206,9 +222,10 @@ quantize_kfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
   }
   uint32_t w[2] = {0u, 0u};
 #pragma unroll
-  for (int i = 0; i < QG; ++i)
-    w[i / 4] |= (static_cast<uint32_t>(quant(v[i], sc, levels)) & 0xffu)
-                << (8 * (i % 4));
+  for (int i = 0; i < QG; ++i) {
+    const uint32_t qi = static_cast<uint32_t>(quant(v[i], sc, inv, levels));
+    w[i / 4] |= (qi & 0xffu) << (8 * (i % 4));
+  }
   *reinterpret_cast<uint2*>(q + (long long)row * Kp + k0) = make_uint2(w[0],
                                                                        w[1]);
 }
@@ -227,12 +244,13 @@ quantize_rfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
   constexpr int TR = 8 * V;
   constexpr int WORDS = QT_K / 4;
   __shared__ uint32_t qs[TR][WORDS + 1];
-  __shared__ float s_scale[TR];
+  __shared__ float s_scale[TR], s_inv[TR];
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * TR, k0 = blockIdx.y * QT_K;
   if (tid < TR) {
     const float sc = row_scale(amax, min(r0 + tid, R - 1), levels);
     s_scale[tid] = sc;
+    s_inv[tid] = __frcp_rn(sc);
     if (blockIdx.y == 0 && r0 + tid < R) scale[r0 + tid] = sc;
   }
   __syncthreads();
@@ -249,11 +267,11 @@ quantize_rfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
   }
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    const float sc = s_scale[rv * V + i];
+    const float sc = s_scale[rv * V + i], inv = s_inv[rv * V + i];
     uint32_t w = 0u;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      w |= (static_cast<uint32_t>(quant(v[j][i], sc, levels)) & 0xffu)
+      w |= (static_cast<uint32_t>(quant(v[j][i], sc, inv, levels)) & 0xffu)
            << (8 * j);
     qs[rv * V + i][kq] = w;
   }

@@ -27,24 +27,27 @@
 // full-width weight: the tensor cores (2MNK bf16 + 2MNK int8) and the bytes
 // of b, read once for the shadow and once more as its int8 copy.  What the
 // design does:
-//   * Both products on the tensor cores by mma.sync: int8 m16n8k32 with an
-//     s32 accumulator (exact: |sum| <= K * 127^2 < 2^31), and for bf16
-//     operands the shadow on m16n8k16 bf16 with an f32 accumulator (a bf16
-//     product is exact in f32).  f32 operands take a 3xTF32 split on
-//     m16n8k8: x = hi + lo, both rounded to a 10-bit mantissa, each product
-//     lo.hi + hi.lo + hi.hi (a single TF32 pass keeps 2^-11 of each term,
-//     too little for the shadow's 1e-5 of max|C|).
-//   * A block computes a 64 x 64 tile of C with four MMA warps (32 x 32
-//     each) and one producer warp.  The producer streams a, b and their
-//     int8 copies through a ring of STAGES k-tiles of 64 in shared memory
-//     by 2-D tensor-map TMA (one box a lane, completion on an mbarrier);
-//     the MMA warps hand a stage back on a second mbarrier as soon as they
-//     are done with it, so STAGES - 1 tiles are in flight while one is
-//     multiplied and no block-wide barrier sits in the loop.  Boxes are in
-//     the TMA's 128-byte swizzle (float tiles) and 64-byte swizzle (int8
-//     tiles), which ldmatrix reads without bank conflicts; what lies outside
-//     the matrices arrives as zeros.  b's box runs along whichever axis of b
-//     is contiguous (a transposed view is read in place).
+//   * Both products on the tensor cores.  bf16 operands: warpgroup MMAs
+//     (wgmma) reading both operands from shared memory, m64n64k32 int8 into
+//     int32 (exact: |sum| <= K * 127^2 < 2^31) and m64n64k16 bf16 into f32
+//     (a bf16 product is exact in f32).  f32 operands: mma.sync, m16n8k32
+//     int8 into int32 and a 3xTF32 split on m16n8k8: x = hi + lo, both
+//     rounded to a 10-bit mantissa, each product lo.hi + hi.lo + hi.hi (a
+//     single TF32 pass keeps 2^-11 of each term, too little for the
+//     shadow's 1e-5 of max|C|).
+//   * A block computes a 64 x 64 tile of C with one warpgroup of four MMA
+//     warps (bf16: the whole tile by wgmma; f32: 32 x 32 a warp) and one
+//     producer warp.  The producer streams a, b and their int8 copies
+//     through a ring of STAGES k-tiles of 64 in shared memory by 2-D
+//     tensor-map TMA (one box a lane, completion on an mbarrier); the MMA
+//     warps hand a stage back on a second mbarrier as soon as they are done
+//     with it, so STAGES - 1 tiles are in flight while one is multiplied
+//     and no block-wide barrier sits in the loop.  Boxes are in the TMA's
+//     128-byte swizzle (float tiles) and 64-byte swizzle (int8 tiles), the
+//     layouts wgmma's descriptors and ldmatrix read without bank conflicts;
+//     what lies outside the matrices arrives as zeros.  b's box runs along
+//     whichever axis of b is contiguous (a transposed view is read in
+//     place; wgmma takes the row-major weight's tile as N-major).
 //   * Blocks are ordered with the row tiles fastest, so the blocks that
 //     share a column tile of b run together and read it from L2.
 //   * An operand the TMA cannot take (a base pointer or a row stride that
@@ -62,7 +65,8 @@
 //   2. One summation order for the shadow: k-tiles of 64 in ascending order;
 //      each tile's MMAs go into a fresh f32 fragment that is then added to
 //      the register sum, which keeps the tensor core's own accumulation to
-//      one tile (the same scheme as systolic_mac.cu).
+//      one tile (as systolic_mac.cu does; accumulated on the tensor cores
+//      over K = 8192, the bf16 shadow reached the 1e-5 x max|C| limit).
 //   3. The cell sums run in one fixed order (each thread ascending, a fixed
 //      tree, the slices in order), so a repeated call gives the same bits,
 //      flags and count.  No float atomics; the count is an integer
@@ -84,7 +88,7 @@ namespace {
 constexpr int BM = 64;          // rows of a block tile
 constexpr int BN = 64;          // columns of a block tile
 constexpr int BK = 64;          // k of a stage, both operand types
-constexpr int THREADS = 128;    // four MMA warps, 2 x 2, 32 x 32 each
+constexpr int THREADS = 128;    // four MMA warps: one warpgroup
 constexpr int BLOCK = THREADS + 32;   // and one warp that issues the copies
 constexpr int STAGES = 4;       // ring of k-tiles, STAGES - 1 in flight
 constexpr int ROW = 128;        // bytes of a float tile row: one swizzle row
@@ -198,45 +202,26 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// ---- tensor cores
+// ---- tensor cores, warp-level (mma.sync): the f32 path
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
 
 // d += a (16x32, row) * b (32x8, col), int8 operands, exact int32 sum
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // d += a (16x8, row) * b (8x8, col), TF32 operands, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -253,89 +238,166 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
+// ---- tensor cores, warpgroup-level (wgmma): the bf16 path.  Operands are
+// read from shared memory through 64-bit descriptors: start address,
+// stride between 8-row groups (SBO), swizzle (1 = 128-byte, 2 = 64-byte).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t sbo,
+                                              uint32_t swizzle) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator registers across the
+// asynchronous wgmma (CUTLASS's warpgroup_fence_operand)
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (= or +=) a (64x16, K-major) * b (16x64; K-major, or N-major where
+// TB = 1), bf16 operands, f32 accumulate; scale_d = 0 starts a fresh sum
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+// d += a (64x32, K-major) * b (32x64, K-major), int8 operands, exact int32
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // The oracle's dequantization, in its order: (float(acc) * sa) * sb.
 __device__ __forceinline__ float dequant(int acc, float sa, float sb) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), sa), sb);
 }
 
-// A warp's 32 x 32 share of the block tile: 2 m16 x 4 n8 fragments; lane l
-// holds rows l / 4 and l / 4 + 8, columns 2 (l % 4) and + 1 of each.
-struct Frags {
-  float acc[2][4][4];     // the shadow, f32
-  int iacc[2][4][4];      // the main path, int32
-};
+// A consumer thread's 32 sums of each plane, as 8 fragments of 4: element
+// e of fragment f lies at row frag_row(f) + 8 (e / 2), column frag_col(f) +
+// e % 2.  bf16 (one wgmma warpgroup, m64n64): warp w holds rows 16w + l / 4
+// (+ 8) and fragment f columns 8f + 2 (l % 4).  f32 (mma.sync, a 32 x 32
+// tile a warp): fragment f = 4 mi + nj at rows 32 (w % 2) + 16 mi + l / 4,
+// columns 32 (w / 2) + 8 nj + 2 (l % 4).
+template <typename T>
+__device__ __forceinline__ int frag_row(int warp, int lane, int f) {
+  if (sizeof(T) == 2) return 16 * warp + (lane >> 2);
+  return 32 * (warp & 1) + 16 * (f >> 2) + (lane >> 2);
+}
+template <typename T>
+__device__ __forceinline__ int frag_col(int warp, int lane, int f) {
+  if (sizeof(T) == 2) return 8 * f + 2 * (lane & 3);
+  return 32 * (warp >> 1) + 8 * (f & 3) + 2 * (lane & 3);
+}
 
-template <typename T, bool KFAST>
-__device__ __forceinline__ void shadow_tile(const unsigned char* As,
-                                            const unsigned char* Bs,
-                                            float (&t)[2][4][4], int wr,
-                                            int wc, int lane) {
-  const int q = lane >> 3, r8 = lane & 7;
-  if constexpr (sizeof(T) == 2) {
+// One k-tile of the bf16 path on the warpgroup, issued as one group: the
+// shadow's four k16 steps into a fresh sum t, the main path's two k32 steps
+// into iacc.  The caller waits for it.
+template <bool KFAST>
+__device__ __forceinline__ void issue_bf16(const unsigned char* As,
+                                           const unsigned char* Bs,
+                                           const unsigned char* Qa,
+                                           const unsigned char* Qb,
+                                           float (&t)[32], int (&iacc)[32]) {
+  // a, and b when K is its contiguous axis: 64 rows of 128 bytes, a k16
+  // step 32 bytes along the row; b with N contiguous: 64 k-rows of 128
+  // bytes (N-major), a k16 step 16 rows down.  Groups of 8 rows 1024 bytes
+  // apart; the int8 tiles' 64-byte rows 512 apart.
+  wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[2][4];
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_bf16<KFAST ? 0 : 1>(
+        t, smem_desc(As + 32 * kk, 1024, 1),
+        smem_desc(Bs + (KFAST ? 32 * kk : 2048 * kk), 1024, 1), kk > 0);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(af[mi], As + a_off<T>(wr + mi * 16 + r8 + (q & 1) * 8,
-                                      kk + (q >> 1) * 8));
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        const int n0 = wc + jp * 16;
-        uint32_t bf[4];
-        if constexpr (KFAST)
-          ldsm_x4(bf, Bs + b_off<T, true>(kk + (q & 1) * 8,
-                                          n0 + r8 + (q >> 1) * 8));
-        else
-          ldsm_x4_trans(bf, Bs + b_off<T, false>(kk + r8 + (q & 1) * 8,
-                                                 n0 + (q >> 1) * 8));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(t[mi][2 * jp], af[mi], bf[0], bf[1]);
-          mma_bf16(t[mi][2 * jp + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-  } else {
-    const int g = lane >> 2, tig = lane & 3;
+  for (int kk = 0; kk < QROW / 32; ++kk)
+    wgmma_s8(iacc, smem_desc(Qa + 32 * kk, 512, 2),
+             smem_desc(Qb + 32 * kk, 512, 2));
+  wgmma_commit();
+}
+
+// One k-tile of the f32 path on a warp (mma.sync, 32 x 32): the shadow's
+// 3xTF32 products into a fresh sum t, the int8 products into iacc.
+template <bool KFAST>
+__device__ __forceinline__ void stage_f32(const unsigned char* As,
+                                          const unsigned char* Bs,
+                                          const unsigned char* Qa,
+                                          const unsigned char* Qb,
+                                          float (&t)[32], int (&iacc)[32],
+                                          int wr, int wc, int lane) {
+  const int q = lane >> 3, r8 = lane & 7, g = lane >> 2, tig = lane & 3;
 #pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t ah[2][4], al[2][4];
+  for (int kk = 0; kk < BK; kk += 8) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      uint32_t raw[4];
+      ldsm_x4(raw, As + a_off<float>(wr + mi * 16 + r8 + (q & 1) * 8,
+                                     kk + (q >> 1) * 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split(__uint_as_float(raw[e]), ah[mi][e], al[mi][e]);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = wc + nj * 8 + g;
+      const float b0 = *reinterpret_cast<const float*>(
+          Bs + b_off<float, KFAST>(kk + tig, n));
+      const float b1 = *reinterpret_cast<const float*>(
+          Bs + b_off<float, KFAST>(kk + tig + 4, n));
+      uint32_t bh0, bl0, bh1, bl1;
+      split(b0, bh0, bl0);
+      split(b1, bh1, bl1);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        uint32_t raw[4];
-        ldsm_x4(raw, As + a_off<T>(wr + mi * 16 + r8 + (q & 1) * 8,
-                                   kk + (q >> 1) * 4));
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split(__uint_as_float(raw[e]), ah[mi][e], al[mi][e]);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int n = wc + nj * 8 + g;
-        const float b0 = *reinterpret_cast<const float*>(
-            Bs + b_off<T, KFAST>(kk + tig, n));
-        const float b1 = *reinterpret_cast<const float*>(
-            Bs + b_off<T, KFAST>(kk + tig + 4, n));
-        uint32_t bh0, bl0, bh1, bl1;
-        split(b0, bh0, bl0);
-        split(b1, bh1, bl1);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_tf32(t[mi][nj], al[mi], bh0, bh1);
-          mma_tf32(t[mi][nj], ah[mi], bl0, bl1);
-          mma_tf32(t[mi][nj], ah[mi], bh0, bh1);
-        }
+        float* d = t + 4 * (4 * mi + nj);
+        mma_tf32(d, al[mi], bh0, bh1);
+        mma_tf32(d, ah[mi], bl0, bl1);
+        mma_tf32(d, ah[mi], bh0, bh1);
       }
     }
   }
-}
-
-__device__ __forceinline__ void main_tile(const unsigned char* Qa,
-                                          const unsigned char* Qb,
-                                          int (&t)[2][4][4], int wr, int wc,
-                                          int lane) {
-  const int q = lane >> 3, r8 = lane & 7;
 #pragma unroll
   for (int kk = 0; kk < QROW; kk += 32) {
     uint32_t a8[2][4];
@@ -350,8 +412,8 @@ __device__ __forceinline__ void main_tile(const unsigned char* Qa,
                              kk + (q & 1) * 16));
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        mma_s8(t[mi][2 * jp], a8[mi], b8[0], b8[1]);
-        mma_s8(t[mi][2 * jp + 1], a8[mi], b8[2], b8[3]);
+        mma_s8(iacc + 4 * (4 * mi + 2 * jp), a8[mi], b8[0], b8[1]);
+        mma_s8(iacc + 4 * (4 * mi + 2 * jp + 1), a8[mi], b8[2], b8[3]);
       }
     }
   }
@@ -458,24 +520,22 @@ razor_product_kernel(const __grid_constant__ CUtensorMap map_a,
               (k < p.K && n < p.N) ? v : zero_of<T>();
         }
       }
-      mbar_arrive(bar);             // release: the stores above are seen
+      // the stores above, seen by the tensor cores' reads (async proxy)
+      fence_proxy_async();
+      mbar_arrive(bar);
     }
     return;
   }
 
-  // ---- the MMA warps
+  // ---- the MMA warps (one warpgroup)
   const int lane = tid & 31, warp = tid >> 5;
-  const int wr = (warp & 1) * 32, wc = (warp >> 1) * 32;
-  Frags f;
+  float acc[32], t[32];             // the sum, and one k-tile's
+  int iacc[32];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        f.acc[mi][nj][e] = 0.0f;
-        f.iacc[mi][nj][e] = 0;
-      }
+  for (int e = 0; e < 32; ++e) {
+    acc[e] = t[e] = 0.0f;
+    iacc[e] = 0;
+  }
   for (int i = 0; i < p.k_tiles; ++i) {
     const int s = i % STAGES;
     mbar_wait(smem_u32(full + s), (i / STAGES) & 1);
@@ -483,58 +543,53 @@ razor_product_kernel(const __grid_constant__ CUtensorMap map_a,
     const unsigned char* Bs = As + L::A_BYTES;
     const unsigned char* Qa = Bs + L::B_BYTES;
     const unsigned char* Qb = Qa + L::QA_BYTES;
-    float t[2][4][4];
+    if constexpr (sizeof(T) == 2) {
+      // (a second tile sum, to add one k-tile while the next one runs,
+      // makes ptxas serialize the wgmmas: slower on the card)
+      issue_bf16<KFAST>(As, Bs, Qa, Qb, t, iacc);
+      wgmma_wait<0>();
+      fence_regs(t);
+    } else {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) t[mi][nj][e] = 0.0f;
-    shadow_tile<T, KFAST>(As, Bs, t, wr, wc, lane);
-    main_tile(Qa, Qb, f.iacc, wr, wc, lane);
+      for (int e = 0; e < 32; ++e) t[e] = 0.0f;
+      stage_f32<KFAST>(As, Bs, Qa, Qb, t, iacc, (warp & 1) * 32,
+                       (warp >> 1) * 32, lane);
+    }
     __syncwarp();                   // the warp's reads of the stage are done
     if (lane == 0) mbar_arrive(smem_u32(empty + s));
     // the k-tile's sum into the f32 register sum, in one fixed order
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) f.acc[mi][nj][e] += t[mi][nj][e];
+    for (int e = 0; e < 32; ++e) acc[e] += t[e];
   }
+  if constexpr (sizeof(T) == 2) fence_regs(iacc);
 
   // ---- epilogue: dequantize the main path, write both planes
-  const int g = lane >> 2, tig = lane & 3;
   const bool pairs = (p.N % 2) == 0;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int f = 0; f < 8; ++f)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wr + mi * 16 + g + h * 8;
-      if (row >= p.M) continue;
+      const int row = row0 + frag_row<T>(warp, lane, f) + 8 * h;
+      const int col = col0 + frag_col<T>(warp, lane, f);
+      if (row >= p.M || col >= p.N) continue;
       const float sa = scale_a[row];
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = col0 + wc + nj * 8 + 2 * tig;
-        if (col >= p.N) continue;
-        const long long at = (long long)row * p.N + col;
-        const float m0 = dequant(f.iacc[mi][nj][2 * h], sa, scale_b[col]);
-        const float s0 = f.acc[mi][nj][2 * h];
-        if (col + 1 < p.N) {
-          const float m1 =
-              dequant(f.iacc[mi][nj][2 * h + 1], sa, scale_b[col + 1]);
-          const float s1 = f.acc[mi][nj][2 * h + 1];
-          if (pairs) {
-            *reinterpret_cast<float2*>(main_out + at) = make_float2(m0, m1);
-            *reinterpret_cast<float2*>(shadow_out + at) = make_float2(s0, s1);
-            continue;
-          }
-          main_out[at + 1] = m1;
-          shadow_out[at + 1] = s1;
+      const int e = 4 * f + 2 * h;
+      const long long at = (long long)row * p.N + col;
+      const float m0 = dequant(iacc[e], sa, scale_b[col]);
+      const float s0 = acc[e];
+      if (col + 1 < p.N) {
+        const float m1 = dequant(iacc[e + 1], sa, scale_b[col + 1]);
+        const float s1 = acc[e + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(main_out + at) = make_float2(m0, m1);
+          *reinterpret_cast<float2*>(shadow_out + at) = make_float2(s0, s1);
+          continue;
         }
-        main_out[at] = m0;
-        shadow_out[at] = s0;
+        main_out[at + 1] = m1;
+        shadow_out[at + 1] = s1;
       }
+      main_out[at] = m0;
+      shadow_out[at] = s0;
     }
 }
 

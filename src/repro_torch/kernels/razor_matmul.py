@@ -14,15 +14,16 @@ replay — *corrects* flagged cells to the shadow value.  The flags feed
 ``core.precision.PrecisionController`` (Algorithm 2 on precision tiers).
 
 What bounds it on an H100: the tensor cores (2MNK in bf16 or 3xTF32, 2MNK
-in int8) and the bytes of ``b``.  Both products run on ``mma.sync``: the
-integer one on int8 m16n8k32 into int32 (exact, as the oracle's int32
-product, so a main-path cell equals :func:`razor_matmul_plain` bit for bit;
-the Pallas body multiplies the integer values in f32, which stops being
-exact once partial sums pass 2^24), the shadow on bf16 m16n8k16 for bf16
-operands and on a 3xTF32 split for f32 ones.  One producer warp streams the
-operands and their int8 copies into a ring of k-tiles by tensor-map TMA
-while four warps multiply (:func:`launch_plan` holds the tile sizes, the
-grid, the cell slices and the one workspace a call allocates).
+in int8) and the bytes of ``b``.  Both products run on the tensor cores:
+the integer one in int8 into int32 (exact, as the oracle's int32 product,
+so a main-path cell equals :func:`razor_matmul_plain` bit for bit; the
+Pallas body multiplies the integer values in f32, which stops being exact
+once partial sums pass 2^24), the shadow in bf16 for bf16 operands (both by
+warpgroup MMAs, ``wgmma``) and by a 3xTF32 split for f32 ones (both by
+``mma.sync``).  One producer warp streams the operands and their int8
+copies into a ring of k-tiles by tensor-map TMA while four warps multiply
+(:func:`launch_plan` holds the tile sizes, the grid, the cell slices and
+the one workspace a call allocates).
 
 :func:`razor_matmul` launches the kernels for CUDA tensors (or raises) and
 computes :func:`razor_matmul_plain` for CPU tensors; there is no other route
@@ -171,22 +172,29 @@ def razor_matmul(a: torch.Tensor, b: torch.Tensor, *, tol: float = 0.05,
         raise ValueError(f"razor_matmul: problem ({m}, {k}, {n}) exceeds the "
                          f"kernel's extents")
     lib = _build.load_library()
-    gm, gn = m // block_m, n // block_n
-    with torch.cuda.device(a.device):
-        ws_bytes = plan.workspace_bytes()
-        ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=a.device)
-        c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-        flags = torch.empty((gm, gn), dtype=torch.int32, device=a.device)
-        rel = torch.empty((gm, gn), dtype=torch.float32, device=a.device)
-        count = (torch.empty((), dtype=torch.int32, device=a.device)
-                 if count_flags else None)
-        err = lib.razor_matmul_launch(
-            a.data_ptr(), b.data_ptr(), ws.data_ptr(), ws_bytes,
-            c.data_ptr(), flags.data_ptr(), rel.data_ptr(),
-            count.data_ptr() if count is not None else None,
-            m, n, k, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-            block_m, block_n, plan.slices, float(tol), _DTYPE_CODE[a.dtype],
-            torch.cuda.current_stream().cuda_stream)
+    if a.device.index != torch.cuda.current_device():
+        with torch.cuda.device(a.device):
+            return razor_matmul(a, b, tol=tol, block_m=block_m,
+                                block_n=block_n, count_flags=count_flags)
+    dev = a.device
+    ws_bytes = plan.workspace_bytes()
+    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev)
+    c = torch.empty((m, n), dtype=torch.float32, device=dev)
+    flags = torch.empty((m // block_m, n // block_n), dtype=torch.int32,
+                        device=dev)
+    rel = torch.empty(flags.shape, dtype=torch.float32, device=dev)
+    # the launcher zeroes a fresh count on the stream: no separate fill
+    count = (torch.empty((), dtype=torch.int32, device=dev)
+             if count_flags else None)
+    err = lib.razor_matmul_launch(
+        a.data_ptr(), b.data_ptr(), ws.data_ptr(), ws_bytes, c.data_ptr(),
+        flags.data_ptr(), rel.data_ptr(),
+        count.data_ptr() if count is not None else None, m, n, k,
+        a.stride(0), a.stride(1), b.stride(0), b.stride(1), block_m, block_n,
+        plan.slices, float(tol), _DTYPE_CODE[a.dtype],
+        # the raw handle of PyTorch's current stream (the Stream object
+        # that torch.cuda.current_stream() builds costs more than a launch)
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"razor_matmul launch failed: CUDA error {err} "
                            f"for ({m}, {k}) @ ({k}, {n}), cells "

@@ -154,12 +154,14 @@ def test_build_is_keyed_by_its_sources():
     assert "fmaf" in texts["systolic_mac.cu"]
     assert ".tf32" not in texts["systolic_mac.cu"]
     assert "__dp4a" in texts["tile_products.cuh"]
-    # razor_matmul: the main path on int8 mma.sync into int32, the bf16
-    # shadow on bf16 mma.sync, TMA streaming, no float atomics (the count
+    # razor_matmul: the main path on the int8 tensor cores into int32
+    # (wgmma for bf16 operands, mma.sync for f32), the bf16 shadow on the
+    # bf16 tensor cores (wgmma), TMA streaming, no float atomics (the count
     # is an integer atomicAdd); precision_island keeps __dp4a above
     razor = texts["razor_matmul.cu"]
+    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in razor
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in razor
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in razor
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in razor
     assert "cp.async.bulk.tensor" in razor
     assert re.findall(r"atomic\w+\([^,]+", razor) == ["atomicAdd(count"]
     assert "__dp4a" not in razor

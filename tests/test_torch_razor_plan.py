@@ -3,10 +3,11 @@ arithmetic, on the CPU.
 
 One ``razor_matmul`` call on the card is, on one stream: ``quant_rows`` of a
 and of b^T, a product pass over 64 x 64 block tiles that walks K in k-tiles
-of 64 (int8 ``mma.sync`` into int32 for the main path; bf16 ``mma.sync``, or
-a 3xTF32 split for f32 operands, into f32 for the shadow; each k-tile's
-products summed into a fresh fragment that is then added to the register
-sum), and two cell passes over (cell, slice) grids, all sized by
+of 64 (for bf16 operands warpgroup MMAs, int8 into int32 for the main path
+and bf16 into f32 for the shadow; for f32 operands ``mma.sync``, int8 and a
+3xTF32 split; each k-tile's shadow products summed into a fresh fragment
+that is then added to the register sum), and two cell passes over (cell,
+slice) grids, all sized by
 :func:`repro_torch.kernels.razor_matmul.launch_plan`.  Here, without a card:
 the plan's constants are read back from the CUDA source, its grids cover
 every output element and k once, the workspace holds every piece the
@@ -88,13 +89,21 @@ def test_plan_constants_are_the_cuda_sources():
 
 
 def test_tensor_core_forms_and_no_float_atomics():
-    """The main path on int8 mma.sync into int32, the bf16 shadow on bf16
-    mma.sync, f32 on a 3xTF32 split (three products a k-step), copies by
-    TMA; the only atomic is the integer count."""
+    """bf16 operands on warpgroup MMAs (wgmma): the main path int8 into
+    int32, the shadow bf16 into f32, each k-tile's four k16 steps into a
+    fresh sum (scale-d 0 on the first) waited for and added to the register
+    sum; f32 operands on mma.sync, int8 into int32 and a 3xTF32 split (three
+    products a k-step); copies by TMA; the only atomic is the integer
+    count."""
+    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in SRC
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in SRC
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in SRC
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in SRC
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in SRC
-    assert FLAT.count("mma_tf32(t[mi][nj], ") == 3
+    assert FLAT.count("mma_tf32(d, ") == 3
+    assert "smem_desc(Bs + (KFAST ? 32 * kk : 2048 * kk), 1024, 1), kk > 0);" \
+        in FLAT
+    assert "wgmma_wait<0>(); fence_regs(t);" in FLAT
+    assert "for (int e = 0; e < 32; ++e) acc[e] += t[e];" in FLAT
     assert "cp.async.bulk.tensor.2d" in SRC
     assert re.findall(r"atomic\w+\([^,]+", SRC) == ["atomicAdd(count"]
     assert "__dp4a" not in SRC and "fmaf(av" not in SRC
@@ -312,3 +321,50 @@ def test_integer_tiles_stay_exact_past_two_to_the_24():
     sa = np.float32(1.0) / np.float32(127.0)
     assert main[0, 2] == np.float32(np.float32(acc) * sa) * sa
     assert main[0, 1] == 0.0
+
+
+# ------------------------------------------------------------ prologue ----
+
+
+def _quant_by_reciprocal(x, levels):
+    """quant_rows.cu's rule in numpy float32 (IEEE, round to nearest):
+    y = x * RN(1 / scale), rint(y) unless y lies within 2^-14 of a
+    half-integer, where the true division x / scale decides."""
+    amax = np.abs(x).max(axis=1)
+    sc = np.maximum(amax, np.float32(1e-12)) / np.float32(levels)
+    inv = np.float32(1.0) / sc
+    y = x * inv[:, None]
+    q = np.rint(y)
+    near = np.abs(np.abs(y - q) - np.float32(0.5)) <= np.float32(2.0 ** -14)
+    q = np.where(near, np.rint(x / sc[:, None]), q)
+    return np.clip(q, -levels, levels).astype(np.int8), sc, int(near.sum())
+
+
+@pytest.mark.parametrize("levels", [127, 7])
+def test_quantize_by_reciprocal_equals_the_division(levels):
+    """The quantizer multiplies by the row's reciprocal scale and divides
+    only near a half-integer; it must give the oracle's bits.  Random rows
+    (f32 and bf16 values), and rows built so that x / scale falls within a
+    few ulp of k + 1/2 for every k (where the two could part)."""
+    rng = np.random.default_rng(17)
+    rows = [rng.standard_normal((64, 512)).astype(np.float32),
+            torch.from_numpy(rng.standard_normal((64, 512)).astype(
+                np.float32)).to(torch.bfloat16).float().numpy()]
+    s0 = rng.uniform(0.5, 2.0, (256, 1)).astype(np.float32) * np.float32(
+        2.0) ** rng.integers(-20, 20, (256, 1)).astype(np.float32)
+    k = rng.integers(-levels, levels, (256, 1024)) + 0.5
+    jitter = rng.integers(-8, 9, (256, 1024)) * 2.0 ** -20
+    near = ((k + k * jitter) * s0).astype(np.float32)
+    near[:, 0] = np.float32(levels) * s0[:, 0]         # amax: scale ~ s0
+    rows.append(near)
+    taken = 0
+    for x in rows:
+        q, sc, n_div = _quant_by_reciprocal(x, levels)
+        oracle = tref.quantize_sym_i8 if levels == 127 else \
+            tref.quantize_sym_i4
+        q_ref, s_ref = oracle(torch.from_numpy(x))
+        np.testing.assert_array_equal(q, q_ref.numpy())
+        np.testing.assert_array_equal(sc.view(np.int32),
+                                      s_ref.numpy()[:, 0].view(np.int32))
+        taken += n_div
+    assert taken > 1000          # the adversarial rows do reach the division
