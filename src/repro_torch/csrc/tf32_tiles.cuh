@@ -1,0 +1,210 @@
+// The pieces the recurrence kernels (ssd_chunk.cu, wkv6.cu) share: f32
+// products on the TF32 tensor cores with a 3xTF32 split, 64 x 64 block tiles
+// dealt to 8 warps, tiles staged by cp.async and stored in pairs.
+//
+// 3xTF32: an f32 operand is split as x = hi + lo, hi = rna(x), lo = rna(x -
+// hi), both TF32 (10-bit mantissa), and a product takes lo.hi + hi.lo +
+// hi.hi on mma.sync m16n8k8 into an f32 accumulator: close to f32 (a single
+// TF32 pass keeps 2^-11 of a term).  The tensor cores add inside an mma
+// without rounding to nearest, so a sum leans toward zero by about f32's last
+// place, and no result repeats an f32 sum taken on the CUDA cores bit for
+// bit.  Every function here is used by both kernels' sources.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tf32_tiles {
+
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// round a finite float to TF32 (10-bit mantissa) by cvt.rna's rule: to
+// nearest, ties away from zero.  Adding half of the last kept bit to the
+// magnitude and dropping the 13 low bits gives cvt.rna.tf32.f32's bits in two
+// integer operations; the conversion instruction itself issues at a lower
+// rate on this card (3xTF32 takes two per operand element).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo (+ a rest below 2^-22 |x|), both TF32; x - hi is exact
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's share of a 64 x 64 product: row strips m[0] = 16p and m[1] =
+// 16(3 - p) (p = warp & 1), columns j0 .. j0 + 15 (j0 = 16 (warp >> 1)).
+// Pairing the first strip with the last balances the causal product, whose
+// strip r needs k < 16 (r + 1) only.
+struct WarpTile {
+  int m[2], j0;
+};
+
+__device__ __forceinline__ WarpTile warp_tile() {
+  const int warp = threadIdx.x >> 5, p = warp & 1;
+  return {{16 * p, 16 * (3 - p)}, 16 * (warp >> 1)};
+}
+
+// An operand read as (i, k) -> (hi, lo): f(i, k) split on the fly
+template <class F>
+struct Splitting {
+  F f;
+  __device__ __forceinline__ void operator()(int i, int k, uint32_t& hi,
+                                             uint32_t& lo) const {
+    split(f(i, k), hi, lo);
+  }
+};
+
+template <class F>
+__device__ __forceinline__ Splitting<F> splitting(F f) {
+  return {f};
+}
+
+// One k-step (k0 .. k0 + 7) of acc[strip][n8 tile] += A (m, k) B (k, j)
+// for the strips si >= FIRST, 3xTF32: lo.hi, hi.lo, then hi.hi.  A and B
+// give each element's (hi, lo).
+template <int FIRST, class SA, class SB>
+__device__ __forceinline__ void k_step(float (&acc)[2][2][4], SA& A, SB& B,
+                                       const WarpTile& w, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    B(k0 + t, w.j0 + 8 * jj + g, bh[jj][0], bl[jj][0]);
+    B(k0 + t + 4, w.j0 + 8 * jj + g, bh[jj][1], bl[jj][1]);
+  }
+#pragma unroll
+  for (int si = FIRST; si < 2; ++si) {
+    const int m = w.m[si];
+    uint32_t ah[4], al[4];
+    A(m + g, k0 + t, ah[0], al[0]);
+    A(m + g + 8, k0 + t, ah[1], al[1]);
+    A(m + g, k0 + t + 4, ah[2], al[2]);
+    A(m + g + 8, k0 + t + 4, ah[3], al[3]);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      mma_tf32(acc[si][jj], al, bh[jj][0], bh[jj][1]);
+      mma_tf32(acc[si][jj], ah, bl[jj][0], bl[jj][1]);
+      mma_tf32(acc[si][jj], ah, bh[jj][0], bh[jj][1]);
+    }
+  }
+}
+
+// acc[strip][n8 tile] (16 x 8 each) += A (m, k) B (k, j), both strips over
+// k < k_both, the second (lower) strip alone over k_both <= k < k_last
+// (multiples of 8; a causal product's lower strip reaches further).  A and
+// B read shared memory (split on the fly, or split once before).
+template <class SA, class SB>
+__device__ __forceinline__ void product_3xtf32(float (&acc)[2][2][4], SA A,
+                                               SB B, const WarpTile& w,
+                                               int k_both, int k_last) {
+  int k0 = 0;
+  for (; k0 < k_both; k0 += 8) k_step<0>(acc, A, B, w, k0);
+  for (; k0 < k_last; k0 += 8) k_step<1>(acc, A, B, w, k0);
+}
+
+// f(row, col, si, jj, r) for every element acc[si][jj][r] of a warp's share
+template <class F>
+__device__ __forceinline__ void for_each(const WarpTile& w, F f) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int si = 0; si < 2; ++si)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f(w.m[si] + g + 8 * (r >> 1), w.j0 + 8 * jj + 2 * t + (r & 1), si,
+          jj, r);
+}
+
+// 4 or 16 bytes global -> shared without registers; zero-filled when
+// !valid (the address is clamped by the caller and read not at all)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// a (ROWS x COLS) tile, row i and column q of which are at at(i, q), into
+// dst (row stride ld), by a block of NT threads: rows >= rows and columns >=
+// cols zero-filled.  vec: 16 bytes a copy (every row 16-byte aligned, cols a
+// multiple of 4)
+template <int ROWS, int COLS, int NT, class At>
+__device__ __forceinline__ void stage_tile(float* dst, int ld, At at, int rows,
+                                           int cols, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int e = threadIdx.x; e < ROWS * COLS / 4; e += NT) {
+      const int i = e / (COLS / 4), q = 4 * (e % (COLS / 4));
+      cp_async16(dst + i * ld + q, at(min(i, rows - 1), min(q, cols - 4)),
+                 i < rows && q < cols);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < ROWS * COLS; e += NT) {
+      const int i = e / COLS, q = e % COLS;
+      cp_async4(dst + i * ld + q, at(min(i, rows - 1), min(q, cols - 1)),
+                i < rows && q < cols);
+    }
+  }
+}
+
+// out(row, col) <- a warp's share, in pairs (two neighbouring columns, 8
+// bytes) where ncols is even; rows >= nrows and cols >= ncols left out
+template <class Out>
+__device__ __forceinline__ void store_tile(const float (&acc)[2][2][4],
+                                           const WarpTile& w, int nrows,
+                                           int ncols, Out out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int si = 0; si < 2; ++si)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = w.m[si] + g + 8 * half, col = w.j0 + 8 * jj + 2 * t;
+        if (row >= nrows || col >= ncols) continue;
+        float* dst = out(row, col);
+        const float v0 = acc[si][jj][2 * half], v1 = acc[si][jj][2 * half + 1];
+        if (ncols % 2 == 0) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (col + 1 < ncols) dst[1] = v1;
+        }
+      }
+}
+
+}  // namespace tf32_tiles

@@ -183,6 +183,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p,                 # r, k, v, w_log
         *[ll] * 12,                 # strides (b, s, h) of r, k, v, w_log
         p, p, p, p,                 # u, state, y, state_out
+        p, ll,                      # workspace, its floats
         i, i, i, i, i,              # B, S, H, P, chunk
         p]                          # stream
     lib.wkv6_launch.restype = ctypes.c_int

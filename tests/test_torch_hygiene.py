@@ -142,7 +142,7 @@ def test_build_is_keyed_by_its_sources():
     texts.update((h.name, h.read_text())
                  for h in sorted(_build.CSRC_DIR.glob("*.cuh")))
     assert sorted(texts) == sorted([s.name for s in srcs]
-                                   + ["tile_products.cuh"])
+                                   + ["tf32_tiles.cuh", "tile_products.cuh"])
     for name, text in texts.items():
         for banned in ("cublas", "cutlass", "torch/extension.h", "ATen",
                        "mma.h"):
@@ -169,21 +169,30 @@ def test_build_is_keyed_by_its_sources():
                  "precision_island", "wkv6", "ssd_chunk"):
         assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]
     # the recurrences: accurate expf (no __expf), the Pallas kernels'
-    # clamps; wkv6 f32 fmaf on the CUDA cores; ssd_chunk's four products on
-    # the TF32 tensor cores with a 3xTF32 split (hi = rna(a), lo = rna(a -
-    # hi), by cvt.rna.tf32's rounding rule in integer operations; three
-    # products a k-step) and no float atomics
+    # clamps; wkv6's and ssd_chunk's four products on the TF32 tensor cores
+    # with a 3xTF32 split (hi = rna(a), lo = rna(a - hi), by cvt.rna.tf32's
+    # rounding rule in integer operations; three products a k-step) and no
+    # float atomics
+    tf32 = texts["tf32_tiles.cuh"]
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in tf32
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in tf32
+    assert "hi = to_tf32(x);" in tf32
+    assert "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));" in tf32
+    assert tf32.count("mma_tf32(acc[si][jj], ") == 3
     for name, clamp in (("wkv6.cu", "60.0f"), ("ssd_chunk.cu", "30.0f")):
-        assert "expf" in texts[name]
-        assert "__expf" not in texts[name]
-        assert f"EXP_CLAMP = {clamp}" in texts[name]
-    assert "fmaf" in texts["wkv6.cu"]
-    ssd = texts["ssd_chunk.cu"]
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in ssd
-    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in ssd
-    assert "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));" in ssd
-    assert ssd.count("mma_tf32(acc[si][jj], ") == 3
-    assert "atomicAdd(" not in ssd and "atomicCAS(" not in ssd
+        src = texts[name]
+        assert "expf" in src
+        assert "__expf" not in src + tf32
+        assert f"EXP_CLAMP = {clamp}" in src
+        assert '#include "tf32_tiles.cuh"' in src
+        assert "product_3xtf32(" in src
+        for text in (src, tf32):
+            assert "atomicAdd(" not in text and "atomicCAS(" not in text
+    # wkv6's one-token (decode) kernel beside its three passes
+    for kernel in ("wkv6_state_kernel", "wkv6_carry_kernel",
+                   "wkv6_scan_kernel", "wkv6_token_kernel"):
+        assert kernel in texts["wkv6.cu"]
+    assert "fmaf" not in texts["wkv6.cu"]
     # true IEEE division and round-half-even in the quantizer
     assert "__fdiv_rn" in texts["quant_rows.cu"]
     assert "rintf" in texts["quant_rows.cu"]

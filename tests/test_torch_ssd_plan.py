@@ -26,6 +26,8 @@ from repro_torch.kernels import ssd_chunk as smod
 from repro_torch.kernels.ssd_chunk import pass_plan, ssd_chunk_plain
 
 SRC = (_build.CSRC_DIR / "ssd_chunk.cu").read_text()
+#: the 3xTF32 products and the staging, shared with wkv6.cu
+TF32 = (_build.CSRC_DIR / "tf32_tiles.cuh").read_text()
 #: the source with every run of white space made one space
 FLAT = " ".join(SRC.split())
 
@@ -148,13 +150,18 @@ def test_heads_per_block_fill_the_card_before_they_share():
 
 
 def test_the_products_are_3xtf32_on_the_tensor_cores():
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in SRC
-    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in SRC
-    assert "hi = to_tf32(x);" in SRC
-    assert "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));" in SRC
-    calls = re.findall(r"mma_tf32\(acc\[si\]\[jj\], (\w+), (\w+)\[", SRC)
+    assert '#include "tf32_tiles.cuh"' in SRC
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in TF32
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in TF32
+    assert "hi = to_tf32(x);" in TF32
+    assert "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));" in TF32
+    calls = re.findall(r"mma_tf32\(acc\[si\]\[jj\], (\w+), (\w+)\[", TF32)
     assert calls == [("al", "bh"), ("ah", "bl"), ("ah", "bh")]
-    assert not re.findall(r"atomic\w*\(", SRC) and "__expf" not in SRC
+    # the four products: dS in the state pass; C S_in, the scores and W x dt
+    # in the scan pass
+    assert " ".join(SRC.split()).count("product_3xtf32(") == 4
+    for text in (SRC, TF32):
+        assert not re.findall(r"atomic\w*\(", text) and "__expf" not in text
 
 
 # ------------------------------------------------- the passes, emulated ----
