@@ -234,8 +234,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"wkv6 has no kernel for device {dev}")
     plan = pass_plan(b, s, h, p, chunk)
-    if (p > _MAX_P or b * h > 2 ** 31 - 1
-            or max(plan.n_chunks, plan.row_tiles) > _MAX_GRID_YZ):
+    if (p > _MAX_P or b * h > 2 ** 31 - 1 or (
+            not plan.one_token
+            and max(plan.n_chunks, plan.row_tiles) > _MAX_GRID_YZ)):
         raise ValueError(f"wkv6: (b, s, h, p) = {tuple(r.shape)}, chunk "
                          f"{chunk} exceeds the kernels' extents (p <= "
                          f"{_MAX_P}, at most {_MAX_GRID_YZ} chunks)")
