@@ -102,8 +102,9 @@ TOL_DECODE_PARALLEL = 2e-2
 #: wkv6's clamp on the centred exponents (the Pallas kernel's EXP_CLAMP)
 WKV6_CLAMP = 60.0
 #: seeded noise, as a fraction of max|y|, added to every wkv6 output of the
-#: plain route's parallel forward to show how far rwkv6's last logits move
-#: for a difference below one TF32 split's rounding (decode_vs_parallel)
+#: plain route's parallel forward: where a difference this far below one
+#: TF32 split's rounding moves rwkv6's last logits by TOL_LOGITS or more,
+#: decode_vs_parallel does not hold the kernels' logits to the plain route's
 WKV6_NOISE_PROBE = 1e-7
 #: the loss on the kernels against the loss with the recurrences on their
 #: plain versions, relative: a last-bit difference in y can flip a later
@@ -1310,13 +1311,16 @@ def serve(torch, cfg, serve_mod, model_api, param_count, use_backend,
 
 def wkv6_bound_ms(b, s, h, p, chunk):
     """Least time for one wkv6 call: r, k, v, w read once, y written once,
-    u read once, the state read and written once; four products a chunk and
-    head (2 ch ch p twice for the score tile and its product with v, 2 ch p p
-    twice for the carried state's term and the state update), on the TF32
-    tensor cores the three passes use, TF32_SPLIT_PASSES products each; at
-    chunk 1 the one-token kernel's, in f32 on the CUDA cores."""
+    u read once, the state read and written once; per chunk and head the
+    products the function needs: the score tile's strictly lower ch (ch - 1)
+    / 2 entries (p multiply-adds each) and their product with v (the same
+    count), and the carried state's term and the state update (ch p p
+    each), so 2 ch (ch - 1) p + 4 ch p p operations, on the TF32 tensor
+    cores the three passes use, TF32_SPLIT_PASSES products each (the u
+    term's 4 ch p is left out, under 1 % of the rest); at chunk 1 the
+    one-token kernel's 4 p p, in f32 on the CUDA cores."""
     nbytes = 4 * (5 * b * s * h * p + h * p + 2 * b * h * p * p)
-    flops = 4.0 * b * h * s * p * (chunk + p)
+    flops = 2.0 * b * h * s * ((chunk - 1) * p + 2 * p * p)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = (flops / PEAK_FLOPS["float32"] if chunk == 1
              else TF32_SPLIT_PASSES * flops / PEAK_FLOPS["tf32"])
@@ -1720,15 +1724,15 @@ def decode_vs_parallel(torch, cfg, params, api, ssm_mod, layers_mod,
     forward departs the same way).  There the departure must come with such
     a chunk, every wkv6 call of the parallel forward must lie within
     TOL_RECURRENCE of the plain version on the same inputs (y and the final
-    state), and the parallel forward on the plain versions must depart from
-    decode too.  The logits of the parallel forward on the kernels and on
-    the plain versions are reported beside each other, not held to each
-    other: at full depth with random weights the last logits move by
-    several TOL_LOGITS when the plain route's wkv6 outputs move by
-    WKV6_NOISE_PROBE of their largest magnitude (reported as
-    ``plain_route_under_noise_rel``), so only a kernel that repeats the plain
-    version's f32 summation order bit for bit could hold them within
-    TOL_LOGITS; B4's products run on the TF32 tensor cores."""
+    state), the parallel forward on the plain versions must depart from
+    decode too, and the parallel forward on the kernels must lie within
+    TOL_LOGITS of the one on the plain versions, unless the same run shows
+    that no kernel short of the plain version's own f32 summation order
+    could: when seeded noise of WKV6_NOISE_PROBE of their largest magnitude
+    on the plain route's wkv6 outputs moves its last logits by TOL_LOGITS or
+    more (``plain_route_under_noise_rel``), the logits are reported beside
+    each other (``logits_held`` false) and the per-call check stands alone;
+    B4's products run on the TF32 tensor cores."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 11)
     backbone = (ssm_mod.rwkv6_backbone if cfg.family == "ssm"
@@ -1824,14 +1828,21 @@ def decode_vs_parallel(torch, cfg, params, api, ssm_mod, layers_mod,
                      f"from the parallel forward on the kernels ({err}) but "
                      f"not from the one on the plain versions "
                      f"({plain_departs}; limit {TOL_LOGITS})")
+            gap = float((full - ref).abs().max()) / ref_scale
+            under_noise = float((ref_noisy - ref).abs().max()) / ref_scale
+            held = under_noise < TOL_LOGITS
+            if held and not gap < TOL_LOGITS:
+                fail(f"decode_vs_parallel {cfg.name} T={T}: the parallel "
+                     f"forward is {gap} of max|logits| from the plain "
+                     f"route's (limit {TOL_LOGITS}; noise of "
+                     f"{WKV6_NOISE_PROBE} moves it by {under_noise})")
             row.update({
                 "departs_as_the_reference": "ROADMAP.md C6",
                 "plain_route_vs_decode_rel": plain_departs,
-                "parallel_vs_plain_route_rel": float(
-                    (full - ref).abs().max()) / ref_scale,
-                "plain_route_under_noise_rel": float(
-                    (ref_noisy - ref).abs().max()) / ref_scale,
-                "noise_probe_rel": WKV6_NOISE_PROBE})
+                "parallel_vs_plain_route_rel": gap,
+                "plain_route_under_noise_rel": under_noise,
+                "noise_probe_rel": WKV6_NOISE_PROBE,
+                "logits_held": held})
         if cfg.family == "hybrid":
             row["mamba2_layers_alone"] = mamba2_alone(
                 torch, cfg, params, ssm_mod, gen, T)

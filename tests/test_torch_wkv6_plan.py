@@ -15,7 +15,9 @@ max|.|) and the Pallas kernel in interpret mode (2e-4, as
 is held against the JAX package's per-token oracle.
 """
 
+import importlib.util
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -180,6 +182,34 @@ def test_loss_shape_plan():
     assert pass_plan(4, 1, 32, 64, 1).token_grid == (128, 4, 1)
     with pytest.raises(ValueError, match="does not divide"):
         pass_plan(1, 100, 2, 8, 64)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its phases run only as ``__main__``)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [(1, 1000, 32, 64, 1000),
+                                   (1, 2048, 4, 16, 2048)], ids=str)
+def test_bound_counts_the_products_the_function_needs(shape):
+    """``chip_smoke.py``'s wkv6 bound, where operations set it, counts per
+    chunk and head the score tile's strictly lower entries (the rest are
+    masked away, and the scan skips the tiles above the diagonal) and their
+    product with v, p multiply-adds each, plus ch p p each for ``S_c`` and
+    the carried state's term: two operations a multiply-add, at the TF32
+    rate over the 3xTF32 split."""
+    cs = _chip_smoke()
+    b, s, h, p, chunk = shape
+    t_ms, by = cs.wkv6_bound_ms(*shape)
+    assert by == "operations"
+    lower = int(torch.tril(torch.ones(chunk, chunk), diagonal=-1).sum())
+    macs = b * h * (s // chunk) * (2 * lower * p + 2 * chunk * p * p)
+    want = 1e3 * cs.TF32_SPLIT_PASSES * 2 * macs / cs.PEAK_FLOPS["tf32"]
+    assert t_ms == pytest.approx(want, rel=1e-12)
 
 
 def test_the_products_are_3xtf32_on_the_tensor_cores():
