@@ -23,8 +23,13 @@
 // What bounds it on this card: bytes.  Two passes, each reading X once: the
 // row maxima (an unsigned atomicMax on the bits of |x|, monotone for
 // non-negative floats, exact and order-free), then the quantization, which
-// writes q.  Both passes follow whichever axis of X is contiguous, with
-// 16-byte loads where the base and the row stride allow them:
+// writes q.  precision_island takes both of its levels (127 and 7) in the
+// same two passes: the row maxima once, one scale a level formed from the
+// same exact maximum, and one quantization pass that reads X once and writes
+// both int8 copies; a level the tier map lacks is not written, as a word of
+// the tiers present (reduced on the device before) says, with no host sync.
+// Both passes follow whichever axis of X is contiguous, with 16-byte loads
+// where the base and the row stride allow them:
 //   * k-fast (a, or b as a transposed view): a warp walks a row; the
 //     quantization writes 8 int8 of a row a thread (one 8-byte store).
 //   * r-fast (the columns of a row-major b): a thread holds 16 bytes of
@@ -37,10 +42,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_ring.cuh"
+
 namespace {
 
+// q's rows are padded to a multiple of K_PAD, the padding the products'
+// int8 tiles read (one contract with them)
+using tc_ring::K_PAD;
+using tc_ring::aligned16;
+
 constexpr int THREADS = 256;
-constexpr int K_PAD = 32;             // q's rows are padded to a multiple
 constexpr int AMAX_ROWS = 8;          // k-fast row maxima: a warp a row
 constexpr int AMAX_K = 512;           // k of a k-fast row-maxima block
 constexpr int RF_LANES = 32;          // r-fast row maxima: 16-byte r-runs
@@ -114,15 +125,34 @@ __device__ __forceinline__ float row_scale(const unsigned int* amax, int row,
 
 // ---- row maxima
 
+// The levels one quantization pass writes: L = 1 (razor_matmul: every call)
+// or L = 2 (precision_island: level l where the tier word has bit[l]).
+template <int L>
+struct Levels {
+  int8_t* q[L];
+  float* scale[L];
+  float levels[L];
+  unsigned int bit[L];
+  const unsigned int* word;   // L = 2: the tiers present (bit t: tier t)
+};
+
+// whether a gated pass has any level to write: the word's bits `need`
+template <bool GATED>
+__device__ __forceinline__ bool gated_off(const unsigned int* word,
+                                          unsigned int need) {
+  return GATED && (__ldg(word) & need) == 0u;
+}
+
 // k-fast: warp w of block (x, y) takes row 8x + w, k in [512y, 512y + 512)
-template <typename T>
+template <typename T, bool GATED>
 __global__ void __launch_bounds__(THREADS)
 amax_kfast_kernel(const T* __restrict__ x, int R, int K, long long s_r,
-                  long long s_k, bool vec, unsigned int* __restrict__ amax) {
+                  long long s_k, bool vec, unsigned int* __restrict__ amax,
+                  const unsigned int* __restrict__ word, unsigned int need) {
   constexpr int V = Run<T>::N;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * AMAX_ROWS + (threadIdx.x >> 5);
-  if (row >= R) return;
+  if (row >= R || gated_off<GATED>(word, need)) return;
   const int k_lo = blockIdx.y * AMAX_K;
   const int k_hi = min(K, k_lo + AMAX_K);
   const T* line = x + (long long)row * s_r;
@@ -149,13 +179,15 @@ amax_kfast_kernel(const T* __restrict__ x, int R, int K, long long s_r,
 
 // r-fast (s_r == 1): thread (tx, ty) takes rows r0 + V tx .. + V - 1 and
 // k = k_lo + ty, + 8, ... in [64y, 64y + 64)
-template <typename T>
+template <typename T, bool GATED>
 __global__ void __launch_bounds__(THREADS)
 amax_rfast_kernel(const T* __restrict__ x, int R, int K, long long s_k,
-                  bool vec, unsigned int* __restrict__ amax) {
+                  bool vec, unsigned int* __restrict__ amax,
+                  const unsigned int* __restrict__ word, unsigned int need) {
   constexpr int V = Run<T>::N;
   constexpr int SPAN = RF_LANES * V;
   __shared__ float red[RF_KLANES][SPAN + 1];
+  if (gated_off<GATED>(word, need)) return;      // block-uniform
   const int tx = threadIdx.x % RF_LANES, ty = threadIdx.x / RF_LANES;
   const int r_base = blockIdx.x * SPAN;
   const int k_lo = blockIdx.y * RF_AMAX_K;
@@ -185,23 +217,40 @@ amax_rfast_kernel(const T* __restrict__ x, int R, int K, long long s_k,
 
 // ---- quantization
 
+// whether level l of a pass is written
+template <int L>
+__device__ __forceinline__ bool level_on(const Levels<L>& lv, int l) {
+  return L == 1 || (__ldg(lv.word) & lv.bit[l]) != 0u;
+}
+
 // k-fast: thread g of the grid writes q[row, 8j .. 8j + 7] for g = row *
-// (Kp / 8) + j, and the row's scale with its first group
-template <typename T>
+// (Kp / 8) + j at each level, and the row's scales with its first group
+template <typename T, int L>
 __global__ void __launch_bounds__(THREADS)
 quantize_kfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
-                      long long s_r, long long s_k, bool vec, float levels,
-                      const unsigned int* __restrict__ amax,
-                      int8_t* __restrict__ q, float* __restrict__ scale) {
+                      long long s_r, long long s_k, bool vec, Levels<L> lv,
+                      const unsigned int* __restrict__ amax) {
   constexpr int V = Run<T>::N;
   const int groups = Kp / QG;
   const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (g >= (long long)R * groups) return;
+  bool on[L];
+  bool any = false;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    on[l] = level_on(lv, l);
+    any = any || on[l];
+  }
+  if (!any) return;
   const int row = static_cast<int>(g / groups);
   const int k0 = static_cast<int>(g % groups) * QG;
-  const float sc = row_scale(amax, row, levels);
-  const float inv = __frcp_rn(sc);
-  if (k0 == 0) scale[row] = sc;
+  float sc[L], inv[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    sc[l] = row_scale(amax, row, lv.levels[l]);
+    inv[l] = __frcp_rn(sc[l]);
+    if (on[l] && k0 == 0) lv.scale[l][row] = sc[l];
+  }
   const T* line = x + (long long)row * s_r;
   float v[QG];
   if (s_k == 1) {
@@ -220,38 +269,54 @@ quantize_kfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
       v[i] = k < K ? xv : 0.0f;
     }
   }
-  uint32_t w[2] = {0u, 0u};
 #pragma unroll
-  for (int i = 0; i < QG; ++i) {
-    const uint32_t qi = static_cast<uint32_t>(quant(v[i], sc, inv, levels));
-    w[i / 4] |= (qi & 0xffu) << (8 * (i % 4));
+  for (int l = 0; l < L; ++l) {
+    if (!on[l]) continue;
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < QG; ++i) {
+      const uint32_t qi = static_cast<uint32_t>(
+          quant(v[i], sc[l], inv[l], lv.levels[l]));
+      w[i / 4] |= (qi & 0xffu) << (8 * (i % 4));
+    }
+    *reinterpret_cast<uint2*>(lv.q[l] + (long long)row * Kp + k0) =
+        make_uint2(w[0], w[1]);
   }
-  *reinterpret_cast<uint2*>(q + (long long)row * Kp + k0) = make_uint2(w[0],
-                                                                       w[1]);
 }
 
 // r-fast (s_r == 1): a block quantizes rows r0 .. r0 + 8V - 1 at k in
 // [64y, 64y + 64): thread (rv, kq) loads the 16-byte runs of rows r0 + V rv
-// .. at k = 64y + 4kq .. + 3, packs each row's four int8 into one word of a
-// shared tile, and the tile leaves along k in 16-byte stores
-template <typename T>
+// .. at k = 64y + 4kq .. + 3, packs each row's four int8 of each level into
+// one word of that level's shared tile, and the tiles leave along k in
+// 16-byte stores
+template <typename T, int L>
 __global__ void __launch_bounds__(QT_THREADS)
 quantize_rfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
-                      long long s_k, bool vec, float levels,
-                      const unsigned int* __restrict__ amax,
-                      int8_t* __restrict__ q, float* __restrict__ scale) {
+                      long long s_k, bool vec, Levels<L> lv,
+                      const unsigned int* __restrict__ amax) {
   constexpr int V = Run<T>::N;
   constexpr int TR = 8 * V;
   constexpr int WORDS = QT_K / 4;
-  __shared__ uint32_t qs[TR][WORDS + 1];
-  __shared__ float s_scale[TR], s_inv[TR];
+  __shared__ uint32_t qs[L][TR][WORDS + 1];
+  __shared__ float s_scale[L][TR], s_inv[L][TR];
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * TR, k0 = blockIdx.y * QT_K;
+  bool on[L];                                    // block-uniform
+  bool any = false;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    on[l] = level_on(lv, l);
+    any = any || on[l];
+  }
+  if (!any) return;
   if (tid < TR) {
-    const float sc = row_scale(amax, min(r0 + tid, R - 1), levels);
-    s_scale[tid] = sc;
-    s_inv[tid] = __frcp_rn(sc);
-    if (blockIdx.y == 0 && r0 + tid < R) scale[r0 + tid] = sc;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const float sc = row_scale(amax, min(r0 + tid, R - 1), lv.levels[l]);
+      s_scale[l][tid] = sc;
+      s_inv[l][tid] = __frcp_rn(sc);
+      if (on[l] && blockIdx.y == 0 && r0 + tid < R) lv.scale[l][r0 + tid] = sc;
+    }
   }
   __syncthreads();
   const int rv = tid % 8, kq = tid / 8;
@@ -266,65 +331,87 @@ quantize_rfast_kernel(const T* __restrict__ x, int R, int K, int Kp,
     }
   }
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const float sc = s_scale[rv * V + i], inv = s_inv[rv * V + i];
-    uint32_t w = 0u;
+  for (int l = 0; l < L; ++l) {
+    if (!on[l]) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w |= (static_cast<uint32_t>(quant(v[j][i], sc, inv, levels)) & 0xffu)
-           << (8 * j);
-    qs[rv * V + i][kq] = w;
+    for (int i = 0; i < V; ++i) {
+      const float sc = s_scale[l][rv * V + i], inv = s_inv[l][rv * V + i];
+      uint32_t w = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w |= (static_cast<uint32_t>(quant(v[j][i], sc, inv, lv.levels[l])) &
+              0xffu)
+             << (8 * j);
+      qs[l][rv * V + i][kq] = w;
+    }
   }
   __syncthreads();
-  for (int c = tid; c < TR * (QT_K / 16); c += QT_THREADS) {
-    const int r = c / (QT_K / 16), ch = c % (QT_K / 16);
-    const int row = r0 + r, k = k0 + ch * 16;
-    if (row < R && k < Kp)
-      *reinterpret_cast<uint4*>(q + (long long)row * Kp + k) =
-          make_uint4(qs[r][4 * ch], qs[r][4 * ch + 1], qs[r][4 * ch + 2],
-                     qs[r][4 * ch + 3]);
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    if (!on[l]) continue;
+    for (int c = tid; c < TR * (QT_K / 16); c += QT_THREADS) {
+      const int r = c / (QT_K / 16), ch = c % (QT_K / 16);
+      const int row = r0 + r, k = k0 + ch * 16;
+      if (row < R && k < Kp)
+        *reinterpret_cast<uint4*>(lv.q[l] + (long long)row * Kp + k) =
+            make_uint4(qs[l][r][4 * ch], qs[l][r][4 * ch + 1],
+                       qs[l][r][4 * ch + 2], qs[l][r][4 * ch + 3]);
+    }
   }
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-template <typename T>
+// The two passes over X (R, K) at the levels of lv.  L = 1 zeroes amax on
+// the stream first; for L = 2 the caller has zeroed it, and both passes are
+// gated by the tier word (any integer level present: bits 0 | 1).
+template <typename T, int L>
 int launch(const void* x_, int R, int K, int Kp, long long s_r, long long s_k,
-           float levels, unsigned int* amax, int8_t* q, float* scale,
-           cudaStream_t stream) {
+           const Levels<L>& lv, unsigned int* amax, cudaStream_t stream) {
   constexpr int V = Run<T>::N;
+  constexpr bool GATED = L > 1;
+  const unsigned int need = GATED ? (lv.bit[0] | lv.bit[L - 1]) : 0u;
   const T* x = static_cast<const T*>(x_);
   const long long es = static_cast<long long>(sizeof(T));
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned int) * R, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  if (!GATED) {
+    err = cudaMemsetAsync(amax, 0, sizeof(unsigned int) * R, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (s_r == 1 && s_k != 1) {
     const bool vec = aligned16(x) && (K == 1 || (s_k * es) % 16 == 0);
     const dim3 grid_max((R + RF_LANES * V - 1) / (RF_LANES * V),
                         (K + RF_AMAX_K - 1) / RF_AMAX_K);
-    amax_rfast_kernel<T><<<grid_max, THREADS, 0, stream>>>(x, R, K, s_k, vec,
-                                                           amax);
+    amax_rfast_kernel<T, GATED><<<grid_max, THREADS, 0, stream>>>(
+        x, R, K, s_k, vec, amax, lv.word, need);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid_q((R + 8 * V - 1) / (8 * V), (Kp + QT_K - 1) / QT_K);
-    quantize_rfast_kernel<T><<<grid_q, QT_THREADS, 0, stream>>>(
-        x, R, K, Kp, s_k, vec, levels, amax, q, scale);
+    quantize_rfast_kernel<T, L><<<grid_q, QT_THREADS, 0, stream>>>(
+        x, R, K, Kp, s_k, vec, lv, amax);
     return static_cast<int>(cudaGetLastError());
   }
   const bool vec =
       s_k == 1 && aligned16(x) && (R == 1 || (s_r * es) % 16 == 0);
   const dim3 grid_max((R + AMAX_ROWS - 1) / AMAX_ROWS,
                       (K + AMAX_K - 1) / AMAX_K);
-  amax_kfast_kernel<T><<<grid_max, THREADS, 0, stream>>>(x, R, K, s_r, s_k,
-                                                         vec, amax);
+  amax_kfast_kernel<T, GATED><<<grid_max, THREADS, 0, stream>>>(
+      x, R, K, s_r, s_k, vec, amax, lv.word, need);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long threads = (long long)R * (Kp / QG);
-  quantize_kfast_kernel<T>
+  quantize_kfast_kernel<T, L>
       <<<static_cast<unsigned int>((threads + THREADS - 1) / THREADS), THREADS,
-         0, stream>>>(x, R, K, Kp, s_r, s_k, vec, levels, amax, q, scale);
+         0, stream>>>(x, R, K, Kp, s_r, s_k, vec, lv, amax);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the extents both entry points check
+bool bad_extent(int R, int K, int Kp, const void* q, int dtype) {
+  return R <= 0 || K <= 0 || Kp < K || Kp % K_PAD != 0 ||
+         (K + RF_AMAX_K - 1) / RF_AMAX_K > 65535 ||
+         (Kp + QT_K - 1) / QT_K > 65535 ||
+         ((long long)R * (Kp / QG) + THREADS - 1) / THREADS > 0x7FFFFFFFLL ||
+         (reinterpret_cast<uintptr_t>(q) & 15u) != 0 ||
+         (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
@@ -337,18 +424,40 @@ extern "C" int quant_rows_launch(const void* x, int R, int K, int Kp,
                                  long long s_r, long long s_k, float levels,
                                  int dtype, void* amax, void* q, void* scale,
                                  void* stream) {
-  if (R <= 0 || K <= 0 || Kp < K || Kp % K_PAD != 0 ||
-      (K + RF_AMAX_K - 1) / RF_AMAX_K > 65535 ||
-      (Kp + QT_K - 1) / QT_K > 65535 ||
-      ((long long)R * (Kp / QG) + THREADS - 1) / THREADS > 0x7FFFFFFFLL ||
-      (reinterpret_cast<uintptr_t>(q) & 15u) != 0 ||
-      !(levels >= 1.0f && levels <= 127.0f) || (dtype != 0 && dtype != 1))
+  if (bad_extent(R, K, Kp, q, dtype) || !(levels >= 1.0f && levels <= 127.0f))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned int* am = static_cast<unsigned int*>(amax);
-  int8_t* qq = static_cast<int8_t*>(q);
-  float* sc = static_cast<float*>(scale);
-  if (dtype == 0)
-    return launch<float>(x, R, K, Kp, s_r, s_k, levels, am, qq, sc, s);
-  return launch<__nv_bfloat16>(x, R, K, Kp, s_r, s_k, levels, am, qq, sc, s);
+  const Levels<1> lv{{static_cast<int8_t*>(q)},
+                     {static_cast<float*>(scale)},
+                     {levels},
+                     {0u},
+                     nullptr};
+  if (dtype == 0) return launch<float, 1>(x, R, K, Kp, s_r, s_k, lv, am, s);
+  return launch<__nv_bfloat16, 1>(x, R, K, Kp, s_r, s_k, lv, am, s);
+}
+
+// precision_island's prologue for one operand: both levels in one pass
+// each.  q8/scale8 at levels 127 (written where the tier word has bit 1),
+// q4/scale4 at levels 7 (bit 0); word: the tiers present, on the device;
+// amax (R uint32) zeroed on the stream before.  Same layout and bits as
+// quant_rows_launch at each level.
+extern "C" int quant_rows_tiers_launch(const void* x, int R, int K, int Kp,
+                                       long long s_r, long long s_k,
+                                       int dtype, void* amax, void* q8,
+                                       void* scale8, void* q4, void* scale4,
+                                       const void* word, void* stream) {
+  if (bad_extent(R, K, Kp, q8, dtype) ||
+      (reinterpret_cast<uintptr_t>(q4) & 15u) != 0 || word == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* am = static_cast<unsigned int*>(amax);
+  const Levels<2> lv{
+      {static_cast<int8_t*>(q8), static_cast<int8_t*>(q4)},
+      {static_cast<float*>(scale8), static_cast<float*>(scale4)},
+      {127.0f, 7.0f},
+      {2u, 1u},
+      static_cast<const unsigned int*>(word)};
+  if (dtype == 0) return launch<float, 2>(x, R, K, Kp, s_r, s_k, lv, am, s);
+  return launch<__nv_bfloat16, 2>(x, R, K, Kp, s_r, s_k, lv, am, s);
 }

@@ -169,12 +169,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, f, i,              # block_m, block_n, slices, tol, dtype
         p]                          # stream
     lib.razor_matmul_launch.restype = ctypes.c_int
+    lib.precision_island_int_maps.argtypes = [
+        p, ll,                      # workspace, its bytes
+        i, i, i,                    # M, N, K
+        p]                          # the maps (host memory)
+    lib.precision_island_int_maps.restype = ctypes.c_int
     lib.precision_island_launch.argtypes = [
-        p, p,                       # a, b
-        p, p, p, p,                 # qa8, scale_a8, qb8, scale_b8
-        p, p, p, p,                 # qa4, scale_a4, qb4, scale_b4
-        p, p,                       # tiers, c
-        i, i, i, i,                 # M, N, K, Kp
+        p, p, p, p, ll,             # a, b, tiers, workspace, its bytes
+        p, p,                       # the workspace's int8 maps, c
+        i, i, i,                    # M, N, K
         ll, ll, ll, ll,             # strides of a (m, k) and b (k, n)
         i, i, i,                    # block_m, block_n, dtype
         p]                          # stream

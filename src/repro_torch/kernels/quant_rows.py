@@ -18,8 +18,9 @@ import torch
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: k tile of the products (csrc/tile_products.cuh BK): the quantized rows
-#: are padded with zeros to a multiple of it
+#: the quantized rows are padded with zeros to a multiple of this many
+#: columns (csrc/tc_ring.cuh K_PAD, which csrc/quant_rows.cu includes):
+#: whole k32 steps of the int8 MMAs
 K_TILE = 32
 
 

@@ -142,7 +142,7 @@ def test_build_is_keyed_by_its_sources():
     texts.update((h.name, h.read_text())
                  for h in sorted(_build.CSRC_DIR.glob("*.cuh")))
     assert sorted(texts) == sorted([s.name for s in srcs]
-                                   + ["tf32_tiles.cuh", "tile_products.cuh"])
+                                   + ["tc_ring.cuh", "tf32_tiles.cuh"])
     for name, text in texts.items():
         for banned in ("cublas", "cutlass", "torch/extension.h", "ATen",
                        "mma.h"):
@@ -153,18 +153,32 @@ def test_build_is_keyed_by_its_sources():
     assert "cp.async.bulk" in texts["systolic_mac.cu"]
     assert "fmaf" in texts["systolic_mac.cu"]
     assert ".tf32" not in texts["systolic_mac.cu"]
-    assert "__dp4a" in texts["tile_products.cuh"]
-    # razor_matmul: the main path on the int8 tensor cores into int32
-    # (wgmma for bf16 operands, mma.sync for f32), the bf16 shadow on the
-    # bf16 tensor cores (wgmma), TMA streaming, no float atomics (the count
-    # is an integer atomicAdd); precision_island keeps __dp4a above
+    # razor_matmul and precision_island share tc_ring.cuh: the int8 products
+    # on the tensor cores into int32 (wgmma for bf16 operands, mma.sync for
+    # f32), the bf16 products on the bf16 tensor cores (wgmma), the f32
+    # products by a 3xTF32 split, TMA streaming; no __dp4a and no float
+    # atomics (razor_matmul's count is an integer atomicAdd)
+    ring = texts["tc_ring.cuh"]
+    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in ring
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in ring
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in ring
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in ring
+    assert "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));" in ring
+    assert "cp.async.bulk.tensor" in ring
+    assert not re.findall(r"atomic\w*\(", ring)
     razor = texts["razor_matmul.cu"]
-    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in razor
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in razor
-    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in razor
-    assert "cp.async.bulk.tensor" in razor
     assert re.findall(r"atomic\w+\([^,]+", razor) == ["atomicAdd(count"]
-    assert "__dp4a" not in razor
+    island = texts["precision_island.cu"]
+    assert not re.findall(r"atomic\w*\(", island)
+    for src in (razor, island):
+        assert '#include "tc_ring.cuh"' in src
+        for call in ("issue_s8_tile(", "issue_bf16_tile<", "s8_tile(Qa",
+                     "tf32_tile<", "tma_float_tiles<", "tma_int_tiles("):
+            assert call in src, call
+    for text in (razor, island, ring):
+        assert "__dp4a" not in text and "fmaf(av" not in text
+        assert "tile_products.cuh" not in text
+    assert "fmaf(" not in island + ring
     for name in ("systolic_mac", "quant_rows", "razor_matmul",
                  "precision_island", "wkv6", "ssd_chunk"):
         assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]

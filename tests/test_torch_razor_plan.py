@@ -36,8 +36,12 @@ from repro_torch.kernels.razor_matmul import launch_plan, razor_matmul_plain
 from repro_torch.kernels.tuning import select_blocks
 
 SRC = (_build.CSRC_DIR / "razor_matmul.cu").read_text()
-#: the source with every run of white space made one space
+#: the tensor-core products, the TMA ring and its constants, shared with
+#: precision_island.cu
+RING = (_build.CSRC_DIR / "tc_ring.cuh").read_text()
+#: the sources with every run of white space made one space
 FLAT = " ".join(SRC.split())
+RING_FLAT = " ".join(RING.split())
 
 #: the tolerances chip_smoke.py holds the kernel to (its TOL_CLEAN,
 #: TOL_REL, TOL_BAND)
@@ -50,8 +54,8 @@ PLAN_SHAPES = [(256, 3072, 3072), (256, 3072, 1024), (256, 3072, 8192),
                (96, 100, 80), (128, 256, 256), (1, 1, 1), (24, 40, 200)]
 
 
-def _constexpr(name):
-    hit = re.search(rf"constexpr int {name} = (\w+);", SRC)
+def _constexpr(name, text=RING):
+    hit = re.search(rf"constexpr int {name} = (\w+);", text)
     assert hit, name
     return hit.group(1)
 
@@ -62,13 +66,18 @@ def test_plan_constants_are_the_cuda_sources():
     assert int(_constexpr("BK")) == rmod.TILE_K == 64
     assert int(_constexpr("STAGES")) == rmod.STAGES
     assert int(_constexpr("THREADS")) + 32 == rmod.BLOCK_THREADS
-    assert "constexpr int BLOCK = THREADS + 32;" in SRC
+    assert "constexpr int BLOCK = THREADS + 32;" in RING
     assert int(_constexpr("K_PAD")) == qmod.K_TILE
-    assert int(_constexpr("MAX_SLICES")) == rmod.MAX_SLICES
+    assert int(_constexpr("MAX_SLICES", SRC)) == rmod.MAX_SLICES
     assert int(_constexpr("WS_ALIGN")) == rmod.WS_ALIGN
+    # the product's constants come from the shared header alone
+    assert '#include "tc_ring.cuh"' in SRC
+    for name in ("BM", "BN", "BK", "STAGES", "THREADS", "K_PAD", "WS_ALIGN",
+                 "QROW"):
+        assert f"constexpr int {name} =" not in SRC, name
     # the grids and the k loop, as LaunchPlan computes them
+    assert "Problem p{M, N, K, (K + BK - 1) / BK," in RING_FLAT
     for text in ("const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);",
-                 "Problem p{M, N, K, (K + BK - 1) / BK,",
                  "const int Kp = (K + K_PAD - 1) / K_PAD * K_PAD;",
                  "const dim3 grid(grid_m * cells.grid_n, cells.slices);",
                  "*lo = units * slice / c.slices;",
@@ -85,7 +94,10 @@ def test_plan_constants_are_the_cuda_sources():
     assert [names[c] for c in carved] == [
         p for p, _ in launch_plan(8, 8, 8, 8, 8).workspace_pieces()]
     # the k-tile of the int8 copies is the float tiles' k-tile: 64 bytes
-    assert "constexpr int QROW = BK;" in SRC
+    assert "constexpr int QROW = BK;" in RING
+    # a stage holds a, b and both int8 copies' tiles
+    assert ("BYTES = L::A_BYTES + L::B_BYTES + L::QA_BYTES + L::QB_BYTES;"
+            in FLAT)
 
 
 def test_tensor_core_forms_and_no_float_atomics():
@@ -94,20 +106,28 @@ def test_tensor_core_forms_and_no_float_atomics():
     fresh sum (scale-d 0 on the first) waited for and added to the register
     sum; f32 operands on mma.sync, int8 into int32 and a 3xTF32 split (three
     products a k-step); copies by TMA; the only atomic is the integer
-    count."""
-    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in SRC
-    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in SRC
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in SRC
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in SRC
-    assert FLAT.count("mma_tf32(d, ") == 3
+    count.  The forms live in tc_ring.cuh, which razor_matmul.cu
+    includes; each of its k-tiles issues both products."""
+    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in RING
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in RING
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in RING
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in RING
+    assert RING_FLAT.count("mma_tf32(d, ") == 3
     assert "smem_desc(Bs + (KFAST ? 32 * kk : 2048 * kk), 1024, 1), kk > 0);" \
-        in FLAT
+        in RING_FLAT
+    for text in ("wgmma_fence(); issue_bf16_tile<KFAST>(As, Bs, t); "
+                 "issue_s8_tile(Qa, Qb, iacc); wgmma_commit();",
+                 "tf32_tile<KFAST>(As, Bs, t, wr, wc, lane); "
+                 "s8_tile(Qa, Qb, iacc, wr, wc, lane);"):
+        assert text in FLAT, text
     assert "wgmma_wait<0>(); fence_regs(t);" in FLAT
     assert "for (int e = 0; e < 32; ++e) acc[e] += t[e];" in FLAT
-    assert "cp.async.bulk.tensor.2d" in SRC
+    assert "cp.async.bulk.tensor.2d" in RING
     assert re.findall(r"atomic\w+\([^,]+", SRC) == ["atomicAdd(count"]
-    assert "__dp4a" not in SRC and "fmaf(av" not in SRC
-    assert '#include "tile_products.cuh"' not in SRC
+    assert not re.findall(r"atomic\w+\(", RING)
+    for text in (SRC, RING):
+        assert "__dp4a" not in text and "fmaf(av" not in text
+        assert '#include "tile_products.cuh"' not in text
 
 
 @pytest.mark.parametrize("m,k,n", PLAN_SHAPES)

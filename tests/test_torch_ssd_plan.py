@@ -13,7 +13,9 @@ max|.|) and the Pallas kernel in interpret mode (3e-4, as
 ``tests/test_torch_ssm.py`` holds the plain version).
 """
 
+import importlib.util
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -147,6 +149,42 @@ def test_heads_per_block_fill_the_card_before_they_share():
         assert plan.heads_per_block == 1 or blocks >= smod.TARGET_BLOCKS
     with pytest.raises(ValueError, match="does not divide"):
         pass_plan(1, 100, 2, 8, 4, 64)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its phases run only as ``__main__``)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [(1, 1000, 80, 64, 64, 1000),
+                                   (1, 1000, 80, 64, 64, 384),
+                                   (1, 2048, 4, 16, 16, 2048)], ids=str)
+def test_bound_counts_the_products_the_function_needs(shape):
+    """``chip_smoke.py``'s ssd_chunk bound, where operations set it, counts
+    per chunk the score tile's lower triangle with its diagonal (the rest
+    is masked away): n multiply-adds an entry for ``C B^T`` once per (b,
+    chunk), p an entry for its product with x dt per head, plus ch n p each
+    for the carried state's term and the state update; a last, shorter
+    chunk counts its own triangle.  Two operations a multiply-add, at the
+    TF32 rate over the 3xTF32 split."""
+    cs = _chip_smoke()
+    b, s, h, p, n, chunk = shape
+    t_ms, by = cs.ssd_bound_ms(*shape)
+    assert by == "operations"
+    lengths = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    tri = [int(torch.tril(torch.ones(c, c)).sum()) for c in lengths]
+    macs = b * sum(t * n + h * (t * p + 2 * c * n * p)
+                   for t, c in zip(tri, lengths))
+    want = 1e3 * cs.TF32_SPLIT_PASSES * 2 * macs / cs.PEAK_FLOPS["tf32"]
+    assert t_ms == pytest.approx(want, rel=1e-12)
+    # the whole tile, as counted before, is about 1.8x the triangle here
+    if chunk == s == 1000:
+        full = b * (s * chunk * n + h * (s * chunk * p + 2 * s * n * p))
+        assert 1.75 < full / macs < 1.85
 
 
 def test_the_products_are_3xtf32_on_the_tensor_cores():
