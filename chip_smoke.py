@@ -11,7 +11,11 @@ calibration -> tiered product, on the ``razor_matmul`` and
 ``precision_island`` kernels) at phi4-mini-3.8b's four weight shapes, and
 serves a few requests on phi4-mini-3.8b at its published width and depth
 through ``repro_torch.launch.serve`` -> ``ServeEngine`` -> ``ModelAPI`` ->
-``backend.matmul`` -> the ``systolic_mac`` kernel.  Then, for rwkv6-1.6b and
+``backend.matmul`` -> the ``systolic_mac`` kernel; then the same traffic on the
+paper's emulated voltage-island array (``--backend emulated --hwloop``: the
+``hwloop`` tiled form, held first against its plain tile loop), the
+Algorithm-2 watchdog healing an undervolted rail on the serving device, and a
+short run on the simulated array.  Then, for rwkv6-1.6b and
 zamba2-2.7b at their published width and depth: the same traffic served
 (every rwkv6 layer of every step on the ``wkv6`` kernel), the parallel forward
 against token-by-token decoding, and ``ModelAPI.loss`` on a (2, 2048) batch
@@ -22,9 +26,11 @@ a non-zero exit code.
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
 (``systolic_mac`` at every model's GEMM shapes, ``razor_matmul``,
 ``precision_island``, ``wkv6``, ``ssd_chunk``), ``paper_flow``,
-``precision_islands``, ``serve`` (with a ``torch.profiler`` pass over a short
-run), per state-space model ``serve_ssm``, ``decode_vs_parallel`` and
-``loss`` (with a profile by CUDA kernel), ``total`` (the script's seconds),
+``precision_islands``, ``hwloop_checks``, ``serve`` (with a ``torch.profiler``
+pass over a short run), ``serve_hwloop``, per state-space model
+``serve_ssm``, ``decode_vs_parallel`` and ``loss`` (with a profile by CUDA
+kernel), ``profile_misses`` (profiled measurements left null, with what each
+try saw), ``total`` (the script's seconds),
 then ``{"kernels": [...]}`` (per
 kernel: launches on its path, error against the plain version, time, the
 plain version's and one library call's time, and the least time the card
@@ -112,6 +118,13 @@ WKV6_NOISE_PROBE = 1e-7
 TOL_LOSS = 1e-3
 #: (batch, sequence) of the scored batch
 LOSS_BATCH = (2, 2048)
+#: (M, K, N) of the hwloop checks, whose plain tile loop stays short: a
+#: decode step's rows over a full-width K, ragged K and N, many column tiles
+HWLOOP_SHAPES = ((4, 3072, 64), (7, 200, 20), (16, 64, 1024))
+#: the tiled form against the loop: float64 products summed in another
+#: order, as a fraction of max|C|; rel_error relative
+TOL_TILED = 1e-12
+TOL_TILED_REL = 1e-9
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -147,10 +160,11 @@ def device_rows(fn, n_variants: int, iters: int):
     memset), by ``torch.profiler``: ``iters`` calls cycling ``n_variants``
     operand copies as :func:`time_ms` does, each kernel's summed time over
     ``iters``.  Unlike back-to-back events it leaves out the host's launch
-    work.  None where the profiler sees no device time (not measured)."""
+    work.  None where the profiler does not see every call's kernels (not
+    measured)."""
     import torch
     rows = profile_calls(torch, {"calls": lambda: [
-        fn(i % n_variants) for i in range(iters)]})["calls"]
+        fn(i % n_variants) for i in range(iters)]}, repeats=iters)["calls"]
     if rows is None:
         return None
     return [dict(r, ms=r["ms"] / iters, calls=r["calls"] / iters)
@@ -1205,38 +1219,70 @@ def kernel_name(key: str) -> str:
     return hit.group(1) if hit else key[:64]
 
 
-def profile_calls(torch, calls):
+#: profiler sessions a measurement may take before it is left unmeasured
+PROFILE_TRIES = 5
+#: why a profiled measurement came back null, with what each try saw
+PROFILE_MISSES = []
+
+
+def profile_calls(torch, calls, repeats: int = 1):
     """Device time by CUDA kernel of one call of each wrapper (after the
     calls above warmed them up), by ``torch.profiler``: where a wrapper's
-    time goes among its prologue, product and cell passes.  Null where the
-    profiler sees no device time (not measured)."""
+    time goes among its prologue, product and cell passes.
+
+    Each session first traces one warm-up call that it discards (a
+    ``schedule`` with one warm-up step: a session's first kernels can come
+    back without device records), then the measured call.  A try counts
+    only when every kernel row was seen a whole number of times
+    ``repeats`` (``fn`` makes ``repeats`` identical calls): a session that
+    lost some kernels' records (seen: 18 or 21 of a 24-call measurement's 24
+    launches, and sessions with no device row at all, warm-up or not) is
+    taken again.  Null after ``PROFILE_TRIES`` tries (not
+    measured; the tries' kernel counts go to ``PROFILE_MISSES``)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        # a session can come back without device rows (seen on the first of
-        # a process): up to three tries
-        for _ in range(3):
-            with profile(activities=activities) as prof:
-                fn()
-                torch.cuda.synchronize()
+        seen = []
+        for _ in range(PROFILE_TRIES):
+            traced = []
+            with profile(activities=activities,
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1),
+                         on_trace_ready=lambda p: traced.append(
+                             p.key_averages())) as prof:
+                for _step in range(2):
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            # kernels and memsets; not the schedule's own step annotation
+            # ("ProfilerStep*"), which spans the step on the device too
             rows = [{"kernel": kernel_name(e.key),
                      "ms": e.self_device_time_total / 1e3, "calls": e.count}
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
-            if sum(r["ms"] for r in rows) > 0:
+                    for e in (traced[0] if traced else [])
+                    if e.device_type == DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")]
+            counts = [r["calls"] for r in rows]
+            seen.append(counts)
+            if rows and sum(r["ms"] for r in rows) > 0 and all(
+                    c % repeats == 0 for c in counts):
                 break
+        else:
+            PROFILE_MISSES.append({"what": name, "repeats": repeats,
+                                   "kernel_counts_by_try": seen})
+            out[name] = None
+            continue
         rows.sort(key=lambda r: -r["ms"])
-        out[name] = rows if sum(r["ms"] for r in rows) > 0 else None
+        out[name] = rows
     return out
 
 
-def profile_serve(torch, serve_mod, params):
-    """A short `reference` run under ``torch.profiler``: the device time of
-    a model step by kernel, and the share of the run's wall time in which
+def profile_serve(torch, serve_mod, params, backend="reference"):
+    """A short run on ``backend`` under ``torch.profiler``: the device time
+    of a model step by kernel, and the share of the run's wall time in which
     the device ran a kernel.  Tracing slows the host, so the share is a
     lower bound of an untraced run's.  Where the profiler sees no device
     time, the numbers are null (not measured)."""
@@ -1244,8 +1290,7 @@ def profile_serve(torch, serve_mod, params):
     from torch.profiler import ProfilerActivity, profile
     args = serve_mod.parse_args(
         ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
-         "--requests", str(SLOTS), "--max-new", "3", "--backend",
-         "reference"])
+         "--requests", str(SLOTS), "--max-new", "3", "--backend", backend])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1349,7 +1394,7 @@ def serve(torch, cfg, serve_mod, model_api, param_count, use_backend,
         fail(f"serve: prefill logits differ from ideal by {err} (limit "
              f"{TOL_LOGITS * scale})")
 
-    return launches, {
+    return launches, params, run, {
         "arch": ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": param_count(params), "backend": "reference",
         "slots": SLOTS, "max_len": MAX_LEN, "requests": REQUESTS,
@@ -1370,6 +1415,370 @@ def serve(torch, cfg, serve_mod, model_api, param_count, use_backend,
         "prefill_logits_max_err_vs_ideal": err,
         "prefill_logits_max_err_limit": TOL_LOGITS * scale,
         "profile": profile}
+
+
+# ---------------------------------------------------------------------------
+# hwloop: the simulated and emulated voltage-island arrays
+# ---------------------------------------------------------------------------
+
+
+def hwloop_flow_config(tflow):
+    """The operating point ``launch.serve --hwloop`` builds."""
+    return tflow.FlowConfig(array_n=8, tech="vtr-22nm", max_trials=8,
+                            seed=2021)
+
+
+def hwloop_case(torch, np, kind, shape, seed):
+    """(a, w) on the card, and the float64 host arrays the loop gets:
+    ``bf16T`` real-valued bf16 with the weight a transposed view (as the
+    model's tied unembedding is), ``int`` integer-valued bf16."""
+    m, k, n = shape
+    gen = np.random.default_rng(seed)
+    a, w = gen.normal(size=(m, k)), gen.normal(size=(k, n))
+    if kind == "int":
+        a, w = np.round(3 * a), np.round(3 * w)
+    ta = torch.as_tensor(a, device=DEVICE).to(torch.bfloat16)
+    tw = torch.as_tensor(w.T.copy(), device=DEVICE).to(torch.bfloat16).T
+    return ta, tw, ta.double().cpu().numpy(), tw.double().cpu().numpy()
+
+
+def hwloop_check(torch, what, c, c_ref, got, want, exact, simulated):
+    """The tiled form's result against the loop's: every count, flag and
+    ledger total equal; products within TOL_TILED x max|C|, and bit-equal
+    where ``exact`` (integer-valued operands under a model whose outputs
+    stay integers: not ``bitflip``, whose flipped bit 40 makes a zero sum a
+    subnormal that an integer added before or after it keeps or loses);
+    rel_error within TOL_TILED_REL relative (the simulated loop's clean
+    tiles report a rounding gap below 1e-15 that the tiled form reports as
+    0.0)."""
+    c_ref = torch.as_tensor(c_ref)
+    c = c.cpu()
+    err = float((c - c_ref).abs().max())
+    scale = float(c_ref.abs().max())
+    if exact and not torch.equal(c, c_ref):
+        fail(f"hwloop_checks {what}: integer-valued product not bit-equal "
+             f"(max err {err})")
+    if not err <= TOL_TILED * scale:
+        fail(f"hwloop_checks {what}: product off by {err} (limit "
+             f"{TOL_TILED * scale})")
+    rel, rel_ref = got.pop("rel_error"), want.pop("rel_error")
+    if simulated and rel_ref < 1e-12:
+        ok = rel == 0.0 and rel_ref < 1e-15
+    else:
+        ok = abs(rel - rel_ref) <= TOL_TILED_REL * rel_ref
+    if not ok:
+        fail(f"hwloop_checks {what}: rel_error {rel}, loop {rel_ref}")
+    if got != want:
+        fail(f"hwloop_checks {what}: counts differ: {got} vs {want}")
+    return err / scale if scale else 0.0, rel_ref
+
+
+def hwloop_checks(torch, np, tflow, thw, SimulatedBackend, tiled):
+    """The tiled form on the card against its plain version, the loop on
+    the same inputs: both rules, rails at nominal, just below the safe
+    point and deep in the crash region, the three corruption models, a
+    silent-tile chunk of one K-tile, real and integer-valued bf16 operands
+    with the weight a transposed view.  Then the tiled form's time a call
+    at each shape (nominal rails, bf16)."""
+    import copy
+    from repro_torch.core import RazorConfig, SystolicSim, TimingModel
+    fcfg = hwloop_flow_config(tflow)
+    report = tflow.run(fcfg)
+    tm = TimingModel(n=fcfg.array_n, clock_ns=fcfg.clock_ns, tech=fcfg.node,
+                     seed=fcfg.seed)
+    rails = {"nominal": fcfg.node.v_nom,
+             "detect": float(tm.min_safe_voltage().max()) - 0.02,
+             "deep": 0.58}
+    combos = ([("emulated", "stale", lv, None) for lv in rails]
+              + [("emulated", c, "deep", None) for c in ("tedrop", "bitflip")]
+              + [("emulated", "stale", "deep", 1)]
+              + [("simulated", "stale", lv, None) for lv in rails]
+              + [("simulated", "stale", "deep", 1)])
+    rows, worst_err = [], 0.0
+    terms_chunk = tiled.TERMS_CHUNK_BYTES
+    for shape in HWLOOP_SHAPES:
+        for kind in ("bf16T", "int"):
+            ta, tw, a, w = hwloop_case(torch, np, kind, shape, sum(shape))
+            for rule, corruption, level, chunk in combos:
+                what = f"{rule}/{corruption}/{level}/{kind} {shape}"
+                # chunk 1: one silent K-tile a term tensor
+                tiled.TERMS_CHUNK_BYTES = 1 if chunk else terms_chunk
+                t0 = time.perf_counter()
+                if rule == "emulated":
+                    acc = thw.EmulatedAccelerator.from_flow(
+                        report, fcfg, corruption=corruption,
+                        rails=np.full(report.n_partitions, rails[level]))
+                    loop = copy.deepcopy(acc)
+                    c_ref, t_ref = loop._matmul_loop(a, w)
+                    loop_s = time.perf_counter() - t0
+                    c, t = acc._matmul_tiled(ta, tw)
+                    if acc.ledger.summary() != loop.ledger.summary():
+                        fail(f"hwloop_checks {what}: ledger totals differ")
+                    keys = ("detected_p", "silent_p", "macs_p",
+                            "partition_flags")
+                    got = {k: getattr(t, k).tolist() for k in keys}
+                    want = {k: getattr(t_ref, k).tolist() for k in keys}
+                    for d, tel in ((got, t), (want, t_ref)):
+                        d.update(replay_cycles=tel.replay_cycles,
+                                 cycles=tel.cycles, rel_error=tel.rel_error)
+                    silent = int(t_ref.silent_p.sum())
+                else:
+                    fp = report.floorplan.with_voltages(
+                        [rails[level]] * report.n_partitions)
+                    be = SimulatedBackend(SystolicSim(
+                        tm, fp, RazorConfig(clock_ns=fcfg.clock_ns)))
+                    c_ref, t_ref = be._execute_loop(a, w)
+                    loop_s = time.perf_counter() - t0
+                    c, t = be._execute_tiled(ta, tw)
+                    got, want = t.to_dict(), t_ref.to_dict()
+                    silent = t_ref.silent
+                err, rel_ref = hwloop_check(
+                    torch, what, c, c_ref, got, want,
+                    kind == "int" and corruption != "bitflip",
+                    rule == "simulated")
+                worst_err = max(worst_err, err)
+                rows.append({"case": what, "one_k_tile_a_chunk": bool(chunk),
+                             "silent": silent, "rel_error": rel_ref,
+                             "max_err_over_max_c": err,
+                             "loop_s": loop_s})
+                if level == "deep" and not silent:
+                    fail(f"hwloop_checks {what}: no silent MAC in the crash "
+                         f"region")
+    tiled.TERMS_CHUNK_BYTES = terms_chunk
+
+    # ---- the tiled form's time a call, nominal rails, bf16 operands
+    timed = []
+    for shape in HWLOOP_SHAPES:
+        ta, tw, _, _ = hwloop_case(torch, np, "bf16T", shape, 1)
+        acc = thw.EmulatedAccelerator.from_flow(
+            report, fcfg, rails=np.full(report.n_partitions, rails["nominal"]))
+        fp = report.floorplan.with_voltages([rails["nominal"]] * 4)
+        be = SimulatedBackend(SystolicSim(tm, fp,
+                                          RazorConfig(clock_ns=fcfg.clock_ns)))
+        for rule, fn in (("emulated", lambda: acc._matmul_tiled(ta, tw)),
+                         ("simulated", lambda: be._execute_tiled(ta, tw))):
+            fn()
+            torch.cuda.synchronize()
+            host, wall = [], []
+            for _ in range(9):
+                t0 = time.perf_counter()
+                fn()
+                host.append(1e3 * (time.perf_counter() - t0))
+                torch.cuda.synchronize()
+                wall.append(1e3 * (time.perf_counter() - t0))
+            timed.append({"rule": rule, "shape": list(shape),
+                          "host_ms_per_call": sorted(host)[4],
+                          "wall_ms_per_call": sorted(wall)[4],
+                          "device_ms_per_call": device_ms(
+                              lambda i: fn(), 1, 5)})
+    return {"cases": len(rows), "rows": rows,
+            "worst_err_over_max_c": worst_err, "tol": TOL_TILED,
+            "tol_rel_error": TOL_TILED_REL, "timed": timed}
+
+
+def tokens_up_to_ties(torch, got_reqs, want_reqs, logits_of, what):
+    """``got``'s tokens equal ``want``'s, or at the first step where they
+    part ``got``'s token lies within 2 x TOL_LOGITS of max|logits| of the
+    top of ``logits_of(request, fed)`` (the C1 rule).  Returns the number
+    of requests that parted and the largest gap at a parting."""
+    parted, worst = 0, 0.0
+    for r_got, r_want in zip(got_reqs, want_reqs):
+        a, b = r_got.out_tokens, r_want.out_tokens
+        if len(a) != len(b):
+            fail(f"{what}: request {r_got.uid} gave {len(a)} tokens, "
+                 f"{len(b)} expected")
+        if a == b:
+            continue
+        parted += 1
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg = logits_of(r_want, b[:i])
+        gap = float(lg.max() - lg[a[i]]) / float(lg.abs().max())
+        worst = max(worst, gap)
+        if gap > 2 * TOL_LOGITS:
+            fail(f"{what}: request {r_got.uid} parts at token {i} with a gap "
+                 f"of {gap} of max|logits| (limit {2 * TOL_LOGITS})")
+    return parted, worst
+
+
+def serve_hwloop(torch, cfg, mods, params, ref, counters, tiled):
+    """phi4-mini-3.8b at full width on the emulated array, through the
+    launcher (``--backend emulated --hwloop``), with the ``serve`` phase's
+    weights and traffic; then the Algorithm-2 watchdog healing an
+    undervolted rail on the live serving device; then a short run on the
+    simulated array."""
+    import numpy as np
+    serve_mod = mods.serve
+    gemms = dense_gemms(cfg)
+    per_step = sum(g[2] for g in gemms.values())
+    # a prefill multiplies every prompt row by the layers' weights and only
+    # the last row by the unembedding; a decode step, every slot's row
+    logits_kn = gemms["logits"][0] * gemms["logits"][1]
+    layers_kn = sum(k * n * per for k, n, per, _, _ in gemms.values()) \
+        - logits_kn
+    argv = ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--requests", str(REQUESTS), "--max-new", str(MAX_NEW), "--mixed",
+            "--seed", str(SEED)]
+    short = ["--arch", ARCH, "--slots", "2", "--max-len", str(MAX_LEN),
+             "--requests", "2", "--max-new", "2", "--mixed", "--seed",
+             str(SEED)]
+    api = mods.model_api(cfg)
+
+    def logits_of(backend):
+        return lambda req, fed: logits_alone(
+            torch, api, params, req.prompt, fed, backend, mods.use_backend,
+            mods.get_backend, mods.ShapeConfig)
+
+    # ---- warm-up, uncounted; its tokens are the simulated run's reference
+    emu_short = serve_mod.run(serve_mod.parse_args(
+        short + ["--backend", "emulated"]), params)
+    torch.cuda.synchronize()
+
+    # ---- 1. the main path: counts set to 0 just before, read just after
+    counters.zero()
+    tiled.tiled_matmul.calls = tiled.tiled_matmul.reads = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = serve_mod.run(serve_mod.parse_args(
+        argv + ["--backend", "emulated", "--hwloop"]), params)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    calls, reads = tiled.tiled_matmul.calls, tiled.tiled_matmul.reads
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats, tel, hw = run.stats, run.stats.backend_telemetry, run.stats.hwloop
+    steps = stats.model_steps
+    if stats.completed != REQUESTS or stats.truncated or stats.unserved:
+        fail(f"serve_hwloop: {stats.completed} of {REQUESTS} completed, "
+             f"{stats.truncated} truncated, {stats.unserved} unserved")
+    if any(launches.values()):
+        fail(f"serve_hwloop: kernels launched on the emulated path: "
+             f"{launches}")
+    if not calls == tel["calls"] == per_step * steps:
+        fail(f"serve_hwloop: {calls} tiled-form calls, {tel['calls']} "
+             f"backend GEMMs, expected {per_step} x {steps} model steps")
+    decode_rows = SLOTS * stats.decode_steps
+    macs_expected = (
+        layers_kn * (sum(len(r.prompt) for r in run.requests) + decode_rows)
+        + logits_kn * (stats.prefill_steps + decode_rows))
+    if tel["macs"] != macs_expected:
+        fail(f"serve_hwloop: {tel['macs']} MACs, expected the sum of M*K*N "
+             f"over the GEMMs, {macs_expected}")
+    if hw is None or hw["steps"] != stats.decode_steps:
+        fail(f"serve_hwloop: the watchdog saw {hw and hw['steps']} of "
+             f"{stats.decode_steps} decode steps")
+    if not (tel["energy_per_token_j"] and tel["energy_per_token_j"] > 0):
+        fail(f"serve_hwloop: energy per token {tel['energy_per_token_j']}")
+    # the calibrated rails keep their guard band: no flag, no silent MAC
+    if tel["flags"] != 0 or tel["silent"] != 0:
+        fail(f"serve_hwloop: {tel['flags']} flags, {tel['silent']} silent "
+             f"at the calibrated rails")
+    parted, gap = tokens_up_to_ties(
+        torch, run.requests, ref.requests, logits_of("reference"),
+        "serve_hwloop against reference")
+    _, cb_s, cb_n = run.engine.obs.registry.histogram(
+        "backend_callback_seconds", labels=("backend",)).snapshot(
+            backend="emulated")
+    main = {"backend": "emulated", "hwloop": True,
+            "completed": stats.completed,
+            "prefill_steps": stats.prefill_steps,
+            "decode_steps": stats.decode_steps, "model_steps": steps,
+            "tokens_generated": stats.tokens_generated,
+            "gemm_calls": tel["calls"], "tiled_form_calls": calls,
+            "kernel_launches": launches, "macs": tel["macs"],
+            "macs_expected": macs_expected,
+            "flags": tel["flags"], "replays": tel["replays"],
+            "silent": tel["silent"],
+            "energy_per_token_j": tel["energy_per_token_j"],
+            "recalibrations": hw["recalibrations"],
+            "rails_v": hw["rails_v"], "flag_rate": hw["flag_rate"],
+            "wall_s": run.wall_s,
+            "tokens_per_s": stats.tokens_generated / run.wall_s,
+            "ttft_mean_s": sum(stats.ttft_s) / len(stats.ttft_s),
+            "model_step_ms": 1e3 * run.wall_s / steps,
+            "reference_model_step_ms": ref.model_step_ms,
+            "host_ms_per_gemm": 1e3 * cb_s / cb_n,
+            "device_reads": reads,
+            "device_reads_per_model_step": reads / steps,
+            "peak_device_memory_gb": peak_gb,
+            "reference_peak_device_memory_gb": ref.peak_gb,
+            "tokens_vs_reference": {
+                "requests_parting": parted, "worst_gap_at_parting": gap,
+                "tie_limit": 2 * TOL_LOGITS}}
+
+    # ---- where an emulated step's time goes: a short profiled run
+    main["profile"] = profile_serve(torch, serve_mod, params, "emulated")
+
+    # ---- 2. the thin adapter: undervolt partition 0 on the serving device
+    from repro_torch.backend import EmulatedBackend
+    from repro_torch.flow import FlowConfig
+    from repro_torch.hwloop import HwLoopSession
+    session = HwLoopSession(FlowConfig(array_n=8, tech="vtr-22nm",
+                                       max_trials=8, seed=2021),
+                            probe_rows=8, rail_margin=0.02, patience=2)
+    be = EmulatedBackend(session.accel)
+    acc = be.accel
+    v_safe = float(acc.timing.min_safe_voltage()[acc._part_grid == 0].max())
+    session.set_partition_voltage(0, v_safe - 0.02)
+    undervolt = float(acc.rails[0])
+    eng = mods.ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                           backend=be, hwloop=session)
+    for req in serve_mod.make_requests(cfg, 3, 4, False, SEED):
+        eng.submit(req)
+    flags = eng.stats.backend_step_flags
+    healed_at = None             # decode steps seen when the heal landed
+    t0 = time.monotonic()
+    while not eng.scheduler.drained():
+        eng.step()
+        if healed_at is None and session.recalibrations:
+            healed_at = len(flags)
+    heal_s = time.monotonic() - t0
+    if not any(f[0] for f in flags):
+        fail("serve_hwloop: partition 0's flag never fired under the "
+             "undervolt")
+    if session.recalibrations < 1:
+        fail("serve_hwloop: the watchdog never recalibrated")
+    if not acc.rails[0] > undervolt:
+        fail(f"serve_hwloop: rail 0 at {acc.rails[0]}, not above the "
+             f"undervolt {undervolt}")
+    # steps after the first recalibration, then a fresh drain: no flag
+    after = flags[healed_at:]
+    eng2 = mods.ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                            backend=be, hwloop=session)
+    for req in serve_mod.make_requests(cfg, 2, 2, False, SEED + 1):
+        eng2.submit(req)
+    healed = eng2.run_until_drained()
+    after = after + healed.backend_step_flags
+    if any(any(f) for f in after):
+        fail(f"serve_hwloop: flags after the heal: {after}")
+    adapter = {"requests": 3, "max_new": 4, "undervolt_v": undervolt,
+               "v_safe_partition_0": v_safe,
+               "decode_steps": eng.stats.decode_steps,
+               "partition_0_flag_steps": sum(f[0] for f in flags),
+               "healed_after_decode_steps": healed_at,
+               "recalibrations": session.recalibrations,
+               "rails_v_after": [float(v) for v in acc.rails],
+               "clean_steps_after_heal": len(after),
+               "silent": be.total.silent, "seconds": heal_s}
+
+    # ---- 3. the simulated array: clean, and the emulated run's tokens
+    sim = serve_mod.run(serve_mod.parse_args(
+        short + ["--backend", "simulated"]), params)
+    sim_tel = sim.stats.backend_telemetry
+    if sim_tel["flags"] != 0 or sim_tel["silent"] != 0:
+        fail(f"serve_hwloop: the simulated array at nominal rails raised "
+             f"{sim_tel['flags']} flags, {sim_tel['silent']} silent")
+    sim_parted, sim_gap = tokens_up_to_ties(
+        torch, sim.requests, emu_short.requests, logits_of("emulated"),
+        "serve_hwloop simulated against emulated")
+    simulated = {"requests": 2, "max_new": 2,
+                 "completed": sim.stats.completed,
+                 "gemm_calls": sim_tel["calls"], "macs": sim_tel["macs"],
+                 "flags": sim_tel["flags"], "wall_s": sim.wall_s,
+                 "model_step_ms": 1e3 * sim.wall_s / sim.stats.model_steps,
+                 "requests_parting_from_emulated": sim_parted,
+                 "worst_gap_at_parting": sim_gap}
+    return {"arch": ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "slots": SLOTS, "max_len": MAX_LEN, "requests": REQUESTS,
+            "gemms_per_model_step": per_step, "emulated": main,
+            "thin_adapter_undervolt": adapter, "simulated": simulated}
 
 
 # ---------------------------------------------------------------------------
@@ -1563,7 +1972,7 @@ def check_wkv6(torch, wkv6, wkv6_plain):
         # launches this small are timed at the host's launch rate
         prof = profile_calls(torch, {"wkv6": lambda: [
             wkv6(*args[:-1], states[i % len(states)], chunk=ch)
-            for i in range(iters)]})["wkv6"]
+            for i in range(iters)]}, repeats=iters)["wkv6"]
         passes = {r["kernel"]: r["ms"] / iters for r in prof or []
                   if r["kernel"].startswith("wkv6_")
                   and r["kernel"].endswith("_kernel")}
@@ -1625,7 +2034,8 @@ def check_ssd(torch, ssd_chunk, ssd_chunk_plain):
                     "library_ms": None, "bound_ms": t_bound, "bound_by": by})
         iters = 5
         prof = profile_calls(torch, {"ssd_chunk": lambda: [
-            ssd_chunk(*args, chunk=ch) for _ in range(iters)]})["ssd_chunk"]
+            ssd_chunk(*args, chunk=ch) for _ in range(iters)]},
+            repeats=iters)["ssd_chunk"]
         passes = {r["kernel"]: r["ms"] / iters for r in prof or []
                   if r["kernel"].startswith("ssd_chunk_")}
         row["kernel_device_ms"] = sum(passes.values()) if passes else None
@@ -2137,6 +2547,12 @@ def main() -> int:
     from repro_torch.models import layers as layers_mod
     from repro_torch.models import model_api, param_count
     from repro_torch.models import ssm as ssm_mod
+    from repro_torch.serve import ServeEngine
+    from repro_torch import flow as tflow
+    from repro_torch import hwloop as thw
+    from repro_torch.backend import SimulatedBackend
+    from repro_torch.hwloop import tiled
+    import numpy as np
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2222,18 +2638,31 @@ def main() -> int:
     # the served phases' peak memory holds no precision_island workspace
     release_workspaces()
 
-    launches, served = serve(torch, cfg, serve_mod, model_api, param_count,
-                             use_backend, get_backend, systolic_mac)
+    emit("hwloop_checks", hwloop_checks(torch, np, tflow, thw,
+                                        SimulatedBackend, tiled))
+
+    launches, params, ref_run, served = serve(
+        torch, cfg, serve_mod, model_api, param_count, use_backend,
+        get_backend, systolic_mac)
     emit("serve", served)
     if launches <= 0:
         fail("the served path launched the systolic_mac kernel no time")
 
-    # ---- the state-space models: served, decode against parallel, scored
     counters = Counters(systolic_mac=systolic_mac, wkv6=wkv6,
                         ssd_chunk=ssd_chunk)
     mods = types.SimpleNamespace(
         serve=serve_mod, use_backend=use_backend, get_backend=get_backend,
-        model_api=model_api, ShapeConfig=ShapeConfig, param_count=param_count)
+        model_api=model_api, ShapeConfig=ShapeConfig, param_count=param_count,
+        ServeEngine=ServeEngine)
+    ref = types.SimpleNamespace(requests=ref_run.requests,
+                                model_step_ms=served["model_step_ms"],
+                                peak_gb=served["peak_device_memory_gb"])
+    emit("serve_hwloop", serve_hwloop(torch, cfg, mods, params, ref,
+                                      counters, tiled))
+    del params, ref_run, ref
+    torch.cuda.empty_cache()
+
+    # ---- the state-space models: served, decode against parallel, scored
     ssm_launches = {}
     for arch in SSM_ARCHS:
         cfg_a = get_config(arch)
@@ -2258,6 +2687,8 @@ def main() -> int:
         del api, params
         torch.cuda.empty_cache()
 
+    emit("profile_misses", {"rows": PROFILE_MISSES,
+                            "tries_per_measurement": PROFILE_TRIES})
     emit("total", {"seconds": time.monotonic() - t_start})
 
     # one decode step's GEMMs (225 launches at M = slots), from the

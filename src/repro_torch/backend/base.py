@@ -5,10 +5,10 @@ every fidelity level of the voltage-scaled array.
 
 with a string-keyed registry (``get_backend("reference")``) and a
 context-manager / ``set_default`` scoping API, so the *same* model code runs
-its GEMMs on the ideal library path or through the ``systolic_mac`` kernel —
-selectable per serve engine or per ``with use_backend(...)`` block.
-Counterpart of ``repro.backend.base``; the ``simulated`` and ``emulated``
-targets are not ported yet.
+its GEMMs on the ideal library path, through the ``systolic_mac`` kernel or
+on the simulated / emulated voltage-scaled array — selectable per serve
+engine or per ``with use_backend(...)`` block.  Counterpart of
+``repro.backend.base``.
 
 Contract highlights (``tests/test_torch_backend.py`` pins these against the
 JAX package):

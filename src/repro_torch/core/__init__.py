@@ -3,8 +3,9 @@ Reconfigurable Platform* — slack-clustered voltage-island partitioning of a
 systolic MAC array, with static (Algorithm 1) + Razor-runtime (Algorithm 2)
 V_ccint calibration and the calibrated power model (Table II / Figs. 15-16).
 
-The port's copy of ``repro.core``: numpy and the standard library only, and
-bit-identical to it (``tests/test_torch_core.py``).  ``cadflow`` is imported
+The port's copy of ``repro.core``: numpy and the standard library, and
+bit-identical to it (``tests/test_torch_core.py``); ``razor`` also holds the
+torch forms of its classification, which the hwloop tiled form runs on a GPU.  ``cadflow`` is imported
 first and reaches ``flow.report`` from there, in the reference's order."""
 
 from .cadflow import FlowReport, paper_table2_flow, run_flow

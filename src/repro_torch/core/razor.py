@@ -14,14 +14,22 @@ The paper notes input-bit fluctuation raises NTC failure probability; we model
 the effective arrival time as the nominal path delay scaled by a
 switching-activity term computed from the data actually flowing through the
 MAC.
+
+The numpy functions are the port's copy of ``repro.core.razor``, bit for bit.
+The ``*_torch`` forms beside them classify on a tensor's own device (the
+hwloop tiled form runs them on the GPU) with the same results bit for bit:
+every rounding step is the numpy function's, one operation at a time (no
+fused multiply-add; divisions by tensors, which PyTorch does not turn into
+reciprocal multiplies).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 OK = 0
 DETECTED = 1       # Razor flag fires; value is corrected, one replay cycle
@@ -115,3 +123,72 @@ class RazorMac:
         else:
             self.silent_failures += 1    # R keeps stale data; corruption propagates
         return self._reg, status
+
+
+# ---------------------------------------------------------------------------
+# Torch forms (the hwloop tiled form's classification)
+# ---------------------------------------------------------------------------
+
+
+#: (n_bits, device) -> popcount(x) / n_bits for every n_bits-bit x, float64
+_ACTIVITY_TABLES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _activity_table(n_bits: int, device: torch.device) -> torch.Tensor:
+    """:func:`switching_activity` of every ``n_bits``-bit XOR pattern, made
+    once per device (no host-to-device copy a call)."""
+    key = (n_bits, device)
+    if key not in _ACTIVITY_TABLES:
+        x = np.arange(1 << n_bits, dtype=np.int64)
+        _ACTIVITY_TABLES[key] = torch.from_numpy(
+            switching_activity(np.zeros_like(x), x, n_bits)).to(device)
+    return _ACTIVITY_TABLES[key]
+
+
+def streamed_activity_torch(a: torch.Tensor, n_bits: int = 16
+                            ) -> torch.Tensor:
+    """:func:`streamed_activity` of each (M, K) block of ``a`` (..., M, K),
+    float64: each block is quantized at its own full scale (the largest
+    magnitude in the block; an all-zero block quantizes to zeros, as at the
+    numpy function's 1.0), rows toggle against the row above (row 0 against
+    itself), and the toggled bits are counted by a table of all
+    ``n_bits``-bit patterns (``n_bits`` <= 16)."""
+    if not 0 < n_bits <= 16:
+        raise ValueError(f"streamed_activity_torch counts up to 16 bits, "
+                         f"not {n_bits}")
+    a = a.to(torch.float64)
+    # the largest magnitude, and the smallest positive float64 where it is
+    # 0: that block is all zeros, which quantize to 0 at any scale
+    scale = torch.linalg.vector_norm(a, float("inf"), dim=(-2, -1),
+                                     keepdim=True).clamp_min_(5e-324)
+    top = 2 ** (n_bits - 1)
+    q = (a / scale).mul_(float(top - 1)).clamp_(-top, top - 1) \
+        .to(torch.int64)
+    prev = torch.cat([q[..., :1, :], q[..., :-1, :]], dim=-2)
+    return _activity_table(n_bits, a.device)[(prev ^ q) & ((1 << n_bits) - 1)]
+
+
+def effective_arrival_torch(nominal_delay_ns: torch.Tensor,
+                            activity: torch.Tensor,
+                            cfg: RazorConfig) -> torch.Tensor:
+    """:func:`effective_arrival`, ``d * (1 + beta * activity)``, rounded
+    after each of its three operations as numpy rounds them."""
+    slow = activity * cfg.beta
+    slow = slow + 1.0
+    return nominal_delay_ns * slow
+
+
+def razor_windows_torch(arrival_ns: torch.Tensor, cfg: RazorConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(late, lost)``: arrival past the main clock edge, and past the
+    shadow window.  ``classify_arrival`` is SILENT where ``lost``, else
+    DETECTED where ``late``."""
+    return (arrival_ns > cfg.clock_ns,
+            arrival_ns > cfg.clock_ns + cfg.t_del_ns)
+
+
+def classify_arrival_torch(arrival_ns: torch.Tensor, cfg: RazorConfig
+                           ) -> torch.Tensor:
+    """:func:`classify_arrival` as an int8 tensor (OK / DETECTED / SILENT)."""
+    late, lost = razor_windows_torch(arrival_ns, cfg)
+    return torch.where(lost, SILENT, late.to(torch.int8)).to(torch.int8)

@@ -28,8 +28,9 @@ CLI: ``PYTHONPATH=src python -m repro_torch.flow {run,sweep} ...``
 
 The port's copy of ``repro.flow``: numpy and the standard library only, and
 bit-identical to it (``tests/test_torch_flow.py``).  The ``hwloop`` stage
-stays registered under its name but raises ``NotImplementedError`` when run
-(ROADMAP.md A7), as does the CLI's ``--points-out`` (A10).
+runs its backend on the stage instance's device
+(``repro_torch.hwloop.hwloop_pipeline(device=...)``; the GPU by default).
+The CLI's ``--points-out`` stops with its ROADMAP item (A10).
 """
 
 from .artifacts import Artifacts, ArtifactStore, StoreStats

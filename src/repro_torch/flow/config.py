@@ -65,10 +65,9 @@ class FlowConfig:
     # "bisect" = batched per-partition bisection (fewer trials, same rails up
     # to the step/tolerance difference)
     calibration_method: str = "anneal"
-    # hwloop emulation stage (opt-in via the "hwloop" stage, not ported yet:
-    # ROADMAP.md A7): probe-traffic steps, streamed activation rows per step,
-    # and the silent-failure corruption model (repro.hwloop.inject in the
-    # JAX package)
+    # hwloop emulation stage (repro_torch.hwloop, opt-in via the "hwloop"
+    # stage): probe-traffic steps, streamed activation rows per step, and the
+    # silent-failure corruption model (see repro_torch.hwloop.inject)
     hwloop_steps: int = 8
     hwloop_rows: int = 32
     hwloop_corruption: str = "stale"
@@ -133,12 +132,11 @@ class FlowConfig:
             # beyond the built-ins, accept anything in the hwloop registry
             # (user models added via register_corruption).  The import is
             # deferred to here — never at module scope — because hwloop
-            # itself imports flow.  Until hwloop/ is ported (ROADMAP.md A7)
-            # the import fails and the built-ins are the known models.
+            # itself imports flow.
             try:
                 from ..hwloop.inject import CORRUPTION_MODELS
                 known = sorted(CORRUPTION_MODELS)
-            except ImportError:
+            except ImportError:  # pragma: no cover - mid-import edge only
                 known = ["stale", "tedrop", "bitflip"]
             if self.hwloop_corruption not in known:
                 raise ValueError(f"unknown hwloop_corruption "

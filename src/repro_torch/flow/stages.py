@@ -338,15 +338,26 @@ class ConstraintsStage(Stage):
 @register_stage
 class HwLoopStage(Stage):
     """Hardware-in-the-loop emulation: execute probe inference traffic on
-    the calibrated voltage islands through the execution-backend protocol,
-    yielding the voltage→(accuracy-proxy, energy/token, replay-rate)
-    observables that close the loop between the CAD flow and real inference.
+    the calibrated voltage islands through the ``repro_torch.backend``
+    execution protocol, yielding the voltage→(accuracy-proxy, energy/token,
+    replay-rate) observables that close the loop between the CAD flow and
+    real inference.
 
-    Registered under its name, with the reference's dataflow and cache
-    keys, so pipelines that name it build as they do in ``repro.flow``.
-    Running it needs ``hwloop/`` and the ``simulated``/``emulated``
-    backends, which are not ported yet (ROADMAP.md A7): :meth:`run` raises
-    ``NotImplementedError``.
+    ``cfg.backend`` selects the execution target: ``"emulated"`` (default)
+    is the fault-injecting accelerator with the energy ledger;
+    ``"simulated"`` runs the cycle-level :class:`SystolicSim` at the same
+    calibrated rails (flags/silent observables, no energy model);
+    ``"ideal"``/``"reference"`` are the exact baselines (zero flags).
+
+    Opt-in: not part of :data:`DEFAULT_STAGE_NAMES`; insert it after
+    ``power`` (``repro_torch.hwloop.hwloop_pipeline()`` does exactly that)
+    so ``sweep()`` produces Pareto tables across tech nodes.
+
+    The backend runs on the stage's ``device`` (``None``, the default,
+    means the GPU; without one :meth:`run` raises): it is the instance's,
+    not a config field, because :class:`FlowConfig` and its cache keys stay
+    the reference's.  The probe traffic is drawn with numpy as the
+    reference draws it, then put on that device.
     """
 
     name = "hwloop"
@@ -358,11 +369,58 @@ class HwLoopStage(Stage):
                    "seed", "calibration_seed", "hwloop_steps", "hwloop_rows",
                    "hwloop_corruption", "backend")
 
+    def __init__(self, device=None):
+        self.device = device
+
+    def _backend(self, art: Artifacts, cfg: FlowConfig):
+        # imported lazily: the emulated backend reaches into hwloop, which
+        # imports flow at package level
+        from .._device import resolve_device
+        from ..backend import get_backend
+        from ..backend.impls import EmulatedBackend, SimulatedBackend
+        device = resolve_device(self.device)
+        if cfg.backend == "emulated":
+            from ..hwloop.device import EmulatedAccelerator
+            return EmulatedBackend(EmulatedAccelerator(
+                art.timing_model, art.floorplan_runtime,
+                razor=RazorConfig(clock_ns=cfg.clock_ns),
+                power=model_for(cfg.tech, freq_mhz=cfg.freq_mhz,
+                                activity=cfg.activity),
+                corruption=cfg.hwloop_corruption, device=device))
+        if cfg.backend == "simulated":
+            return SimulatedBackend(SystolicSim(
+                art.timing_model, art.floorplan_runtime,
+                RazorConfig(clock_ns=cfg.clock_ns)), device=device)
+        return get_backend(cfg.backend, device=device)
+
     def run(self, art: Artifacts, cfg: FlowConfig) -> Artifacts:
-        raise NotImplementedError(
-            "the hwloop flow stage is not ported to repro_torch yet "
-            "(ROADMAP.md A7: hwloop/ with the simulated and emulated "
-            "backends)")
+        be = self._backend(art, cfg)
+        rng = np.random.default_rng(cfg.resolved_calibration_seed() + 99_991)
+        n = cfg.array_n
+        flags = np.zeros(art.n_partitions, dtype=np.float64)
+        silent = 0
+        rel_errors = []
+        for _ in range(cfg.hwloop_steps):
+            a = rng.normal(size=(cfg.hwloop_rows, n))
+            w = rng.normal(size=(n, n))
+            _, tel = be.matmul(a, w)
+            if tel.partition_flags is not None:
+                flags += np.asarray(tel.partition_flags, dtype=np.float64)
+            silent += tel.silent
+            rel_errors.append(tel.rel_error)
+        be.add_tokens(cfg.hwloop_steps)  # one probe step ~ one served token
+        led = getattr(be, "ledger", None)
+        total_macs = max(be.total.macs, 1)
+        return art.with_(
+            hwloop_energy_per_token_j=(led.energy_per_token_j
+                                       if led is not None else None),
+            hwloop_energy_per_mac_j=(led.energy_per_mac_j
+                                     if led is not None else None),
+            hwloop_replay_rate=(led.replay_rate if led is not None
+                                else be.total.replays / total_macs),
+            hwloop_flag_rate=(flags / cfg.hwloop_steps).tolist(),
+            hwloop_silent_rate=silent / total_macs,
+            hwloop_rel_error=float(np.mean(rel_errors)))
 
 
 #: Canonical stage order of the paper's flow.

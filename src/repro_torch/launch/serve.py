@@ -20,10 +20,21 @@ Flags:
                                  exhaustion reports truncated/unserved counts
     --json-out PATH              dump full EngineStats telemetry as JSON
                                  (prefill/decode steps, TTFT, occupancy, ...)
-    --backend {ideal,reference}  execution backend for ALL model GEMMs
+    --backend {ideal,reference,simulated,emulated}
+                                 execution backend for ALL model GEMMs
                                  (continuous engine only).  "reference" runs
                                  every one of them through the hand-written
-                                 systolic_mac kernel at nominal rails
+                                 systolic_mac kernel at nominal rails;
+                                 "emulated" on the CAD flow's calibrated
+                                 voltage islands (Razor flags, replays,
+                                 silent corruption, an energy ledger);
+                                 "simulated" on the cycle-level simulator
+    --hwloop                     attach the Algorithm-2 loop: a watchdog that
+                                 re-runs the flow's runtime calibration when
+                                 flags persist (over the emulated backend's
+                                 real GEMM flags; probe traffic otherwise)
+    --hwloop-tech / --hwloop-array-n
+                                 the CAD flow's tech node and array size
     --policy {fifo,priority}     scheduler admission policy; priority enables
                                  tiers + TTFT-deadline shedding
     --max-pending N              bounded admission queue (backpressure: a
@@ -34,8 +45,7 @@ Flags:
                                  lifecycle, decode steps) to PATH as NDJSON
 
 Accepted but not ported yet (the launcher stops and names the ROADMAP item):
-    --backend {simulated,emulated}, --guard, --hwloop, --autoscale,
-    --serve-http, --trace
+    --guard, --autoscale, --serve-http, --trace
 """
 
 from __future__ import annotations
@@ -48,21 +58,17 @@ from typing import Any, List, Optional, Sequence
 
 import numpy as np
 
-from ..backend import get_backend
+from ..backend import EmulatedBackend, get_backend
 from ..configs import ARCHS, get_config
 from ..models import model_api
 from ..serve import Request, ServeEngine, WaveServeEngine
 
 #: flags whose machinery is not ported: (test on args, what to say)
 _NOT_PORTED = (
-    (lambda a: a.backend in ("simulated", "emulated"),
-     "--backend simulated|emulated: the rest of core/ + flow/ + hwloop/ with "
-     "the simulated/emulated backends"),
-    (lambda a: a.guard != "off", "--guard: resilience/"),
-    (lambda a: a.hwloop, "--hwloop: hwloop/"),
-    (lambda a: a.autoscale != "static", "--autoscale: railscale/"),
-    (lambda a: a.serve_http is not None, "--serve-http: server/"),
-    (lambda a: a.trace is not None, "--trace: server/"),
+    (lambda a: a.guard != "off", "--guard: A9, resilience/"),
+    (lambda a: a.autoscale != "static", "--autoscale: A10, railscale/"),
+    (lambda a: a.serve_http is not None, "--serve-http: A11, server/"),
+    (lambda a: a.trace is not None, "--trace: A11, server/"),
 )
 
 
@@ -147,10 +153,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             ap.error(f"not ported to repro_torch yet (ROADMAP.md queue A) — "
                      f"{what}")
     if args.engine != "continuous" and (
-            args.backend != "ideal" or args.policy != "fifo"
+            args.backend != "ideal" or args.hwloop or args.policy != "fifo"
             or args.max_pending is not None):
-        ap.error("--backend/--policy/--max-pending require the continuous "
-                 "engine")
+        ap.error("--backend/--hwloop/--policy/--max-pending require the "
+                 "continuous engine")
     return args
 
 
@@ -174,8 +180,31 @@ def run(args: argparse.Namespace, params=None) -> ServeRun:
     if params is None:
         params = api.init_params(args.seed)
     engine_kw = {}
-    if args.backend != "ideal":
+    fcfg = store = None
+    if args.backend == "emulated" or args.hwloop:
+        # only these two paths run the CAD flow; one artifact store shared
+        # by the backend's flow run and the hwloop watchdog executes it once
+        from ..flow import ArtifactStore, FlowConfig
+        fcfg = FlowConfig(array_n=args.hwloop_array_n, tech=args.hwloop_tech,
+                          max_trials=8, seed=2021)
+        store = ArtifactStore()
+    if args.backend == "emulated":
+        # CAD flow -> calibrated rails -> the serving execution target
+        from ..flow import run as flow_run
+        report = flow_run(fcfg, store=store)
+        engine_kw["backend"] = EmulatedBackend.from_flow(report, fcfg,
+                                                         device=api.device)
+    elif args.backend == "simulated":
+        engine_kw["backend"] = get_backend(
+            args.backend, array_n=args.hwloop_array_n, tech=args.hwloop_tech,
+            device=api.device)
+    elif args.backend != "ideal":
         engine_kw["backend"] = get_backend(args.backend, device=api.device)
+    if args.hwloop:
+        from ..hwloop import HwLoopSession
+        engine_kw["hwloop"] = HwLoopSession(fcfg, probe_rows=8,
+                                            rail_margin=0.02, store=store,
+                                            device=api.device)
     if args.engine == "continuous":
         engine_kw.update(policy=args.policy, max_pending=args.max_pending)
         engine_cls = ServeEngine
@@ -214,9 +243,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               f"{' (truncated)' if r.truncated else ''}")
     if stats.backend_telemetry:
         bt = stats.backend_telemetry
+        e = bt.get("energy_per_token_j")
         print(f"[backend:{stats.backend}] {bt['calls']} GEMMs, "
               f"{bt['macs']} MACs, {bt['flags']} flags, "
-              f"{bt['replays']} replays")
+              f"{bt['replays']} replays, "
+              f"{'n/a' if e is None else f'{e:.3g}'} J/token")
+    if stats.hwloop:
+        hw = stats.hwloop
+        rates = ", ".join(f"{x:.2f}" for x in hw["flag_rate"])
+        e = hw["energy_per_token_j"]        # None when no decode step ran
+        print(f"[hwloop] {hw['steps']} emulated steps, flag rates [{rates}], "
+              f"{hw['recalibrations']} recalibrations, "
+              f"{'n/a' if e is None else f'{e:.3g}'} J/token "
+              f"(replay rate {hw['replay_rate']:.2e})")
     if args.json_out:
         payload = {"arch": args.arch, "engine": args.engine,
                    "slots": args.slots, "max_len": args.max_len,

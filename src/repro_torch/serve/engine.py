@@ -24,10 +24,12 @@ requests cut short by the step budget or ``max_len`` are reported as
 budget runs out are ``unserved``.
 
 ``ServeEngine(backend=...)`` selects the ``repro_torch.backend`` execution
-target for ALL model GEMMs: ``backend="reference"`` runs every one of them
-through the hand-written ``systolic_mac`` kernel, with per-step
+target for ALL model GEMMs: ``backend="emulated"`` serves every model
+matmul on the fault-injecting voltage-scaled array, with per-step
 per-partition Razor flags (``backend_step_flags``) and the backend's
-lifetime call/MAC/flag summary (``backend_telemetry``) in ``EngineStats``.
+lifetime flag/replay/energy summary (``backend_telemetry``) in
+``EngineStats``; ``backend="reference"`` runs every one of them through the
+hand-written ``systolic_mac`` kernel.
 
 Counterpart of ``repro.serve.engine``.  What differs: the engines run on
 ``device`` (``None`` means the GPU; without one they raise), model steps are
@@ -128,8 +130,8 @@ class EngineStats:
         self.slot_busy_steps: List[int] = list(slot_busy_steps or [])
         self.ttft_s: List[float] = []
         # hardware-in-the-loop emulation telemetry (continuous engine with
-        # a hwloop loop attached; empty/None otherwise): per
-        # decode step the per-partition Razor flags, plus its
+        # a repro_torch.hwloop session attached; empty/None otherwise): per
+        # decode step the per-partition Razor flags, plus the session's
         # final summary (flag rates, rails, recalibrations, energy/token)
         self.hwloop_step_flags: List[List[bool]] = []
         self.hwloop: Optional[Dict[str, Any]] = None
@@ -230,10 +232,11 @@ class ServeEngine:
         self.params = params
         self.slots = slots
         self.max_len = max_len
-        # optional hwloop object (duck-typed; the hwloop package is not
-        # ported yet, so nothing constructs one).  Legacy mode (no emulated backend): each
-        # decode step's emitted tokens drive one probe-traffic accelerator
-        # step.  With an emulated backend it becomes a THIN ADAPTER:
+        # optional repro_torch.hwloop.HwLoopSession (duck-typed to avoid
+        # importing the hwloop package here).  Legacy mode (no emulated
+        # backend): each decode step's emitted tokens drive one
+        # probe-traffic accelerator step.  With an emulated backend the
+        # session becomes a THIN ADAPTER:
         # no probe traffic — the backend's real per-step GEMM flags feed its
         # CalibrationWatchdog, and rail heals land on the serving device.
         self.hwloop = hwloop

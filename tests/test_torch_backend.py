@@ -80,11 +80,12 @@ def test_native_precision_keeps_bf16_and_rounds_once():
 
 
 def test_registry_and_scoping():
-    assert tbackend.available_backends() == ["ideal", "reference"]
-    with pytest.raises(KeyError, match="unknown backend 'emulated'"):
-        tbackend.get_backend("emulated")
-    with pytest.raises(KeyError):
-        tbackend.get_backend("simulated", device="cpu")
+    assert tbackend.available_backends() == ["emulated", "ideal",
+                                             "reference", "simulated"]
+    with pytest.raises(KeyError, match="unknown backend 'nope'"):
+        tbackend.get_backend("nope")
+    for name in ("emulated", "simulated"):
+        assert tbackend.get_backend(name, device="cpu").name == name
     be = tbackend.get_backend("reference", device="cpu")
     assert tbackend.get_backend(be) is be
     with pytest.raises(ValueError):

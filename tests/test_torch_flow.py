@@ -1,6 +1,7 @@
 """The port's ``flow`` against ``repro.flow``: reports, sweeps, config
-validation and the CLI, bit for bit; and the two parts that wait for later
-slices stop with their ROADMAP items."""
+validation, the opt-in ``hwloop`` stage and the CLI, bit for bit; and the
+CLI's ``--points-out``, which waits for a later slice, stops with its
+ROADMAP item."""
 
 import contextlib
 import io
@@ -118,11 +119,19 @@ def test_config_defaults_and_accepted_values_equal():
 
 
 def test_hwloop_stage_is_registered_and_raises_with_its_roadmap_item():
-    stage = tflow.get_stage("hwloop")
+    """The stage is ported (ROADMAP.md A7): inserted after ``power`` it runs
+    on the device its instance names and gives the reference's artifacts."""
+    stage = tflow.STAGE_REGISTRY["hwloop"](device="cpu")
     pipe = tflow.Pipeline().insert_after("power", stage)
     pipe.check()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        pipe.run(tflow.FlowConfig(array_n=8, max_trials=8))
+    kw = dict(array_n=8, max_trials=8, hwloop_steps=3, hwloop_rows=8)
+    art = pipe.run(tflow.FlowConfig(**kw))
+    want = jflow.Pipeline().insert_after(
+        "power", jflow.get_stage("hwloop")).run(jflow.FlowConfig(**kw))
+    assert sorted(art.keys()) == sorted(want.keys())
+    for key in tflow.STAGE_REGISTRY["hwloop"].provides:
+        assert_same(art[key], want[key], key)
+    assert art["hwloop_energy_per_token_j"] > 0
 
 
 def _out(main, argv):

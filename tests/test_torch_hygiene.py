@@ -16,6 +16,9 @@ import repro_torch
 from repro_torch._device import resolve_device
 from repro_torch.backend import get_backend
 from repro_torch.configs import get_config
+from repro_torch.flow import FlowConfig
+from repro_torch.flow import run as flow_run
+from repro_torch.hwloop import HwLoopSession, hwloop_pipeline
 from repro_torch.kernels import _build
 from repro_torch.kernels import precision_island as island_mod
 from repro_torch.kernels import razor_matmul as razor_mod
@@ -99,7 +102,17 @@ def test_no_gpu_no_device_raises_everywhere(monkeypatch):
                   lambda: model_api(get_config("rwkv6-1.6b", smoke=True)),
                   lambda: model_api(get_config("zamba2-2.7b", smoke=True)),
                   lambda: launch_serve.main(["--arch", "rwkv6-1.6b",
-                                             "--smoke"])):
+                                             "--smoke"]),
+                  lambda: get_backend("emulated"),
+                  lambda: get_backend("simulated"),
+                  lambda: HwLoopSession(FlowConfig(array_n=8,
+                                                   max_trials=8)),
+                  lambda: flow_run(FlowConfig(array_n=8, max_trials=8,
+                                              hwloop_steps=1),
+                                   pipeline=hwloop_pipeline()),
+                  lambda: launch_serve.main(["--arch", "phi4-mini-3.8b",
+                                             "--smoke", "--backend",
+                                             "emulated", "--hwloop"])):
         with pytest.raises(RuntimeError, match="GPU|CUDA"):
             entry()
     assert resolve_device("cpu") == torch.device("cpu")

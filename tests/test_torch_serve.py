@@ -336,9 +336,7 @@ def test_launcher_serves_the_ssm_archs_as_the_jax_launcher(
     assert t["backend_telemetry"] == j["backend_telemetry"]
 
 
-@pytest.mark.parametrize("flags", [["--backend", "emulated"],
-                                   ["--backend", "simulated"],
-                                   ["--guard", "abft"], ["--hwloop"],
+@pytest.mark.parametrize("flags", [["--guard", "abft"],
                                    ["--autoscale", "pid"],
                                    ["--serve-http", "127.0.0.1:0"],
                                    ["--trace", "t.ndjson"]])
