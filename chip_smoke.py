@@ -15,7 +15,12 @@ through ``repro_torch.launch.serve`` -> ``ServeEngine`` -> ``ModelAPI`` ->
 paper's emulated voltage-island array (``--backend emulated --hwloop``: the
 ``hwloop`` tiled form, held first against its plain tile loop), the
 Algorithm-2 watchdog healing an undervolted rail on the serving device, and a
-short run on the simulated array.  Then, for rwkv6-1.6b and
+short run on the simulated array; then guarded (``--guard abft`` on
+``reference`` and on the emulated array, the ABFT guard's checksums on the
+``abft_checksums`` kernel; the reference's ``silent_burst`` and
+``watchdog_delay`` chaos scripts) and autoscaled (``--autoscale threshold``
+from a ladder the flow CLI writes on the card) phi4-mini serving.  Then, for
+rwkv6-1.6b and
 zamba2-2.7b at their published width and depth: the same traffic served
 (every rwkv6 layer of every step on the ``wkv6`` kernel), the parallel forward
 against token-by-token decoding, and ``ModelAPI.loss`` on a (2, 2048) batch
@@ -26,8 +31,9 @@ a non-zero exit code.
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
 (``systolic_mac`` at every model's GEMM shapes, ``razor_matmul``,
 ``precision_island``, ``wkv6``, ``ssd_chunk``), ``paper_flow``,
-``precision_islands``, ``hwloop_checks``, ``serve`` (with a ``torch.profiler``
-pass over a short run), ``serve_hwloop``, per state-space model
+``precision_islands``, ``hwloop_checks``, ``abft_checks``, ``serve`` (with a
+``torch.profiler`` pass over a short run), ``serve_hwloop``, ``serve_guard``,
+``autoscale``, per state-space model
 ``serve_ssm``, ``decode_vs_parallel`` and ``loss`` (with a profile by CUDA
 kernel), ``profile_misses`` (profiled measurements left null, with what each
 try saw), ``total`` (the script's seconds),
@@ -41,6 +47,7 @@ and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -56,7 +63,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12,      # tensor cores, f32 accumulate
               "tf32": 495e12,          # tensor cores, f32 accumulate
-              "float32": 67e12}        # outside the tensor cores
+              "float32": 67e12,        # outside the tensor cores
+              "float64": 34e12}        # outside the tensor cores
 #: products a 3xTF32 split takes for one f32 product (ssd_chunk, wkv6)
 TF32_SPLIT_PASSES = 3
 PEAK_INT8_OPS = 1979e12                # tensor cores
@@ -125,6 +133,12 @@ HWLOOP_SHAPES = ((4, 3072, 64), (7, 200, 20), (16, 64, 1024))
 #: order, as a fraction of max|C|; rel_error relative
 TOL_TILED = 1e-12
 TOL_TILED_REL = 1e-9
+#: abft_checksums against its plain version, as a fraction of the sums of
+#: magnitudes: float64 sums of the same terms taken in another order
+TOL_ABFT = 1e-12
+#: new tokens a request in the autoscale phase: 23 decode steps, room for
+#: three descents under the launcher's dwell of 8 steps
+AUTOSCALE_NEW = 24
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -1280,17 +1294,21 @@ def profile_calls(torch, calls, repeats: int = 1):
     return out
 
 
-def profile_serve(torch, serve_mod, params, backend="reference"):
-    """A short run on ``backend`` under ``torch.profiler``: the device time
-    of a model step by kernel, and the share of the run's wall time in which
-    the device ran a kernel.  Tracing slows the host, so the share is a
-    lower bound of an untraced run's.  Where the profiler sees no device
-    time, the numbers are null (not measured)."""
+def profile_serve(torch, serve_mod, params, backend="reference", extra=(),
+                  pick=()):
+    """A short run on ``backend`` (launcher flags ``extra`` added) under
+    ``torch.profiler``: the device time of a model step by kernel, and the
+    share of the run's wall time in which the device ran a kernel.  Tracing
+    slows the host, so the share is a lower bound of an untraced run's.
+    ``pick`` names kernels whose device ms a model step are reported apart
+    (every row whose name holds the string, summed).  Where the profiler
+    sees no device time, the numbers are null (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     args = serve_mod.parse_args(
         ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
-         "--requests", str(SLOTS), "--max-new", "3", "--backend", backend])
+         "--requests", str(SLOTS), "--max-new", "3", "--backend", backend,
+         *extra])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1305,8 +1323,12 @@ def profile_serve(torch, serve_mod, params, backend="reference"):
     steps = run.stats.model_steps
     if device_ms <= 0:
         return {"model_steps": steps, "device_ms_per_model_step": None,
-                "device_busy_share_traced": None, "top_kernels": None}
+                "device_busy_share_traced": None, "top_kernels": None,
+                **({"picked_ms_per_model_step": None} if pick else {})}
+    picked = {p: sum(ms for k, ms, _ in rows if p in k) / steps
+              for p in pick}
     return {"model_steps": steps, "traced_wall_ms": 1e3 * run.wall_s,
+            **({"picked_ms_per_model_step": picked} if pick else {}),
             "device_ms_per_model_step": device_ms / steps,
             "device_busy_share_traced": device_ms / (1e3 * run.wall_s),
             "kernels_per_model_step": sum(n for _, _, n in rows) / steps,
@@ -1703,6 +1725,11 @@ def serve_hwloop(torch, cfg, mods, params, ref, counters, tiled):
                 "requests_parting": parted, "worst_gap_at_parting": gap,
                 "tie_limit": 2 * TOL_LOGITS}}
 
+    # the serve_guard phase holds its guarded run against this one
+    ref.emulated_requests = run.requests
+    ref.emulated_step_ms = main["model_step_ms"]
+    ref.emulated_host_ms_per_gemm = main["host_ms_per_gemm"]
+
     # ---- where an emulated step's time goes: a short profiled run
     main["profile"] = profile_serve(torch, serve_mod, params, "emulated")
 
@@ -1779,6 +1806,602 @@ def serve_hwloop(torch, cfg, mods, params, ref, counters, tiled):
             "slots": SLOTS, "max_len": MAX_LEN, "requests": REQUESTS,
             "gemms_per_model_step": per_step, "emulated": main,
             "thin_adapter_undervolt": adapter, "simulated": simulated}
+
+
+# ---------------------------------------------------------------------------
+# The ABFT guard (resilience/) and the rail autoscaler (railscale/)
+# ---------------------------------------------------------------------------
+
+
+def abft_bound_ms(k, n, elem, r, nu):
+    """Least time for one abft_checksums call on a (K, N) operand with ``r``
+    columns of v and ``nu`` rows of u: b read once, the float64 vectors read
+    once and the outputs written once, against 2 K N flops a vector (the
+    ``r`` of v, the |b| row sums, the ``nu``) at the float64 peak."""
+    nbytes = elem * k * n + 8 * (n * r + k * nu) + 8 * (k * (r + 1) + nu * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * k * n * (r + 1 + nu) / PEAK_FLOPS["float64"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def abft_vectors(torch, gen, a, n, r):
+    """The guard's arguments for an (M, K) ``a`` and an N-wide product: the
+    abft mode's (ones; a's column sums and, against |b|, |a|'s) for
+    ``r == 0``, else ``r`` Freivalds probes and no u."""
+    dev = a.device
+    a64 = a.to(torch.float64)
+    if r == 0:
+        return (torch.ones((n, 1), dtype=torch.float64, device=dev),
+                torch.stack([a64.sum(dim=0), a64.abs().sum(dim=0)]), 1)
+    probes = torch.randint(0, 2, (n, r), generator=gen, device=dev)
+    return (probes.to(torch.float64) * 2 - 1, a64[:0], 0)
+
+
+def abft_case(torch, abft, plain, b, args, what):
+    """One call of the kernel against its plain version, and a repeated
+    call: the largest error as a fraction of the sums of magnitudes (the
+    float64 sums are taken in another order), bit-equal on repeat."""
+    got = abft(b, *args)
+    again = abft(b, *args)
+    torch.cuda.synchronize()
+    want = plain(b, *args)
+    babs = b.to(torch.float64).abs()
+    scales = [babs.sum(dim=1, keepdim=True), args[1].abs() @ babs]
+    err = 0.0
+    for g, w, s in zip(got, want, scales):
+        if g.shape != w.shape:
+            fail(f"abft_checksums {what}: shape {tuple(g.shape)}, expected "
+                 f"{tuple(w.shape)}")
+        if g.numel():
+            e = float(((g - w).abs() / s.clamp_min(1e-300)).max())
+            if not math.isfinite(e):
+                fail(f"abft_checksums {what}: non-finite error")
+            err = max(err, e)
+    if err > TOL_ABFT:
+        fail(f"abft_checksums {what}: error {err} of the magnitude sums "
+             f"over the limit {TOL_ABFT}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"abft_checksums {what}: a repeated call gave other bits")
+    return err
+
+
+def check_abft(torch, cfg, abft_mod, GuardedBackend, get_backend):
+    """abft_checksums against its plain version: at phi4-mini's weights as
+    the model holds them (bf16, the logits a transposed view) for a decode
+    step's rows (M 4) and a prefill chunk's (M 256), the abft mode's vectors
+    and two Freivalds probes; f32, float64, ragged and strided operands; five
+    probes (two launches).  Then the guard's verdicts on seeded corrupted
+    products, on the card against the CPU's plain route; and the times of
+    the call the guard makes at each weight."""
+    abft, plain = abft_mod.abft_checksums, abft_mod.abft_checksums_plain
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    rows = []
+    gemms = dense_gemms(cfg)
+    for name, (k, n, per_step, transposed, dname) in gemms.items():
+        b = model_weight(torch, gen, k, n, torch.bfloat16, transposed)
+        for m, r in ((DECODE_M, 0), (CHUNK_M, 0), (DECODE_M, 2)):
+            a = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            err = abft_case(torch, abft, plain, b,
+                            abft_vectors(torch, gen, a, n, r),
+                            f"{name} M={m} r={r}")
+            rows.append({"weight": name, "K": k, "N": n, "M": m,
+                         "dtype": "bfloat16", "b_transposed_view": transposed,
+                         "mode": "abft" if r == 0 else f"freivalds r={r}",
+                         "max_err": err, "max_err_limit": TOL_ABFT,
+                         "repeat_bit_equal": True})
+        del b
+    others = (("f32", 3072, 1024, torch.float32, False, 0),
+              ("f32 transposed", 1000, 4096, torch.float32, True, 0),
+              ("ragged bf16", 1000, 333, torch.bfloat16, False, 0),
+              ("ragged f32 transposed, 4 probes", 77, 1001, torch.float32,
+               True, 4),
+              ("float64", 5, 3, torch.float64, False, 0),
+              ("bf16, 5 probes (two launches)", 3072, 3072, torch.bfloat16,
+               False, 5))
+    for what, k, n, dtype, transposed, r in others:
+        b = model_weight(torch, gen, k, n, dtype, transposed)
+        a = torch.randn((DECODE_M, k), generator=gen, device=dev).to(dtype)
+        err = abft_case(torch, abft, plain, b,
+                        abft_vectors(torch, gen, a, n, r), what)
+        rows.append({"weight": what, "K": k, "N": n, "M": DECODE_M,
+                     "dtype": str(dtype).split(".")[1],
+                     "b_transposed_view": transposed, "probes": r,
+                     "max_err": err, "max_err_limit": TOL_ABFT})
+    # a strided view (every other column of a wider table)
+    wide = torch.randn((1024, 2 * 777), generator=gen, device=dev).to(
+        torch.bfloat16)
+    b = wide[:, ::2]
+    a = torch.randn((DECODE_M, 1024), generator=gen, device=dev).to(
+        torch.bfloat16)
+    err = abft_case(torch, abft, plain, b, abft_vectors(torch, gen, a, 777, 0),
+                    "strided view")
+    rows.append({"weight": "strided view (1024, 777) of (1024, 1554)",
+                 "K": 1024, "N": 777, "dtype": "bfloat16", "max_err": err,
+                 "max_err_limit": TOL_ABFT})
+
+    verdicts = abft_verdicts(torch, gen, GuardedBackend, get_backend)
+
+    # the guard's call at each weight (abft mode, M = 4), timed
+    timed = []
+    for name, (k, n, per_step, transposed, dname) in gemms.items():
+        copies = max(1, math.ceil(120e6 / (2 * k * n)))
+        bs = [model_weight(torch, gen, k, n, torch.bfloat16, transposed)
+              for _ in range(copies)]
+        a = torch.randn((DECODE_M, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        vecs = abft_vectors(torch, gen, a, n, 0)
+        iters = 4 if transposed else 24
+
+        def kernel(i):
+            return abft(bs[i], *vecs)
+
+        def library(i):
+            return torch.mv(bs[i].to(torch.float64), vecs[0][:, 0])
+
+
+        t_bound, by = abft_bound_ms(k, n, 2, 1, 2)
+        row = {"weight": name, "K": k, "N": n, "M": DECODE_M,
+               "b_transposed_view": transposed,
+               "launches_per_model_step": per_step,
+               "plan": dataclasses.asdict(abft_mod.launch_plan(
+                   *((n, k) if transposed else (k, n)))),
+               "kernel_ms": time_ms(kernel, copies, iters),
+               "device_ms": device_ms(kernel, copies, iters),
+               "plain_ms": time_ms(lambda i: plain(bs[i], *vecs), copies,
+                                   max(2, iters // 4)),
+               "library_ms": time_ms(library, copies, iters),
+               "library": "torch.mv on a float64 copy of b (the copy "
+                          "included): one of the four vectors",
+               "bound_ms": t_bound, "bound_by": by}
+        if name == "w1/wg":
+            row["host_us_per_call"] = host_us_per_call(
+                torch, lambda: abft(bs[0], *vecs), 200, 5)
+        timed.append(row)
+        del bs
+    torch.cuda.empty_cache()
+    return rows, verdicts, timed
+
+
+#: (what, [(row, col, delta as a fraction of max|C|)]): one corrupted
+#: element (located and corrected), two in other rows and columns, two in
+#: one column, a whole row
+CORRUPTIONS = (
+    ("one element", [(1, 7, 0.5)]),
+    ("two elements", [(0, 3, 0.5), (2, 11, -0.25)]),
+    ("two in one column", [(0, 5, 0.5), (3, 5, 0.5)]),
+    ("a whole row", [(2, j, 0.01 * (j + 1)) for j in range(64)]))
+
+
+def abft_verdicts(torch, gen, GuardedBackend, get_backend):
+    """The guard's verification of seeded corrupted products on the card
+    (the kernel route) against the CPU's (the plain route), at three phi4
+    weight shapes: the same bad rows and columns, the same first ones, and
+    the same corrected element."""
+    dev = torch.device(DEVICE)
+    out = []
+    for k, n, transposed in ((3072, 3072, False), (8192, 3072, False),
+                             (3072, 8192, True)):
+        a = torch.randn((DECODE_M, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        b = model_weight(torch, gen, k, n, torch.bfloat16, transposed)
+        clean = a.to(torch.float64) @ b.to(torch.float64)
+        scale = float(clean.abs().max())
+        a_cpu, b_cpu = a.cpu(), b.cpu()
+        guards = {"cuda": GuardedBackend(get_backend("ideal")),
+                  "cpu": GuardedBackend(get_backend("ideal", device="cpu"))}
+        checks = {"cuda": guards["cuda"]._checks(a, b),
+                  "cpu": guards["cpu"]._checks(a_cpu, b_cpu)}
+        for what, hits in (("clean", []),) + CORRUPTIONS:
+            seen = {}
+            for where, guard in guards.items():
+                prod = (clean if where == "cuda" else clean.cpu()).clone()
+                for i, j, f in hits:
+                    prod[i, j] += f * scale
+                bb = b if where == "cuda" else b_cpu
+                v = guard._verify(checks[where], bb, prod)
+                fixed = guard._try_correct(prod, v)
+                seen[where] = (v, None if fixed is None
+                               else float(fixed[v.row, v.col]))
+            (vg, fg), (vc, fc) = seen["cuda"], seen["cpu"]
+            key = lambda v: (v.ok, v.bad_rows, v.bad_cols, v.row, v.col)  # noqa: E731
+            if key(vg) != key(vc) or (fg is None) != (fc is None):
+                fail(f"abft verdict {what} at ({k}, {n}): card {key(vg)} "
+                     f"corrected={fg is not None}, CPU {key(vc)} "
+                     f"corrected={fc is not None}")
+            corr_err = None
+            if fg is not None:
+                want = float(clean[vg.row, vg.col])
+                corr_err = max(abs(fg - want), abs(fc - want))
+                if corr_err > TOL_ABFT * float(
+                        a.to(torch.float64).abs().sum() * b.to(
+                            torch.float64).abs().max()):
+                    fail(f"abft verdict {what}: corrected element {fg} / {fc}"
+                         f", clean {want}")
+            expect_ok = not hits
+            if vg.ok != expect_ok or (what == "one element") != (
+                    fg is not None):
+                fail(f"abft verdict {what} at ({k}, {n}): ok={vg.ok}, "
+                     f"corrected={fg is not None}")
+            out.append({"K": k, "N": n, "b_transposed_view": transposed,
+                        "corruption": what, "ok": vg.ok,
+                        "bad_rows": vg.bad_rows, "bad_cols": vg.bad_cols,
+                        "first_bad": [vg.row, vg.col],
+                        "corrected": fg is not None,
+                        "corrected_abs_err": corr_err,
+                        "equal_to_cpu_plain_route": True})
+    return out
+
+
+def guard_stats(run):
+    """The guarded backend's telemetry of a launcher run, and its host ms a
+    GEMM (``backend_callback_seconds``)."""
+    be = run.engine.backend
+    _, cb_s, cb_n = run.engine.obs.registry.histogram(
+        "backend_callback_seconds", labels=("backend",)).snapshot(
+            backend=be.name)
+    return run.stats.backend_telemetry, 1e3 * cb_s / cb_n
+
+
+def chaos_prompts(n, seed):
+    """``repro.resilience.chaos``'s prompts."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(3, 64, size=int(rng.integers(2, 5))).tolist()
+            for _ in range(n)]
+
+
+def chaos_run(torch, cfg, params, mods, scenario, bursts):
+    """The reference's chaos script at full width: a guarded emulated
+    engine (``bitflip`` at nominal rails for ``silent_burst``; the
+    calibrated rails of a patience-5 hwloop session for
+    ``watchdog_delay``), three requests of four tokens on two slots, every
+    rail collapsed to ``V_CRASH`` before each decode step in ``bursts``."""
+    import numpy as np
+    from repro_torch.backend import EmulatedBackend
+    from repro_torch.flow import FlowConfig
+    from repro_torch.hwloop import HwLoopSession
+    from repro_torch.obs import ObsBus
+    from repro_torch.resilience import GuardedBackend, V_CRASH
+    from repro_torch.serve import Request
+    session = None
+    kw = {}
+    if scenario == "silent_burst":
+        inner = EmulatedBackend.nominal(corruption="bitflip")
+        prompts = chaos_prompts(3, 0)
+    else:
+        session = HwLoopSession(FlowConfig(array_n=8, tech="vtr-22nm",
+                                           max_trials=8, seed=2021),
+                                probe_rows=8, rail_margin=0.02, patience=5)
+        inner = EmulatedBackend(session.accel)
+        kw["hwloop"] = session
+        prompts = chaos_prompts(3, 1)
+    guard = GuardedBackend(inner, mode="abft", policy="fail_closed")
+    eng = mods.ServeEngine(cfg, params, slots=2, max_len=32, backend=guard,
+                           obs=ObsBus(recorder_capacity=128), **kw)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=4)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    accel = guard.accel
+    after, recal_at = [], []
+    step = 0
+    t0 = time.monotonic()
+    while not eng.scheduler.drained():
+        if step in bursts:
+            accel.set_rails(np.full(accel.n_partitions, V_CRASH))
+        before = session.recalibrations if session is not None else 0
+        eng.step()
+        if step in bursts:
+            after.append(float(np.min(accel.rails)))
+            if session is not None:
+                recal_at.append(session.recalibrations - before)
+        step += 1
+    stats = eng.run_until_drained()
+    wall = time.monotonic() - t0
+    return types.SimpleNamespace(
+        engine=eng, guard=guard, requests=reqs, stats=stats,
+        rails_after_bursts=after, recal_in_burst_steps=recal_at,
+        session=session, wall_s=wall, v_crash=V_CRASH)
+
+
+def serve_guard(torch, cfg, mods, params, ref, counters, abft):
+    """phi4-mini-3.8b at full width through the launcher with ``--guard
+    abft``: (a) on ``reference`` (every GEMM on B1, every verification's
+    operand checksums on abft_checksums): no detection, tokens bit-equal to
+    the unguarded run of the ``serve`` phase; (b) on the emulated array at
+    the calibrated rails (``--hwloop --guard-policy fail_closed``): no
+    detection, no flag, tokens equal to ``serve_hwloop``'s; (c) the
+    reference's ``silent_burst`` script; (d) its ``watchdog_delay``
+    script."""
+    serve_mod = mods.serve
+    per_step = 7 * cfg.n_layers + 1
+    argv = ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--requests", str(REQUESTS), "--max-new", str(MAX_NEW), "--mixed",
+            "--seed", str(SEED)]
+    api = mods.model_api(cfg)
+    ratios = {}
+
+    # ---- warm-up, uncounted
+    serve_mod.run(serve_mod.parse_args(
+        ["--arch", ARCH, "--slots", "2", "--max-len", str(MAX_LEN),
+         "--requests", "2", "--max-new", "2", "--backend", "reference",
+         "--guard", "abft"]), params)
+    torch.cuda.synchronize()
+
+    # ---- (a) the main path: counts set to 0 just before, read just after
+    counters.zero()
+    abft.launches = 0
+    run = serve_mod.run(serve_mod.parse_args(
+        argv + ["--backend", "reference", "--guard", "abft"]), params)
+    torch.cuda.synchronize()
+    launches = dict(counters.read(), abft_checksums=abft.launches)
+    stats = run.stats
+    tel, host_ms = guard_stats(run)
+    steps = stats.model_steps
+    if stats.completed != REQUESTS or stats.truncated or stats.unserved:
+        fail(f"serve_guard reference: {stats.completed} of {REQUESTS} "
+             f"completed")
+    if tel["guard_detected"] or tel["guard_uncorrected"] or tel["flags"]:
+        fail(f"serve_guard reference: {tel['guard_detected']} detections, "
+             f"{tel['guard_uncorrected']} uncorrected, {tel['flags']} flags "
+             f"on clean B1 products")
+    if not (tel["guard_checks"] == tel["calls"] == per_step * steps
+            == launches["systolic_mac"] == launches["abft_checksums"]):
+        fail(f"serve_guard reference: {tel['guard_checks']} checks, "
+             f"{tel['calls']} GEMMs, {launches} launches, expected "
+             f"{per_step} x {steps}")
+    if [r.out_tokens for r in run.requests] != [
+            r.out_tokens for r in ref.requests]:
+        fail("serve_guard reference: tokens differ from the unguarded run")
+    ratios["reference"] = run.engine.backend.max_clean_ratio
+    _, ref_cb_s, ref_cb_n = ref.engine.obs.registry.histogram(
+        "backend_callback_seconds", labels=("backend",)).snapshot(
+            backend="reference")
+    profile = profile_serve(torch, serve_mod, params, "reference",
+                            extra=["--guard", "abft"],
+                            pick=("abft_strip", "abft_reduce"))
+    guarded_ref = {
+        "backend": "guarded[reference]", "completed": stats.completed,
+        "model_steps": steps, "decode_steps": stats.decode_steps,
+        "gemm_calls": tel["calls"], "guard_checks": tel["guard_checks"],
+        "guard_detected": tel["guard_detected"],
+        "kernel_launches": launches,
+        "tokens_bit_equal_to_unguarded": True,
+        "model_step_ms": 1e3 * run.wall_s / steps,
+        "unguarded_model_step_ms": ref.model_step_ms,
+        "host_ms_per_gemm": host_ms,
+        "unguarded_host_ms_per_gemm": 1e3 * ref_cb_s / ref_cb_n,
+        "max_clean_ratio": ratios["reference"],
+        "profile": profile}
+
+    # ---- (b) the emulated array at the calibrated rails, fail_closed
+    counters.zero()
+    abft.launches = 0
+    emu = serve_mod.run(serve_mod.parse_args(
+        argv + ["--backend", "emulated", "--hwloop", "--guard", "abft",
+                "--guard-policy", "fail_closed"]), params)
+    torch.cuda.synchronize()
+    e_launches = dict(counters.read(), abft_checksums=abft.launches)
+    e_tel, e_host_ms = guard_stats(emu)
+    if e_tel["guard_detected"] or e_tel["flags"] or e_tel["silent"]:
+        fail(f"serve_guard emulated: {e_tel['guard_detected']} detections, "
+             f"{e_tel['flags']} flags, {e_tel['silent']} silent at the "
+             f"calibrated rails")
+    if e_launches["abft_checksums"] != e_tel["calls"]:
+        fail(f"serve_guard emulated: {e_launches} launches for "
+             f"{e_tel['calls']} GEMMs")
+    if [r.out_tokens for r in emu.requests] != [
+            r.out_tokens for r in ref.emulated_requests]:
+        fail("serve_guard emulated: tokens differ from serve_hwloop's "
+             "unguarded emulated run")
+    ratios["emulated"] = emu.engine.backend.max_clean_ratio
+    guarded_emu = {
+        "backend": "guarded[emulated]", "hwloop": True,
+        "policy": "fail_closed", "completed": emu.stats.completed,
+        "model_steps": emu.stats.model_steps, "gemm_calls": e_tel["calls"],
+        "guard_checks": e_tel["guard_checks"],
+        "guard_detected": e_tel["guard_detected"], "flags": e_tel["flags"],
+        "kernel_launches": e_launches,
+        "tokens_equal_to_serve_hwloop": True,
+        "model_step_ms": 1e3 * emu.wall_s / emu.stats.model_steps,
+        "unguarded_model_step_ms": ref.emulated_step_ms,
+        "host_ms_per_gemm": e_host_ms,
+        "unguarded_host_ms_per_gemm": ref.emulated_host_ms_per_gemm,
+        "energy_per_token_j": e_tel["energy_per_token_j"],
+        "max_clean_ratio": ratios["emulated"]}
+
+    # ---- (c), (d): the chaos scripts, each beside its burst-free run
+    def logits_of(backend):
+        return lambda req, fed: logits_alone(
+            torch, api, params, req.prompt, fed, backend, mods.use_backend,
+            mods.get_backend, mods.ShapeConfig)
+
+    scripts = {}
+    for scenario, bursts in (("silent_burst", (1, 4)),
+                             ("watchdog_delay", (2,))):
+        clean = chaos_run(torch, cfg, params, mods, scenario, ())
+        hit = chaos_run(torch, cfg, params, mods, scenario, bursts)
+        t = hit.guard.total
+        if (t.guard_detected < 1 or t.guard_heals < 1
+                or t.guard_uncorrected):
+            fail(f"serve_guard {scenario}: detected {t.guard_detected}, "
+                 f"heals {t.guard_heals}, uncorrected {t.guard_uncorrected}")
+        if not hit.stats.guard_step_events:
+            fail(f"serve_guard {scenario}: no decode-step guard events")
+        if not all(v > hit.v_crash for v in hit.rails_after_bursts):
+            fail(f"serve_guard {scenario}: rails after the bursts "
+                 f"{hit.rails_after_bursts}")
+        if any(r.status != "completed" for r in hit.requests):
+            fail(f"serve_guard {scenario}: {[r.status for r in hit.requests]}")
+        if clean.guard.total.guard_detected:
+            fail(f"serve_guard {scenario}: detections without a burst")
+        parted, gap = tokens_up_to_ties(
+            torch, hit.requests, clean.requests, logits_of("ideal"),
+            f"serve_guard {scenario} against its burst-free run")
+        row = {"bursts_before_steps": list(bursts),
+               "requests": len(hit.requests), "slots": 2, "max_new": 4,
+               "completed": hit.stats.completed,
+               "guard_checks": t.guard_checks,
+               "guard_detected": t.guard_detected,
+               "guard_corrected": t.guard_corrected,
+               "guard_retries": t.guard_retries,
+               "guard_heals": t.guard_heals,
+               "guard_uncorrected": t.guard_uncorrected,
+               "guard_step_events": hit.stats.guard_step_events,
+               "silent_macs": t.silent,
+               "rails_min_after_bursts": hit.rails_after_bursts,
+               "v_crash": hit.v_crash,
+               "streams_exact": len(hit.requests) - parted,
+               "worst_gap_at_parting": gap,
+               "wall_s": hit.wall_s, "burst_free_wall_s": clean.wall_s}
+        if scenario == "watchdog_delay":
+            row["recalibrations"] = hit.session.recalibrations
+            row["recalibrations_in_burst_steps"] = hit.recal_in_burst_steps
+            if hit.session.recalibrations < 1 or not all(
+                    hit.recal_in_burst_steps):
+                fail(f"serve_guard watchdog_delay: recalibrations "
+                     f"{hit.session.recalibrations}, in the burst steps "
+                     f"{hit.recal_in_burst_steps}")
+        ratios[scenario] = max(hit.guard.max_clean_ratio,
+                               clean.guard.max_clean_ratio)
+        scripts[scenario] = row
+    return launches, {
+        "arch": ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "reference": guarded_ref, "emulated": guarded_emu, **scripts,
+        "max_clean_residual_over_tolerance": max(ratios.values()),
+        "max_clean_ratio_by_run": ratios, "tol": 1e-6}
+
+
+def autoscale(torch, cfg, mods, params, tflow):
+    """The closed loop at full width: the ladder written on the card by the
+    flow CLI (``--points-out``, in-process) and held byte for byte against
+    the CPU's characterization; then phi4-mini served through the launcher
+    on the emulated array with ``--autoscale threshold`` from that file,
+    beside ``--autoscale static`` (tokens bit-equal) and the same loop on a
+    ladder of level 0 alone (rails held at nominal: J/token above)."""
+    import numpy as np
+    from repro_torch import railscale
+    from repro_torch.flow.__main__ import main as flow_main
+    serve_mod = mods.serve
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    card, cpu = out_dir / "points_card.json", out_dir / "points_cpu.json"
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = flow_main(["run", "--array-n", "8", "--tech", "vtr-22nm",
+                        "--max-trials", "8", "--seed", "2021",
+                        "--points-out", str(card)])
+    cli_s = time.monotonic() - t0
+    if rc != 0:
+        fail(f"autoscale: flow --points-out exited {rc}")
+    fcfg = tflow.FlowConfig(array_n=8, tech="vtr-22nm", max_trials=8,
+                            seed=2021, algo="dbscan")
+    report = tflow.run(fcfg)
+    railscale.save_tables(str(cpu), [railscale.OperatingPointTable
+                                     .characterize(report, fcfg,
+                                                   seed=fcfg.seed,
+                                                   device="cpu")])
+    if card.read_bytes() != cpu.read_bytes():
+        fail("autoscale: the ladder written on the card differs from the "
+             "CPU's")
+    table = railscale.OperatingPointTable.load(str(card))
+    level0 = out_dir / "points_level0.json"
+    railscale.save_tables(str(level0), [railscale.OperatingPointTable(
+        [table[0]], meta=table.meta)])
+
+    # per decode step: the level in force and the ledger's energy and
+    # tokens, read where the engine ticks the autoscaler
+    record = []
+    tick = railscale.Autoscaler.on_decode_step
+
+    def recording_tick(self):
+        eng = self._engine
+        record.append((self.level, eng.backend.accel.ledger.total_j,
+                       eng.stats.tokens_generated))
+        tick(self)
+
+    argv = ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--requests", str(SLOTS), "--max-new", str(AUTOSCALE_NEW),
+            "--seed", str(SEED), "--backend", "emulated",
+            "--autoscale-every", "1"]
+    trace = out_dir / "autoscale_trace.ndjson"
+    runs = {}
+    railscale.Autoscaler.on_decode_step = recording_tick
+    try:
+        for what, extra in (
+                ("threshold", ["--autoscale", "threshold",
+                               "--autoscale-points", str(card),
+                               "--trace-out", str(trace)]),
+                ("static", ["--autoscale", "static"]),
+                ("level 0 held", ["--autoscale", "threshold",
+                                  "--autoscale-points", str(level0)])):
+            record.clear()
+            with contextlib.redirect_stdout(sys.stderr):
+                run = serve_mod.run(serve_mod.parse_args(argv + extra),
+                                    params)
+                if "--trace-out" in extra:
+                    run.engine.obs.close_trace()
+            torch.cuda.synchronize()
+            runs[what] = (run, list(record))
+    finally:
+        railscale.Autoscaler.on_decode_step = tick
+    run, rec = runs["threshold"]
+    stats, tel, rs = run.stats, run.stats.backend_telemetry, \
+        run.stats.railscale
+    decisions = sum(1 for line in trace.read_text().splitlines()
+                    if json.loads(line).get("name") == "railscale_decision")
+    if rs["level"] <= 0 or rs["transitions"]["down"] < 2:
+        fail(f"autoscale: level {rs['level']}, transitions "
+             f"{rs['transitions']}")
+    if decisions != rs["decisions"]:
+        fail(f"autoscale: {decisions} railscale_decision events for "
+             f"{rs['decisions']} decisions")
+    if tel["flags"] or tel["silent"] or any(
+            any(f) for f in stats.backend_step_flags):
+        fail(f"autoscale: {tel['flags']} flags, {tel['silent']} silent on "
+             f"the ladder")
+    static, held = runs["static"][0], runs["level 0 held"][0]
+    if [r.out_tokens for r in run.requests] != [
+            r.out_tokens for r in static.requests]:
+        fail("autoscale: tokens differ from the --autoscale static run")
+    e_auto = tel["energy_per_token_j"]
+    e_held = held.stats.backend_telemetry["energy_per_token_j"]
+    if not e_auto < e_held:
+        fail(f"autoscale: {e_auto} J/token against {e_held} with the rails "
+             f"held at level 0")
+    by_level = {}
+    for (lv, e0, n0), (_, e1, n1) in zip(rec, rec[1:] + [
+            (None, run.engine.backend.accel.ledger.total_j,
+             stats.tokens_generated)]):
+        acc = by_level.setdefault(lv, [0.0, 0])
+        acc[0] += e1 - e0
+        acc[1] += n1 - n0
+    return {"arch": ARCH, "slots": SLOTS, "requests": SLOTS,
+            "max_new": AUTOSCALE_NEW, "decide_every": 1,
+            "ladder": table.to_dict(), "ladder_cli_seconds_on_card": cli_s,
+            "ladder_bytes_equal_to_cpu": True,
+            "policy": rs["policy"], "level": rs["level"],
+            "levels": rs["levels"], "decisions": rs["decisions"],
+            "decision_events": decisions,
+            "transitions": rs["transitions"],
+            "heal_preemptions": rs["heal_preemptions"],
+            "rails_v": rs["rails_v"], "flags": tel["flags"],
+            "decode_steps": stats.decode_steps,
+            "tokens_bit_equal_to_static": True,
+            "energy_per_token_j": e_auto,
+            "static_energy_per_token_j":
+                static.stats.backend_telemetry["energy_per_token_j"],
+            "level0_held_energy_per_token_j": e_held,
+            "served_j_per_token_by_level": {
+                str(lv): (e / n if n else None)
+                for lv, (e, n) in sorted(by_level.items())},
+            "model_step_ms": 1e3 * run.wall_s / stats.model_steps,
+            "static_model_step_ms":
+                1e3 * static.wall_s / static.stats.model_steps}
 
 
 # ---------------------------------------------------------------------------
@@ -2540,6 +3163,7 @@ def main() -> int:
     from repro_torch import backend as backend_mod
     from repro_torch.kernels.systolic_mac import (systolic_mac,
                                                   systolic_mac_plain)
+    from repro_torch.kernels import abft as abft_mod
     from repro_torch.kernels.tuning import select_blocks
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
     from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
@@ -2552,6 +3176,7 @@ def main() -> int:
     from repro_torch import hwloop as thw
     from repro_torch.backend import SimulatedBackend
     from repro_torch.hwloop import tiled
+    from repro_torch.resilience import GuardedBackend
     import numpy as np
 
     smi = subprocess.run(
@@ -2641,6 +3266,11 @@ def main() -> int:
     emit("hwloop_checks", hwloop_checks(torch, np, tflow, thw,
                                         SimulatedBackend, tiled))
 
+    abft_rows, abft_verdict_rows, abft_timed = check_abft(
+        torch, cfg, abft_mod, GuardedBackend, get_backend)
+    emit("abft_checks", {"checks": abft_rows, "verdicts": abft_verdict_rows,
+                         "timed": abft_timed})
+
     launches, params, ref_run, served = serve(
         torch, cfg, serve_mod, model_api, param_count, use_backend,
         get_backend, systolic_mac)
@@ -2655,10 +3285,17 @@ def main() -> int:
         model_api=model_api, ShapeConfig=ShapeConfig, param_count=param_count,
         ServeEngine=ServeEngine)
     ref = types.SimpleNamespace(requests=ref_run.requests,
+                                engine=ref_run.engine,
                                 model_step_ms=served["model_step_ms"],
                                 peak_gb=served["peak_device_memory_gb"])
     emit("serve_hwloop", serve_hwloop(torch, cfg, mods, params, ref,
                                       counters, tiled))
+    guard_launches, guarded = serve_guard(torch, cfg, mods, params, ref,
+                                          counters, abft_mod.abft_checksums)
+    emit("serve_guard", guarded)
+    if guard_launches["abft_checksums"] <= 0:
+        fail("the guarded path launched abft_checksums no time")
+    emit("autoscale", autoscale(torch, cfg, mods, params, tflow))
     del params, ref_run, ref
     torch.cuda.empty_cache()
 
@@ -2784,6 +3421,34 @@ def main() -> int:
                              "by torch.profiler (ms above: back to back by "
                              "CUDA events)")
     kernels.append(entry)
+    step_sum = lambda key: sum(  # noqa: E731
+        r[key] * r["launches_per_model_step"] for r in abft_timed)
+    dev_rows = [r["device_ms"] for r in abft_timed]
+    kernels.append({
+        "name": "abft_checksums", "route": "cuda",
+        "source": "src/repro_torch/csrc/abft_checksums.cu",
+        "replaces": "src/repro/resilience/guard.py:146 (numpy; a kernel of "
+                    "the port, not a TPU kernel)",
+        "launches": guard_launches["abft_checksums"],
+        "launches_of": "serve_guard (a): --backend reference --guard abft",
+        "max_abs_err": max(r["max_err"] for r in abft_rows),
+        "max_err_of": "as a fraction of the sums of magnitudes",
+        "max_err_limit": TOL_ABFT,
+        "timed": f"the {sum(r['launches_per_model_step'] for r in abft_timed)}"
+                 f" calls of one guarded decode step (abft mode, M="
+                 f"{DECODE_M}, bf16, each weight cold in L2)",
+        "ms": step_sum("kernel_ms"), "plain_ms": step_sum("plain_ms"),
+        "bound_ms": step_sum("bound_ms"),
+        "bound_by": max(set(r["bound_by"] for r in abft_timed),
+                        key=lambda by: sum(r["bound_ms"] for r in abft_timed
+                                           if r["bound_by"] == by)),
+        "library_ms": step_sum("library_ms"),
+        "library": abft_timed[0]["library"],
+        "device_ms": (None if None in dev_rows else sum(
+            r["device_ms"] * r["launches_per_model_step"]
+            for r in abft_timed)),
+        "host_us_per_call": next(r["host_us_per_call"] for r in abft_timed
+                                 if "host_us_per_call" in r)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

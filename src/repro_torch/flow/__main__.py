@@ -9,9 +9,12 @@ power); ``sweep`` fans a grid through the shared-cache pipeline and prints
 the tidy comparison table plus cache statistics.  ``--config file.json``
 loads a serialized ``FlowConfig`` (CLI flags override it).
 
-``--points-out`` (and its ``--points-levels``/``--points-probe-steps``) is
-accepted as in ``repro.flow`` but stops with the ROADMAP item: the railscale
-operating-point tables it writes are not ported yet (ROADMAP.md A10).
+``--points-out FILE`` (with ``--points-levels`` / ``--points-probe-steps``)
+distills each report into a railscale operating-point ladder and writes the
+JSON file, as ``repro.flow`` does, byte for byte.  Its probe matmuls run on
+``--device`` (default: the GPU; without one the CLI stops): the one flag
+here that reads a device.  Without ``--points-out`` the CLI runs on the host
+only.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 
 from . import FlowConfig, run, sweep
 from .config import KNOWN_ALGOS
+from .._device import resolve_device
 from ..core.timing import TECH_NODES
 
 
@@ -51,6 +55,9 @@ def _add_config_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--points-probe-steps", type=int, default=6,
                     help="probe matmuls per rung when characterizing "
                          "energy/flag rates (default 6)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="where --points-out runs its probe matmuls "
+                         "(default: the GPU)")
 
 
 def _base_config(args: argparse.Namespace,
@@ -89,7 +96,26 @@ def _cmd_run(args: argparse.Namespace) -> int:
           f"runtime {rep.runtime_mw:.1f} mW ({rep.runtime_reduction_pct:.2f}%)")
     if args.emit_xdc:
         print(rep.xdc)
+    if args.points_out:
+        _write_points(args, [(cfg, rep)])
     return 0
+
+
+def _write_points(args: argparse.Namespace, runs) -> None:
+    """Distill (config, report) pairs into serialized operating-point
+    ladders — the ``repro_torch.railscale`` policies load these instead of
+    rerunning the CAD flow."""
+    from ..railscale import OperatingPointTable, save_tables
+
+    tables = [OperatingPointTable.characterize(
+        rep, cfg, n_levels=args.points_levels,
+        probe_steps=args.points_probe_steps, seed=cfg.seed,
+        device=args.device)
+        for cfg, rep in runs]
+    save_tables(args.points_out, tables)
+    print(f"# wrote {len(tables)} operating-point table"
+          f"{'s' if len(tables) != 1 else ''} "
+          f"({args.points_levels} levels each) -> {args.points_out}")
 
 
 def _cmd_sweep(args: argparse.Namespace) -> int:
@@ -104,6 +130,8 @@ def _cmd_sweep(args: argparse.Namespace) -> int:
     print(f"# best runtime reduction: {best['tech']} {best['algo']} "
           f"{best['array_n']}x{best['array_n']} "
           f"-> {best['runtime_reduction_pct']:.2f}%")
+    if args.points_out:
+        _write_points(args, list(zip(result.configs, result.reports)))
     return 0
 
 
@@ -134,8 +162,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     args = ap.parse_args(argv)
     if args.points_out:
-        ap.error("not ported to repro_torch yet (ROADMAP.md A10: railscale/) "
-                 "— --points-out")
+        try:
+            resolve_device(args.device)       # before the flow runs
+        except RuntimeError as e:
+            ap.error(f"--points-out: {e}")
     try:
         return args.fn(args)
     except BrokenPipeError:        # e.g. `... | head` closed the pipe

@@ -200,3 +200,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i,                          # heads_per_block
         p]                          # stream
     lib.ssd_chunk_launch.restype = ctypes.c_int
+    lib.abft_checksums_launch.argtypes = [
+        p, i, i,                    # x, R, C
+        ll, ll, i,                  # strides of x (r, c), dtype
+        p, i, ctypes.c_uint,        # P, np, its |x| bits
+        p, i, ctypes.c_uint,        # Q, nq, its |x| bits
+        i, i,                       # sub-tiles, rows of a block
+        p, p, p, p,                 # partials along C and R, Yr, Yc
+        p]                          # stream
+    lib.abft_checksums_launch.restype = ctypes.c_int

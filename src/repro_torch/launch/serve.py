@@ -35,6 +35,30 @@ Flags:
                                  real GEMM flags; probe traffic otherwise)
     --hwloop-tech / --hwloop-array-n
                                  the CAD flow's tech node and array size
+    --guard {off,freivalds,abft} wrap the execution backend in the ABFT
+                                 GuardedBackend (repro_torch.resilience):
+                                 checksum verification (on a GPU by the
+                                 abft_checksums kernel), locate-and-correct,
+                                 and the retry -> rail-heal -> policy
+                                 escalation ladder on silent corruption
+    --guard-policy {fail_open,fail_closed}
+                                 what an unverifiable product does: return
+                                 with telemetry (open) or raise (closed)
+    --autoscale {static,threshold,pid}
+                                 closed-loop energy-aware rail policy
+                                 (repro_torch.railscale).  "static" is the
+                                 fixed-rail path; the live policies need
+                                 --backend emulated and attach a hwloop
+                                 session, undervolt toward the calibrated
+                                 floor when load is low, and boost toward
+                                 nominal under queue / flag / TTFT pressure
+    --autoscale-points FILE      load the operating-point ladder from a
+                                 ``flow --points-out`` JSON file instead of
+                                 characterizing it at startup (on the run's
+                                 device)
+    --slo-ttft S                 TTFT SLO (seconds) feeding the policy's
+                                 headroom signal
+    --autoscale-every N          decode steps per autoscaler decision
     --policy {fifo,priority}     scheduler admission policy; priority enables
                                  tiers + TTFT-deadline shedding
     --max-pending N              bounded admission queue (backpressure: a
@@ -45,7 +69,7 @@ Flags:
                                  lifecycle, decode steps) to PATH as NDJSON
 
 Accepted but not ported yet (the launcher stops and names the ROADMAP item):
-    --guard, --autoscale, --serve-http, --trace
+    --serve-http, --trace
 """
 
 from __future__ import annotations
@@ -65,8 +89,6 @@ from ..serve import Request, ServeEngine, WaveServeEngine
 
 #: flags whose machinery is not ported: (test on args, what to say)
 _NOT_PORTED = (
-    (lambda a: a.guard != "off", "--guard: A9, resilience/"),
-    (lambda a: a.autoscale != "static", "--autoscale: A10, railscale/"),
     (lambda a: a.serve_http is not None, "--serve-http: A11, server/"),
     (lambda a: a.trace is not None, "--trace: A11, server/"),
 )
@@ -157,6 +179,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             or args.max_pending is not None):
         ap.error("--backend/--hwloop/--policy/--max-pending require the "
                  "continuous engine")
+    if args.autoscale != "static":
+        if args.engine != "continuous":
+            ap.error("--autoscale needs the continuous engine")
+        if args.backend != "emulated":
+            ap.error("--autoscale {threshold,pid} actuates the emulated "
+                     "array's rails; pass --backend emulated")
+        args.hwloop = True   # the session is the sanctioned actuation path
+    if args.guard != "off" and args.backend == "ideal":
+        ap.error("--guard needs a non-ideal --backend to protect "
+                 "(the ideal path never corrupts)")
     return args
 
 
@@ -180,7 +212,7 @@ def run(args: argparse.Namespace, params=None) -> ServeRun:
     if params is None:
         params = api.init_params(args.seed)
     engine_kw = {}
-    fcfg = store = None
+    fcfg = store = report = None
     if args.backend == "emulated" or args.hwloop:
         # only these two paths run the CAD flow; one artifact store shared
         # by the backend's flow run and the hwloop watchdog executes it once
@@ -200,11 +232,27 @@ def run(args: argparse.Namespace, params=None) -> ServeRun:
             device=api.device)
     elif args.backend != "ideal":
         engine_kw["backend"] = get_backend(args.backend, device=api.device)
+    if args.guard != "off":
+        from ..resilience import GuardedBackend
+        engine_kw["backend"] = GuardedBackend(
+            engine_kw["backend"], mode=args.guard, policy=args.guard_policy)
     if args.hwloop:
         from ..hwloop import HwLoopSession
         engine_kw["hwloop"] = HwLoopSession(fcfg, probe_rows=8,
                                             rail_margin=0.02, store=store,
                                             device=api.device)
+    if args.autoscale != "static":
+        from ..railscale import Autoscaler, OperatingPointTable
+        if args.autoscale_points:
+            table = OperatingPointTable.load(
+                args.autoscale_points, tech=args.hwloop_tech,
+                array_n=args.hwloop_array_n)
+        else:
+            table = OperatingPointTable.characterize(
+                report, fcfg, seed=fcfg.seed, device=api.device)
+        engine_kw["autoscaler"] = Autoscaler(
+            table, args.autoscale, decide_every=args.autoscale_every,
+            slo_ttft_s=args.slo_ttft, start_level=0)
     if args.engine == "continuous":
         engine_kw.update(policy=args.policy, max_pending=args.max_pending)
         engine_cls = ServeEngine
@@ -256,6 +304,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               f"{hw['recalibrations']} recalibrations, "
               f"{'n/a' if e is None else f'{e:.3g}'} J/token "
               f"(replay rate {hw['replay_rate']:.2e})")
+    if stats.railscale:
+        rs = stats.railscale
+        rails = ", ".join(f"{v:.3f}" for v in rs.get("rails_v", []))
+        print(f"[railscale:{rs['policy']}] level {rs['level']}/"
+              f"{rs['levels'] - 1}, {rs['decisions']} decisions, "
+              f"transitions {rs['transitions']}, "
+              f"{rs['heal_preemptions']} heal preemptions, "
+              f"rails [{rails}]")
     if args.json_out:
         payload = {"arch": args.arch, "engine": args.engine,
                    "slots": args.slots, "max_len": args.max_len,

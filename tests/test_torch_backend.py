@@ -80,7 +80,10 @@ def test_native_precision_keeps_bf16_and_rounds_once():
 
 
 def test_registry_and_scoping():
-    assert tbackend.available_backends() == ["emulated", "ideal",
+    # importing repro_torch.resilience registers "guarded", as importing
+    # repro.resilience does in the JAX package
+    import repro_torch.resilience  # noqa: F401
+    assert tbackend.available_backends() == ["emulated", "guarded", "ideal",
                                              "reference", "simulated"]
     with pytest.raises(KeyError, match="unknown backend 'nope'"):
         tbackend.get_backend("nope")

@@ -1,7 +1,6 @@
 """The port's ``flow`` against ``repro.flow``: reports, sweeps, config
-validation, the opt-in ``hwloop`` stage and the CLI, bit for bit; and the
-CLI's ``--points-out``, which waits for a later slice, stops with its
-ROADMAP item."""
+validation, the opt-in ``hwloop`` stage and the CLI, bit for bit, with the
+CLI's ``--points-out`` file byte for byte."""
 
 import contextlib
 import io
@@ -11,6 +10,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import repro.flow as jflow
 import repro_torch.flow as tflow
@@ -162,11 +162,28 @@ def test_cli_config_file(tmp_path):
     assert _out(tmain, argv) == _out(jmain, argv)
 
 
-def test_cli_points_out_stops_with_its_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as e:
-        tmain(["run", "--array-n", "8", "--points-out", "points.json"])
-    assert e.value.code == 2
-    assert "ROADMAP.md A10" in capsys.readouterr().err
+@pytest.mark.parametrize("argv", [
+    ["run", "--array-n", "8", "--tech", "vtr-22nm", "--max-trials", "8",
+     "--points-probe-steps", "4"],
+    ["sweep", "--tech", "vtr-22nm,vivado-28nm", "--algo", "kmeans",
+     "--array-n", "8", "--max-trials", "8", "--points-levels", "3",
+     "--points-probe-steps", "2"]], ids=["run", "sweep"])
+def test_cli_points_out_stops_with_its_roadmap_item(argv, tmp_path, capsys):
+    """The flag the port once refused: now the reference CLI's ladder file,
+    byte for byte, with the probes on the CPU (``--device cpu``); and
+    without a GPU and without ``--device`` it stops before the flow runs."""
+    t_path, j_path = tmp_path / "t.json", tmp_path / "j.json"
+    t_out = _out(tmain, argv + ["--points-out", str(t_path), "--device",
+                                "cpu"])
+    j_out = _out(jmain, argv + ["--points-out", str(j_path)])
+    assert t_path.read_bytes() == j_path.read_bytes()
+    assert t_out.replace(str(t_path), "F") == j_out.replace(str(j_path), "F")
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit) as e:
+            tmain(argv + ["--points-out", str(tmp_path / "gpu.json")])
+        assert e.value.code == 2
+        assert "--device cpu" in capsys.readouterr().err
+        assert not (tmp_path / "gpu.json").exists()
 
 
 def test_python_m_repro_torch_flow_run():

@@ -20,6 +20,7 @@ from repro_torch.flow import FlowConfig
 from repro_torch.flow import run as flow_run
 from repro_torch.hwloop import HwLoopSession, hwloop_pipeline
 from repro_torch.kernels import _build
+from repro_torch.kernels import abft as abft_mod
 from repro_torch.kernels import precision_island as island_mod
 from repro_torch.kernels import razor_matmul as razor_mod
 from repro_torch.kernels import ssd_chunk as ssd_mod
@@ -147,7 +148,8 @@ def test_failed_compile_raises_with_the_compilers_output(monkeypatch,
 
 def test_build_is_keyed_by_its_sources():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["precision_island.cu", "quant_rows.cu",
+    assert [s.name for s in srcs] == ["abft_checksums.cu",
+                                      "precision_island.cu", "quant_rows.cu",
                                       "razor_matmul.cu", "ssd_chunk.cu",
                                       "systolic_mac.cu", "wkv6.cu"]
     assert _build._digest(srcs) == _build._digest(srcs)
@@ -193,8 +195,15 @@ def test_build_is_keyed_by_its_sources():
         assert "tile_products.cuh" not in text
     assert "fmaf(" not in island + ring
     for name in ("systolic_mac", "quant_rows", "razor_matmul",
-                 "precision_island", "wkv6", "ssd_chunk"):
+                 "precision_island", "wkv6", "ssd_chunk", "abft_checksums"):
         assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]
+    # the guard's checksums: float64 sums in a fixed order (a strip pass and
+    # an ordered reduce pass), no atomics of any kind
+    abft = texts["abft_checksums.cu"]
+    for kernel in ("abft_strip_kernel", "abft_reduce_kernel"):
+        assert kernel in abft
+    assert not re.findall(r"atomic\w*\(", abft)
+    assert "__shfl_xor_sync" in abft and "double" in abft
     # the recurrences: accurate expf (no __expf), the Pallas kernels'
     # clamps; wkv6's and ssd_chunk's four products on the TF32 tensor cores
     # with a 3xTF32 split (hi = rna(a), lo = rna(a - hi), by cvt.rna.tf32's
@@ -239,7 +248,8 @@ class _CudaLooking(torch.Tensor):
 
 
 @pytest.mark.parametrize("kernel", ["razor_matmul", "precision_island",
-                                    "wkv6", "ssd_chunk", "wkv6_chunked"])
+                                    "wkv6", "ssd_chunk", "wkv6_chunked",
+                                    "abft_checksums"])
 def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
         kernel, monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
@@ -255,6 +265,7 @@ def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
     monkeypatch.setattr(island_mod, "precision_island_plain", plain)
     monkeypatch.setattr(wkv6_mod, "wkv6_plain", plain)
     monkeypatch.setattr(ssd_mod, "ssd_chunk_plain", plain)
+    monkeypatch.setattr(abft_mod, "abft_checksums_plain", plain)
 
     def cuda(*shape):
         return torch.zeros(*shape).as_subclass(_CudaLooking)
@@ -270,6 +281,10 @@ def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
             island_mod.precision_island(a, b, tiers)
         elif kernel == "wkv6":
             wkv6_mod.wkv6(seq, seq, seq, seq, cuda(2, 16), cuda(2, 2, 16, 16))
+        elif kernel == "abft_checksums":
+            f64 = lambda *s: torch.zeros(*s, dtype=torch.float64) \
+                .as_subclass(_CudaLooking)               # noqa: E731
+            abft_mod.abft_checksums(b, f64(256, 1), f64(2, 64), abs_rows=1)
         elif kernel == "ssd_chunk":
             ssd_mod.ssd_chunk(seq, cuda(2, 8, 2), cuda(2), cuda(2, 8, 4),
                               cuda(2, 8, 4), cuda(2), cuda(2, 2, 4, 16))
@@ -279,6 +294,7 @@ def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
     assert razor_mod.razor_matmul.launches == 0
     assert island_mod.precision_island.launches == 0
     assert wkv6_mod.wkv6.launches == ssd_mod.ssd_chunk.launches == 0
+    assert abft_mod.abft_checksums.launches == 0
 
 
 def test_chip_smoke_fails_here_and_prints_no_result():

@@ -336,13 +336,64 @@ def test_launcher_serves_the_ssm_archs_as_the_jax_launcher(
     assert t["backend_telemetry"] == j["backend_telemetry"]
 
 
-@pytest.mark.parametrize("flags", [["--guard", "abft"],
-                                   ["--autoscale", "pid"],
-                                   ["--serve-http", "127.0.0.1:0"],
+@pytest.mark.parametrize("flags", [["--serve-http", "127.0.0.1:0"],
                                    ["--trace", "t.ndjson"]])
 def test_launcher_stops_on_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         t_launch.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device",
                        "cpu"] + flags)
     assert exc.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP" in err and "A11" in err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backend", "emulated", "--guard", "abft"],
+    ["--backend", "emulated", "--autoscale", "pid"]],
+    ids=["guard", "autoscale"])
+def test_launcher_runs_guarded_and_autoscaled_as_the_jax_launcher(
+        flags, tmp_path, monkeypatch, capsys):
+    base = ["--arch", "phi4-mini-3.8b", "--smoke", "--requests", "3",
+            "--slots", "2", "--max-new", "3"] + flags
+    t_out, j_out = tmp_path / "torch.json", tmp_path / "jax.json"
+    t_launch.main(base + ["--device", "cpu", "--json-out", str(t_out)])
+    t_print = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve"] + base
+                        + ["--json-out", str(j_out)])
+    j_launch.main()
+    j_print = capsys.readouterr().out
+    t, j = json.loads(t_out.read_text()), json.loads(j_out.read_text())
+    assert list(t) == list(j)
+    # everything but the wall clock: the guard's and the autoscaler's
+    # telemetry included (the weights come from each framework's own
+    # generator, so the tokens are not compared)
+    for key in j:
+        if key not in ("wall_s", "tok_per_s", "ttft_s", "ttft_mean_s"):
+            assert t[key] == j[key], key
+    if "--guard" in flags:
+        bt = t["backend_telemetry"]
+        assert bt["backend"] == "guarded[emulated]"
+        assert bt["guard_checks"] == bt["calls"] > 0
+        assert bt["energy_per_token_j"] > 0
+    else:
+        assert t["railscale"]["policy"] == "pid"
+        assert t["railscale"]["decisions"] > 0
+    for tag in ("[backend:", "[hwloop]", "[railscale:"):
+        assert (tag in t_print) == (tag in j_print), tag
+    railscale = [ln for ln in t_print.splitlines() if ln.startswith(
+        "[railscale:")]
+    assert railscale == [ln for ln in j_print.splitlines()
+                         if ln.startswith("[railscale:")]
+
+
+@pytest.mark.parametrize("flags,what", [
+    (["--guard", "abft"], "--guard needs a non-ideal --backend"),
+    (["--autoscale", "threshold"], "pass --backend emulated"),
+    (["--autoscale", "pid", "--backend", "emulated", "--engine", "wave"],
+     "require the continuous engine")])
+def test_launcher_refuses_what_the_jax_launcher_refuses(flags, what, capsys):
+    with pytest.raises(SystemExit) as exc:
+        t_launch.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device",
+                       "cpu"] + flags)
+    assert exc.value.code == 2
+    assert what in capsys.readouterr().err
