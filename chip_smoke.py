@@ -17,9 +17,15 @@ paper's emulated voltage-island array (``--backend emulated --hwloop``: the
 Algorithm-2 watchdog healing an undervolted rail on the serving device, and a
 short run on the simulated array; then guarded (``--guard abft`` on
 ``reference`` and on the emulated array, the ABFT guard's checksums on the
-``abft_checksums`` kernel; the reference's ``silent_burst`` and
-``watchdog_delay`` chaos scripts) and autoscaled (``--autoscale threshold``
-from a ladder the flow CLI writes on the card) phi4-mini serving.  Then, for
+``abft_checksums`` kernel; the chaos campaign's ``silent_burst`` and
+``watchdog_delay`` scripts) and autoscaled (``--autoscale threshold``
+from a ladder the flow CLI writes on the card) phi4-mini serving; phi4-mini
+behind the HTTP frontend (``repro_torch.server``: streams bit-equal to the
+direct run's, and the ``--serve-http`` launcher as a child process serving
+the same six streams to clients in this process), a
+traffic trace replayed through ``--trace`` (every metric but the wall clock
+equal to the CPU's replay), and the chaos campaign's four wire scenarios
+(``repro_torch.resilience.chaos``) on the guarded emulated array.  Then, for
 rwkv6-1.6b and
 zamba2-2.7b at their published width and depth: the same traffic served
 (every rwkv6 layer of every step on the ``wkv6`` kernel), the parallel forward
@@ -33,7 +39,8 @@ Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
 ``precision_island``, ``wkv6``, ``ssd_chunk``), ``paper_flow``,
 ``precision_islands``, ``hwloop_checks``, ``abft_checks``, ``serve`` (with a
 ``torch.profiler`` pass over a short run), ``serve_hwloop``, ``serve_guard``,
-``autoscale``, per state-space model
+``autoscale``, ``serve_http``, ``serve_trace``, ``chaos``, per state-space
+model
 ``serve_ssm``, ``decode_vs_parallel`` and ``loss`` (with a profile by CUDA
 kernel), ``profile_misses`` (profiled measurements left null, with what each
 try saw), ``total`` (the script's seconds),
@@ -139,6 +146,15 @@ TOL_ABFT = 1e-12
 #: new tokens a request in the autoscale phase: 23 decode steps, room for
 #: three descents under the launcher's dwell of 8 steps
 AUTOSCALE_NEW = 24
+#: bounded admission queue of the HTTP and trace phases (--max-pending)
+HTTP_MAX_PENDING = 8
+#: the trace: 1.5x the deployment's token capacity for 10 s, each model call
+#: costing 65 ms of virtual time (about the served phi4 step)
+TRACE_OVERLOAD, TRACE_STEP_COST, TRACE_DURATION = 1.5, 0.065, 10.0
+#: the chaos campaign's wire scenarios (the engine-level pair runs in
+#: serve_guard)
+CHAOS_SCENARIOS = ["rail_droop", "slow_decode", "client_disconnect",
+                   "overload_shed"]
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -2046,46 +2062,25 @@ def guard_stats(run):
     return run.stats.backend_telemetry, 1e3 * cb_s / cb_n
 
 
-def chaos_prompts(n, seed):
-    """``repro.resilience.chaos``'s prompts."""
+def chaos_run(cfg, params, scenario, bursts):
+    """The chaos campaign's engine-level script at full width, on the
+    campaign's own engines and prompts (``silent_burst``: ``bitflip`` at
+    nominal rails; ``watchdog_delay``: the calibrated rails of a patience-5
+    hwloop session), three requests of four tokens on two slots, every rail
+    collapsed to ``V_CRASH`` before each decode step in ``bursts``.  Not
+    ``run_scenario``: that reports neither the rails nor the recalibrations
+    of each burst, nor how far a stream parts at a tie."""
     import numpy as np
-    rng = np.random.default_rng(seed)
-    return [rng.integers(3, 64, size=int(rng.integers(2, 5))).tolist()
-            for _ in range(n)]
-
-
-def chaos_run(torch, cfg, params, mods, scenario, bursts):
-    """The reference's chaos script at full width: a guarded emulated
-    engine (``bitflip`` at nominal rails for ``silent_burst``; the
-    calibrated rails of a patience-5 hwloop session for
-    ``watchdog_delay``), three requests of four tokens on two slots, every
-    rail collapsed to ``V_CRASH`` before each decode step in ``bursts``."""
-    import numpy as np
-    from repro_torch.backend import EmulatedBackend
-    from repro_torch.flow import FlowConfig
-    from repro_torch.hwloop import HwLoopSession
-    from repro_torch.obs import ObsBus
-    from repro_torch.resilience import GuardedBackend, V_CRASH
-    from repro_torch.serve import Request
-    session = None
-    kw = {}
+    from repro_torch.resilience import V_CRASH
+    from repro_torch.resilience import chaos as chaos_mod
+    ctx = chaos_mod._Campaign(lambda: (cfg, params))
     if scenario == "silent_burst":
-        inner = EmulatedBackend.nominal(corruption="bitflip")
-        prompts = chaos_prompts(3, 0)
+        eng, guard = chaos_mod._guarded_engine(ctx, corruption="bitflip")
+        session, prompts = None, chaos_mod._prompts(3, 0)
     else:
-        session = HwLoopSession(FlowConfig(array_n=8, tech="vtr-22nm",
-                                           max_trials=8, seed=2021),
-                                probe_rows=8, rail_margin=0.02, patience=5)
-        inner = EmulatedBackend(session.accel)
-        kw["hwloop"] = session
-        prompts = chaos_prompts(3, 1)
-    guard = GuardedBackend(inner, mode="abft", policy="fail_closed")
-    eng = mods.ServeEngine(cfg, params, slots=2, max_len=32, backend=guard,
-                           obs=ObsBus(recorder_capacity=128), **kw)
-    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=4)
-            for i, p in enumerate(prompts)]
-    for r in reqs:
-        eng.submit(r)
+        eng, guard, session = chaos_mod._watchdog_engine(ctx)
+        prompts = chaos_mod._prompts(3, 1)
+    reqs = chaos_mod._submit_all(eng, prompts, 4)
     accel = guard.accel
     after, recal_at = [], []
     step = 0
@@ -2223,8 +2218,8 @@ def serve_guard(torch, cfg, mods, params, ref, counters, abft):
     scripts = {}
     for scenario, bursts in (("silent_burst", (1, 4)),
                              ("watchdog_delay", (2,))):
-        clean = chaos_run(torch, cfg, params, mods, scenario, ())
-        hit = chaos_run(torch, cfg, params, mods, scenario, bursts)
+        clean = chaos_run(cfg, params, scenario, ())
+        hit = chaos_run(cfg, params, scenario, bursts)
         t = hit.guard.total
         if (t.guard_detected < 1 or t.guard_heals < 1
                 or t.guard_uncorrected):
@@ -2402,6 +2397,366 @@ def autoscale(torch, cfg, mods, params, tflow):
             "model_step_ms": 1e3 * run.wall_s / stats.model_steps,
             "static_model_step_ms":
                 1e3 * static.wall_s / static.stats.model_steps}
+
+
+# ---------------------------------------------------------------------------
+# server/ and resilience/chaos.py: HTTP serving, trace replay, the campaign
+# ---------------------------------------------------------------------------
+
+
+def prometheus_samples(text):
+    """The samples of a Prometheus text exposition, or fail on a line that
+    does not parse."""
+    samples = {}
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        try:
+            samples[name] = float(value)
+        except ValueError:
+            fail(f"serve_http: /metrics line {line!r} does not parse")
+    return samples
+
+
+def decode_step_ms(engine):
+    """Mean milliseconds of an engine's ``decode_step`` spans (its flight
+    recorder; a span ends after the step's tokens reached the host)."""
+    durs = [e["dur_s"] for e in engine.obs.recorder.to_list()
+            if e.get("name") == "decode_step"]
+    return 1e3 * sum(durs) / len(durs)
+
+
+def read_line(stream, timeout_s):
+    """One line of a child's pipe, or "" after ``timeout_s``."""
+    import threading
+    got = []
+    t = threading.Thread(target=lambda: got.append(stream.readline()),
+                         daemon=True)
+    t.start()
+    t.join(timeout_s)
+    return got[0] if got else ""
+
+
+def launcher_http(ref, flags):
+    """``python -m repro_torch.launch.serve --serve-http 127.0.0.1:0`` at
+    full width as a child process, with ``serve_http``'s engine flags: read
+    the bound address, stream one warm-up request, then the ``serve``
+    phase's six requests at once from this process, send SIGINT, and
+    require every stream equal to the ``serve`` phase's, the
+    ``drained=True`` line and exit code 0.  The child's decode steps after
+    the warm-up, from its ``--trace-out`` spans, are the server's with the
+    clients in another process."""
+    import asyncio
+    import os
+    import signal
+    from repro_torch.server import get_json, stream_generate
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    spans = out_dir / "launcher_http_spans.ndjson"
+    spans.unlink(missing_ok=True)
+    reqs = ref.requests
+    warm_new = min(2, reqs[0].max_new_tokens)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *flags,
+           "--serve-http", "127.0.0.1:0", "--trace-out", str(spans)]
+
+    async def clients(host, port):
+        warm = await stream_generate(host, port, reqs[0].prompt,
+                                     max_new_tokens=warm_new)
+        health = await get_json(host, port, "/healthz")
+        t0 = time.monotonic()
+        results = await asyncio.gather(*[stream_generate(
+            host, port, r.prompt, max_new_tokens=r.max_new_tokens)
+            for r in reqs])
+        return warm, health["decode_steps"], results, time.monotonic() - t0
+
+    t0 = time.monotonic()
+    with open(out_dir / "launcher_http.err", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=err, text=True,
+                                env={**os.environ, "PYTHONPATH": str(SRC)})
+        try:
+            first = read_line(proc.stdout, 300)
+            if not first.startswith("serving on http://"):
+                fail(f"serve_http launcher: first line {first!r}, exit "
+                     f"{proc.poll()}")
+            ready_s = time.monotonic() - t0
+            host, port = first.split("http://")[1].split()[0].rsplit(":", 1)
+            warm, warm_steps, results, wall = asyncio.run(
+                clients(host, int(port)))
+            proc.send_signal(signal.SIGINT)
+            out, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    tail = (out_dir / "launcher_http.err").read_text()[-2000:]
+    if proc.returncode != 0 or "drained=True" not in out:
+        fail(f"serve_http launcher: exit {proc.returncode}, stdout {out!r}, "
+             f"stderr {tail!r}")
+    for i, (res, r) in enumerate(zip([warm] + results,
+                                     [reqs[0]] + list(reqs))):
+        want = r.out_tokens[:warm_new] if i == 0 else r.out_tokens
+        if not (res.ok and res.status == "completed"):
+            fail(f"serve_http launcher: stream {i} {res.http_status} "
+                 f"{res.summary}")
+        if res.tokens != want:
+            fail(f"serve_http launcher: stream {i} tokens {res.tokens} "
+                 f"differ from the serve phase's {want} (seed {SEED} "
+                 f"params)")
+    durs = [e["dur_s"] for e in map(json.loads,
+                                    spans.read_text().splitlines())
+            if e.get("name") == "decode_step" and e["step"] >= warm_steps]
+    if not durs:
+        fail("serve_http launcher: no decode_step span after the warm-up")
+    tokens = sum(len(res.tokens) for res in results)
+    return {"command": " ".join(cmd[1:-2]), "ready_s": ready_s,
+            "tokens_equal_to_serve": True, "exit_code": proc.returncode,
+            "drained_line": next(line for line in out.splitlines()
+                                 if line.startswith("drained=")),
+            "decode_step_ms": 1e3 * sum(durs) / len(durs),
+            "decode_steps_timed": len(durs),
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "seconds": time.monotonic() - t0}
+
+
+def serve_http(torch, cfg, mods, params, ref, systolic_mac):
+    """phi4-mini-3.8b at full width behind the port's HTTP frontend: a
+    ``reference`` engine (slots 4, max_len 64, ``--policy priority
+    --max-pending 8``) driven by the frontend's pump thread, the ``serve``
+    phase's six requests sent at once through ``stream_generate``, and
+    ``/healthz``, ``/metrics`` and ``/v1/stats`` scraped while they stream.
+    Every stream is bit-equal to the ``serve`` phase's tokens for the same
+    request (B1 sums in an order fixed by (K, N, dtype), never by M or the
+    rows beside a row), and B1's launches equal the engine's GEMMs.  The
+    same engine flags driven directly give the tokens/s beside it."""
+    import asyncio
+    import threading
+    import numpy as np
+    from repro_torch.server import ServeFrontend, get_json, stream_generate
+    from repro_torch.server.client import _request
+    serve_mod = mods.serve
+    per_step = 7 * cfg.n_layers + 1
+    argv = ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--backend", "reference", "--policy", "priority",
+            "--max-pending", str(HTTP_MAX_PENDING)]
+    reqs = ref.requests
+
+    def frontend_run(requests):
+        engine = serve_mod.build_engine(serve_mod.parse_args(argv), params)
+        frontend = ServeFrontend(engine)
+        seen = {}
+
+        async def scenario():
+            host, port = await frontend.start()
+            t0 = time.monotonic()
+            streams = [asyncio.create_task(stream_generate(
+                host, port, r.prompt, max_new_tokens=r.max_new_tokens))
+                for r in requests]
+            while not all(t.done() for t in streams):
+                health = await get_json(host, port, "/healthz")
+                if health["active"] > 0:
+                    seen["health"] = health
+                    _, _, text = await _request(host, port, "GET",
+                                                "/metrics")
+                    seen["metrics"] = text.decode()
+                    seen["stats"] = await get_json(host, port, "/v1/stats")
+                    seen["active_after"] = sum(not t.done() for t in streams)
+                    break
+                await asyncio.sleep(0.002)
+            results = await asyncio.gather(*streams)
+            wall = time.monotonic() - t0
+            seen["pump_alive"] = frontend.health()["pump_alive"]
+            seen["drained"] = await frontend.drain()
+            await frontend.close()
+            return results, wall
+
+        results, wall = asyncio.run(scenario())
+        torch.cuda.synchronize()
+        return engine, results, wall, seen
+
+    # ---- warm-up, uncounted: the pump thread's first launches
+    frontend_run(reqs[:2])
+
+    # ---- beside it: the same engine flags, driven directly, on this
+    # thread and on a thread of its own with no event loop beside it
+    direct_argv = argv + ["--requests", str(REQUESTS), "--max-new",
+                          str(MAX_NEW), "--mixed", "--seed", str(SEED)]
+    direct = serve_mod.run(serve_mod.parse_args(direct_argv), params)
+    torch.cuda.synchronize()
+    threaded = []
+
+    def on_thread():
+        torch.cuda.set_device(torch.device("cuda", 0))
+        threaded.append(serve_mod.run(serve_mod.parse_args(direct_argv),
+                                      params))
+
+    worker = threading.Thread(target=on_thread)
+    worker.start()
+    worker.join()
+    if len(threaded) != 1:
+        fail("serve_http: the run on a thread of its own did not finish")
+    for what, run in (("direct", direct), ("threaded", threaded[0])):
+        if [r.out_tokens for r in run.requests] != [r.out_tokens
+                                                    for r in reqs]:
+            fail(f"serve_http: the {what} run's tokens differ from the "
+                 f"serve phase's")
+
+    # ---- the path: counts set to 0 just before, read just after
+    systolic_mac.launches = 0
+    engine, results, wall, seen = frontend_run(reqs)
+    launches = systolic_mac.launches
+    stats = engine.run_until_drained()
+    tel = stats.backend_telemetry
+    steps = stats.model_steps
+    for i, (res, r) in enumerate(zip(results, reqs)):
+        if not (res.ok and res.status == "completed"):
+            fail(f"serve_http: stream {i} ended {res.status}/"
+                 f"{res.http_status}: {res.summary}")
+        if res.tokens != r.out_tokens:
+            fail(f"serve_http: stream {i} tokens {res.tokens} differ from "
+                 f"the serve phase's {r.out_tokens}")
+    if not (0 < launches == tel["calls"] == per_step * steps):
+        fail(f"serve_http: {launches} systolic_mac launches, {tel['calls']} "
+             f"GEMMs, expected {per_step} x {steps} model steps")
+    if not (seen.get("pump_alive") and seen.get("drained")):
+        fail(f"serve_http: pump_alive {seen.get('pump_alive')}, drained "
+             f"{seen.get('drained')}")
+    if "health" not in seen:
+        fail("serve_http: no scrape saw a live stream")
+    samples = prometheus_samples(seen["metrics"])
+    stats_json = seen["stats"]
+    if not (seen["health"]["_http_status"] == 200 == stats_json[
+            "_http_status"] and {"health", "engine", "metrics"}
+            <= set(stats_json) and samples.get("serve_slots") == SLOTS):
+        fail(f"serve_http: scrapes {seen['health']}, "
+             f"{sorted(stats_json)}, {len(samples)} samples")
+    ttft = np.asarray([res.summary["ttft_s"] for res in results])
+    tokens = sum(len(res.tokens) for res in results)
+    return {
+        "arch": ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "backend": "reference", "slots": SLOTS, "max_len": MAX_LEN,
+        "policy": "priority", "max_pending": HTTP_MAX_PENDING,
+        "requests": len(reqs), "completed": stats.completed,
+        "prefill_steps": stats.prefill_steps,
+        "decode_steps": stats.decode_steps, "gemm_calls": tel["calls"],
+        "kernel_launches": launches,
+        "tokens_bit_equal_to_serve": True,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "direct_tokens_per_s": direct.stats.tokens_generated / direct.wall_s,
+        "direct_model_step_ms": 1e3 * direct.wall_s
+        / direct.stats.model_steps,
+        "model_step_ms": 1e3 * wall / steps,
+        "serve_model_step_ms": ref.model_step_ms,
+        "decode_step_ms": decode_step_ms(engine),
+        "direct_decode_step_ms": decode_step_ms(direct.engine),
+        "threaded_decode_step_ms": decode_step_ms(threaded[0].engine),
+        "decode_step_of": "mean decode_step span of the HTTP run (the "
+                          "pump thread, the event loop and the clients in "
+                          "this process), the same flags driven directly, "
+                          "and driven on a thread of its own; the "
+                          "launcher's is the --serve-http child's, its "
+                          "clients in this process",
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "ttft_of": "the engine's submit-to-first-token seconds of each "
+                   "HTTP request (stream summary)",
+        "scrape": {"active_slots": seen["health"]["active"],
+                   "streams_live": seen["active_after"],
+                   "metrics_samples": len(samples),
+                   "stats_keys": sorted(stats_json)},
+        "launcher": launcher_http(ref, argv)}
+
+
+def serve_trace(torch, cfg, mods, systolic_mac):
+    """A traffic trace written by the port's CLI (``python -m
+    repro_torch.server``) at 1.5x the deployment's capacity and replayed
+    through ``launch.serve --trace`` at full width on the card; every
+    ``TrafficMetrics`` field but ``wall_s`` equals the same replay on the
+    CPU at phi4-mini's smoke config (the schedule depends on the trace and
+    the scheduler only: no stop token)."""
+    import os
+    from repro_torch.server import TrafficConfig, overload_rate_rps
+    serve_mod = mods.serve
+    per_step = 7 * cfg.n_layers + 1
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace = out_dir / "trace.ndjson"
+    rate = overload_rate_rps(TRACE_OVERLOAD, SLOTS, TRACE_STEP_COST,
+                             TrafficConfig())
+    t0 = time.monotonic()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.server", "--out", str(trace),
+         "--rate", repr(rate), "--duration", str(TRACE_DURATION), "--seed",
+         str(SEED)], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    cli_s = time.monotonic() - t0
+    if done.returncode != 0:
+        fail(f"serve_trace: the trace CLI exited {done.returncode}: "
+             f"{done.stderr[-2000:]}")
+    flags = ["--arch", ARCH, "--backend", "reference", "--trace", str(trace),
+             "--slots", str(SLOTS), "--max-len", str(MAX_LEN), "--policy",
+             "priority", "--max-pending", str(HTTP_MAX_PENDING),
+             "--step-cost", str(TRACE_STEP_COST)]
+    card_json = out_dir / "trace_card.json"
+    cpu_json = out_dir / "trace_cpu.json"
+    systolic_mac.launches = 0
+    with contextlib.redirect_stdout(sys.stderr):
+        serve_mod.main(flags + ["--json-out", str(card_json)])
+    torch.cuda.synchronize()
+    launches = systolic_mac.launches
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(sys.stderr):
+        serve_mod.main(flags + ["--smoke", "--device", "cpu", "--json-out",
+                                str(cpu_json)])
+    cpu_s = time.monotonic() - t0
+    card = json.loads(card_json.read_text())
+    cpu = json.loads(cpu_json.read_text())
+    differ = {k: (card.get(k), cpu.get(k)) for k in set(card) | set(cpu)
+              if k != "wall_s" and card.get(k) != cpu.get(k)}
+    if list(card) != list(cpu) or differ:
+        fail(f"serve_trace: the card's replay differs from the CPU's: "
+             f"{differ}")
+    if not (0 < launches == per_step * card["model_steps"]):
+        fail(f"serve_trace: {launches} systolic_mac launches for "
+             f"{card['model_steps']} model steps of {per_step} GEMMs")
+    return {"arch": ARCH, "rate_rps": rate, "overload": TRACE_OVERLOAD,
+            "duration_s": TRACE_DURATION, "step_cost_s": TRACE_STEP_COST,
+            "trace_cli_s": cli_s, "metrics": card,
+            "metrics_equal_to_cpu_but_wall_s": True, "cpu_wall_s":
+            cpu["wall_s"], "cpu_replay_s": cpu_s,
+            "kernel_launches": launches,
+            "real_tokens_per_s": card["tokens_generated"] / card["wall_s"],
+            "model_step_ms": 1e3 * card["wall_s"] / card["model_steps"]}
+
+
+def chaos(torch, cfg, params, abft):
+    """The port's chaos campaign's four wire scenarios on the card, phi4-mini
+    at full width on a guarded emulated engine (every verification's
+    checksums on ``abft_checksums``); each completed stream is held to the
+    same engine's fault-free run.  The scenarios run one ``run_scenario``
+    call each, as ``run_campaign`` runs them, so that each is timed."""
+    from repro_torch.resilience import run_scenario
+    abft.launches = 0
+    rows = {}
+    t0 = time.monotonic()
+    for name in CHAOS_SCENARIOS:
+        t1 = time.monotonic()
+        r = run_scenario(name, fast=True, model=lambda: (cfg, params),
+                         truth="fault_free")
+        rows[name] = {"ok": r.ok, "violations": r.violations,
+                      "wall_s": time.monotonic() - t1, **r.details}
+    elapsed = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = abft.launches
+    if not all(r["ok"] and not r.get("crashed") for r in rows.values()):
+        print(json.dumps({"chaos_red": rows})[-20000:], file=sys.stderr)
+        fail(f"chaos: {[(n, r['violations']) for n, r in rows.items()]}")
+    if launches <= 0:
+        fail("chaos: the guarded engines launched abft_checksums no time")
+    return {"arch": ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "fast": True, "truth": "fault_free", "scenarios": rows,
+            "elapsed_s": elapsed, "abft_checksums_launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3296,6 +3651,12 @@ def main() -> int:
     if guard_launches["abft_checksums"] <= 0:
         fail("the guarded path launched abft_checksums no time")
     emit("autoscale", autoscale(torch, cfg, mods, params, tflow))
+    http = serve_http(torch, cfg, mods, params, ref, systolic_mac)
+    emit("serve_http", http)
+    traced = serve_trace(torch, cfg, mods, systolic_mac)
+    emit("serve_trace", traced)
+    campaign = chaos(torch, cfg, params, abft_mod.abft_checksums)
+    emit("chaos", campaign)
     del params, ref_run, ref
     torch.cuda.empty_cache()
 
@@ -3367,6 +3728,9 @@ def main() -> int:
         "device_ms_of": "the same GEMMs, device time by torch.profiler "
                         "(ms above: back to back by CUDA events, the "
                         "host's launch work included)",
+        "launches_by_path": {"serve": launches,
+                             "serve_http": http["kernel_launches"],
+                             "serve_trace": traced["kernel_launches"]},
         "host_us_per_launch": {key: host[key] for key in (
             "systolic_mac_us", "reference_route_us", "torch_matmul_us")},
         "decode_step_by_arch": {
@@ -3431,6 +3795,9 @@ def main() -> int:
                     "the port, not a TPU kernel)",
         "launches": guard_launches["abft_checksums"],
         "launches_of": "serve_guard (a): --backend reference --guard abft",
+        "launches_by_path": {
+            "serve_guard (a)": guard_launches["abft_checksums"],
+            "chaos": campaign["abft_checksums_launches"]},
         "max_abs_err": max(r["max_err"] for r in abft_rows),
         "max_err_of": "as a fraction of the sums of magnitudes",
         "max_err_limit": TOL_ABFT,

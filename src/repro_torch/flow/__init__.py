@@ -30,7 +30,9 @@ The port's copy of ``repro.flow``: numpy and the standard library only, and
 bit-identical to it (``tests/test_torch_flow.py``).  The ``hwloop`` stage
 runs its backend on the stage instance's device
 (``repro_torch.hwloop.hwloop_pipeline(device=...)``; the GPU by default).
-The CLI's ``--points-out`` stops with its ROADMAP item (A10).
+The CLI's ``--points-out`` writes the reference CLI's operating-point
+ladder file, characterized on ``--device`` (the GPU unless ``--device cpu``;
+without a GPU and without the flag it stops before the flow runs).
 """
 
 from .artifacts import Artifacts, ArtifactStore, StoreStats

@@ -67,9 +67,16 @@ Flags:
                                  engine's obs registry at exit
     --trace-out PATH             stream every obs trace event (request
                                  lifecycle, decode steps) to PATH as NDJSON
-
-Accepted but not ported yet (the launcher stops and names the ROADMAP item):
-    --serve-http, --trace
+    --serve-http HOST:PORT       serve the streaming HTTP frontend
+                                 (repro_torch.server: POST /v1/generate,
+                                 GET /healthz /metrics /v1/stats) until
+                                 SIGINT, then drain; port 0 binds a free
+                                 port, and the bound address is printed
+    --trace FILE                 replay a traffic trace (``python -m
+                                 repro_torch.server --out FILE``) in virtual
+                                 time and print its TTFT / tokens-per-s /
+                                 shed envelope (--json-out writes it)
+    --step-cost S                virtual seconds per model call under --trace
 """
 
 from __future__ import annotations
@@ -78,7 +85,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Any, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -86,13 +93,6 @@ from ..backend import EmulatedBackend, get_backend
 from ..configs import ARCHS, get_config
 from ..models import model_api
 from ..serve import Request, ServeEngine, WaveServeEngine
-
-#: flags whose machinery is not ported: (test on args, what to say)
-_NOT_PORTED = (
-    (lambda a: a.serve_http is not None, "--serve-http: A11, server/"),
-    (lambda a: a.trace is not None, "--trace: A11, server/"),
-)
-
 
 def _attach_obs_outputs(engine, args) -> None:
     if args.trace_out:
@@ -167,18 +167,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    """Parse and validate; unported flags stop here through ``ap.error``."""
+    """Parse and validate; conflicting flags stop here through
+    ``ap.error``, with the JAX launcher's messages."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for hit, what in _NOT_PORTED:
-        if hit(args):
-            ap.error(f"not ported to repro_torch yet (ROADMAP.md queue A) — "
-                     f"{what}")
     if args.engine != "continuous" and (
-            args.backend != "ideal" or args.hwloop or args.policy != "fifo"
+            args.backend != "ideal" or args.hwloop or args.serve_http
+            or args.trace or args.policy != "fifo"
             or args.max_pending is not None):
-        ap.error("--backend/--hwloop/--policy/--max-pending require the "
-                 "continuous engine")
+        ap.error("--backend/--hwloop/--serve-http/--trace/--policy/"
+                 "--max-pending require the continuous engine")
+    if args.serve_http and args.trace:
+        ap.error("--serve-http and --trace are mutually exclusive")
     if args.autoscale != "static":
         if args.engine != "continuous":
             ap.error("--autoscale needs the continuous engine")
@@ -202,11 +202,12 @@ class ServeRun:
     wall_s: float
 
 
-def run(args: argparse.Namespace, params=None) -> ServeRun:
-    """Build the model and the engine from parsed flags, submit the random
-    workload and drain it.  ``params`` reuses an existing parameter tree
-    (it must lie on the run's device) instead of initialising from
-    ``--seed``."""
+def build_engine(args: argparse.Namespace, params=None,
+                 clock: Callable[[], float] = time.monotonic):
+    """Build the model and the engine from parsed flags, reading time from
+    ``clock`` (the trace harness passes its ``VirtualClock``).  ``params``
+    reuses an existing parameter tree (it must lie on the run's device)
+    instead of initialising from ``--seed``."""
     cfg = get_config(args.arch, smoke=args.smoke)
     api = model_api(cfg, device=args.device)     # raises without a GPU
     if params is None:
@@ -259,10 +260,16 @@ def run(args: argparse.Namespace, params=None) -> ServeRun:
     else:
         engine_cls = WaveServeEngine
     engine = engine_cls(cfg, params, slots=args.slots, max_len=args.max_len,
-                        device=api.device, **engine_kw)
+                        clock=clock, device=api.device, **engine_kw)
     _attach_obs_outputs(engine, args)
+    return engine
 
-    reqs = make_requests(cfg, args.requests, args.max_new, args.mixed,
+
+def run(args: argparse.Namespace, params=None) -> ServeRun:
+    """Build the engine (:func:`build_engine`), submit the random workload
+    and drain it."""
+    engine = build_engine(args, params)
+    reqs = make_requests(engine.cfg, args.requests, args.max_new, args.mixed,
                          args.seed)
     for req in reqs:
         engine.submit(req)
@@ -271,8 +278,78 @@ def run(args: argparse.Namespace, params=None) -> ServeRun:
     return ServeRun(engine, reqs, stats, time.time() - t0)
 
 
+def _serve_http(engine, hostport: str) -> None:
+    """Run the asyncio streaming frontend until interrupted, then drain."""
+    import asyncio
+
+    from ..server import ServeFrontend
+
+    host, _, port = hostport.rpartition(":")
+    frontend = ServeFrontend(engine)
+
+    async def serve() -> None:
+        bound = await frontend.start(host or "127.0.0.1", int(port))
+        print(f"serving on http://{bound[0]}:{bound[1]} "
+              f"(POST /v1/generate, GET /healthz /metrics /v1/stats); "
+              f"Ctrl-C drains + exits", flush=True)
+        try:
+            await frontend.serve_forever()    # until SIGINT cancels it
+        finally:
+            drained = await frontend.drain()
+            await frontend.close()
+            print(f"drained={drained}; served "
+                  f"{engine.stats.completed} completed / "
+                  f"{engine.stats.shed} shed / "
+                  f"{engine.stats.tokens_generated} tokens", flush=True)
+
+    try:
+        asyncio.run(serve())
+    except KeyboardInterrupt:
+        pass
+
+
+def _replay_trace(args: argparse.Namespace) -> None:
+    """Replay a saved traffic trace deterministically in virtual time."""
+    from ..server import LoadHarness, VirtualClock, load_trace
+
+    clock = VirtualClock()
+    engine = build_engine(args, clock=clock)
+    events = load_trace(args.trace)
+    harness = LoadHarness(engine, clock, step_cost_s=args.step_cost)
+    m = harness.replay(events)
+    p50 = "n/a" if m.ttft_p50_s is None else f"{1e3 * m.ttft_p50_s:.0f}ms"
+    p99 = "n/a" if m.ttft_p99_s is None else f"{1e3 * m.ttft_p99_s:.0f}ms"
+    met = "n/a" if m.deadline_met_frac is None \
+        else f"{100 * m.deadline_met_frac:.0f}%"
+    print(f"[trace {args.trace} on {engine.device}] {m.n_events} arrivals "
+          f"over {m.elapsed_virtual_s:.2f} virtual s: {m.completed} "
+          f"completed / {m.truncated} truncated / {m.shed} shed "
+          f"(rate {m.shed_rate:.2f}, by tier {m.shed_by_priority}); "
+          f"{m.tokens_per_s:.1f} tok/s, TTFT p50 {p50} p99 {p99}, "
+          f"SLO met {met}; wall {m.wall_s:.1f}s")
+    if args.json_out:
+        payload = {"arch": args.arch, "trace": args.trace,
+                   "slots": args.slots, "policy": args.policy,
+                   "max_pending": args.max_pending,
+                   "step_cost_s": args.step_cost, **m.to_dict()}
+        if engine.autoscaler is not None:
+            payload["railscale"] = engine.autoscaler.summary()
+        with open(args.json_out, "w") as f:
+            json.dump(payload, f, indent=2)
+        print(f"wrote {args.json_out}")
+    _finish_obs_outputs(engine, args)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    if args.trace:
+        _replay_trace(args)
+        return
+    if args.serve_http:
+        engine = build_engine(args)
+        _serve_http(engine, args.serve_http)
+        _finish_obs_outputs(engine, args)
+        return
     done = run(args)
     engine, reqs, stats, dt = (done.engine, done.requests, done.stats,
                                done.wall_s)

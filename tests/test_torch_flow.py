@@ -168,9 +168,9 @@ def test_cli_config_file(tmp_path):
     ["sweep", "--tech", "vtr-22nm,vivado-28nm", "--algo", "kmeans",
      "--array-n", "8", "--max-trials", "8", "--points-levels", "3",
      "--points-probe-steps", "2"]], ids=["run", "sweep"])
-def test_cli_points_out_stops_with_its_roadmap_item(argv, tmp_path, capsys):
-    """The flag the port once refused: now the reference CLI's ladder file,
-    byte for byte, with the probes on the CPU (``--device cpu``); and
+def test_cli_points_out_writes_the_references_ladder(argv, tmp_path, capsys):
+    """``--points-out`` writes the reference CLI's ladder file, byte for
+    byte, with the probes on the CPU (``--device cpu``); and
     without a GPU and without ``--device`` it stops before the flow runs."""
     t_path, j_path = tmp_path / "t.json", tmp_path / "j.json"
     t_out = _out(tmain, argv + ["--points-out", str(t_path), "--device",

@@ -336,17 +336,6 @@ def test_launcher_serves_the_ssm_archs_as_the_jax_launcher(
     assert t["backend_telemetry"] == j["backend_telemetry"]
 
 
-@pytest.mark.parametrize("flags", [["--serve-http", "127.0.0.1:0"],
-                                   ["--trace", "t.ndjson"]])
-def test_launcher_stops_on_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        t_launch.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device",
-                       "cpu"] + flags)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err and "A11" in err
-
-
 @pytest.mark.parametrize("flags", [
     ["--backend", "emulated", "--guard", "abft"],
     ["--backend", "emulated", "--autoscale", "pid"]],
@@ -390,7 +379,12 @@ def test_launcher_runs_guarded_and_autoscaled_as_the_jax_launcher(
     (["--guard", "abft"], "--guard needs a non-ideal --backend"),
     (["--autoscale", "threshold"], "pass --backend emulated"),
     (["--autoscale", "pid", "--backend", "emulated", "--engine", "wave"],
-     "require the continuous engine")])
+     "require the continuous engine"),
+    (["--serve-http", "127.0.0.1:0", "--trace", "t.ndjson"],
+     "--serve-http and --trace are mutually exclusive"),
+    (["--trace", "t.ndjson", "--engine", "wave"],
+     "--backend/--hwloop/--serve-http/--trace/--policy/--max-pending require "
+     "the continuous engine")])
 def test_launcher_refuses_what_the_jax_launcher_refuses(flags, what, capsys):
     with pytest.raises(SystemExit) as exc:
         t_launch.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device",
