@@ -30,8 +30,14 @@ rwkv6-1.6b and
 zamba2-2.7b at their published width and depth: the same traffic served
 (every rwkv6 layer of every step on the ``wkv6`` kernel), the parallel forward
 against token-by-token decoding, and ``ModelAPI.loss`` on a (2, 2048) batch
-(``wkv6`` / ``ssd_chunk`` in every layer).  Weights are random, from seeded
-generators.  Needs a GPU and ``nvcc``; any phase that fails ends the run with
+(``wkv6`` / ``ssd_chunk`` in every layer).  Then the other families at their
+published width, the same traffic through the launcher on ``systolic_mac``:
+seamless-m4t-medium (encoder-decoder; also with seeded frames on its
+requests), llama4-scout-17b-a16e (MoE, 8 of its 48 layers) and
+llava-next-mistral-7b (VLM), each beside ``--slots 1`` and ``ideal``; and
+their frontends: llava's prefill of 2880 patch embeddings, seamless's and
+llama4's ``ModelAPI.loss``.  Weights are random, from seeded generators.
+Needs a GPU and ``nvcc``; any phase that fails ends the run with
 a non-zero exit code.
 
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
@@ -42,7 +48,9 @@ Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
 ``autoscale``, ``serve_http``, ``serve_trace``, ``chaos``, per state-space
 model
 ``serve_ssm``, ``decode_vs_parallel`` and ``loss`` (with a profile by CUDA
-kernel), ``profile_misses`` (profiled measurements left null, with what each
+kernel), per model of the other families ``serve_families`` and
+``frontends``, ``profile_misses`` (profiled measurements left null, with what
+each
 try saw), ``total`` (the script's seconds),
 then ``{"kernels": [...]}`` (per
 kernel: launches on its path, error against the plain version, time, the
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -155,6 +164,22 @@ TRACE_OVERLOAD, TRACE_STEP_COST, TRACE_DURATION = 1.5, 0.065, 10.0
 #: serve_guard)
 CHAOS_SCENARIOS = ["rail_droop", "slow_decode", "client_disconnect",
                    "overload_shed"]
+#: the other families, served at published width through the launcher:
+#: encdec, moe (depth cut to FAMILY_LAYERS) and vlm
+FAMILY_ARCHS = ("seamless-m4t-medium", "llama4-scout-17b-a16e",
+                "llava-next-mistral-7b")
+#: llama4-scout on one card: 8 of its 48 layers (about 4.4 GB of bf16 a
+#: layer, almost all of it the 16 experts; the whole model about 211 GB)
+FAMILY_LAYERS = {"llama4-scout-17b-a16e": 8}
+#: grok-1-314b is not served (about 9.7 GB a layer); its f32 router's
+#: N = 8 is checked among the kernel's shapes
+GROK = "grok-1-314b"
+#: (batch, sequence) of the frontends phase's scored batches
+FRONTEND_LOSS = (1, 256)
+#: llava's prefill in the frontends phase: its anyres patch positions
+#: (cfg.frontend_tokens) in front of a prompt of this many tokens, then
+#: this many decode steps
+VLM_PROMPT, VLM_STEPS = 64, 8
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -342,6 +367,50 @@ def zamba2_gemms(cfg):
             "w1/wg": (d, ff, 2 * apps, False, bf),
             "w2": (ff, d, apps, False, bf),
             "logits": (d, cfg.padded_vocab, 1, True, bf)}
+
+
+def encdec_gemms(cfg):
+    """The same for seamless-m4t-medium's decode step: each decoder layer's
+    self-attention (q, k, v, o), cross-attention q and o (the memory's K/V
+    are projected once, at prefill) and MLP."""
+    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    L, bf = cfg.n_layers, "bfloat16"
+    return {"wq/wo (self, cross)": (d, qd, 4 * L, False, bf),
+            "wk/wv": (d, kvd, 2 * L, False, bf),
+            "w1/wg": (d, ff, 2 * L, False, bf),
+            "w2": (ff, d, L, False, bf),
+            "logits": (d, cfg.padded_vocab, 1, True, bf)}
+
+
+def moe_gemms(cfg):
+    """The same for an MoE model's decode step (llama4-scout): attention, the
+    f32 router (N = the experts), and the up/gate/down products of every
+    expert (dense dispatch: each expert multiplies every token) and of the
+    shared expert."""
+    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    L, bf = cfg.n_layers, "bfloat16"
+    ffns = cfg.n_experts + int(cfg.shared_expert)
+    return {"wq/wo": (d, qd, 2 * L, False, bf),
+            "wk/wv": (d, kvd, 2 * L, False, bf),
+            "router (f32)": (d, cfg.n_experts, L, False, "float32"),
+            "w1/wg (experts, shared)": (d, ff, 2 * ffns * L, False, bf),
+            "w2 (experts, shared)": (ff, d, ffns * L, False, bf),
+            "logits": (d, cfg.padded_vocab, 1, True, bf)}
+
+
+def family_gemms(cfg):
+    """(prefill, decode step) GEMMs of a model of the other families, as
+    ``models/lm.py`` and ``models/encdec.py`` launch them (swiglu MLPs):
+    seamless's prefill runs the encoder (7 a layer) and, a decoder layer,
+    attention (whose K/V fill the cache), the memory's K/V, cross-attention
+    q/o and the MLP (11); its decode step 9 a layer."""
+    L = cfg.n_layers
+    if cfg.family == "encdec":
+        return 7 * cfg.n_enc_layers + 11 * L + 1, 9 * L + 1
+    per_layer = 7
+    if cfg.n_experts:
+        per_layer = 5 + 3 * (cfg.n_experts + int(cfg.shared_expert))
+    return per_layer * L + 1, per_layer * L + 1
 
 
 def check_serving_shapes(torch, arch, weights, systolic_mac,
@@ -3415,7 +3484,456 @@ def loss_phase(torch, cfg, params, api, ssm_mod, plains, counters):
                  "share": v[0] / device_ms} for k, v in top] or None}
 
 
+def release(torch):
+    """Free what the last model left before the next is made: its engines
+    and requests hold reference cycles, which keep its parameters alive
+    until the collector runs; then hand the cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_config(get_config, arch):
+    """``arch`` at published width, its depth cut where one card cannot
+    hold it (FAMILY_LAYERS); the row's ``reduced`` says so."""
+    cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    return cfg
+
+
+@contextlib.contextmanager
+def depth_cut(serve_mod, cfg):
+    """The launcher builds ``cfg`` (a depth cut of its arch) where it would
+    build the published config, inside the block."""
+    saved = serve_mod.get_config
+
+    def get_config(arch, smoke=False):
+        if arch == cfg.name and not smoke:
+            return cfg
+        return saved(arch, smoke=smoke)
+    serve_mod.get_config = get_config
+    try:
+        yield
+    finally:
+        serve_mod.get_config = saved
+
+
+@contextlib.contextmanager
+def recording_routes(layers_mod, sink):
+    """Each MoE routing decision (the expert indices, on the device) is
+    appended to ``sink`` inside the block."""
+    inner = layers_mod._router
+
+    def router(x, p, cfg):
+        w, idx, probs = inner(x, p, cfg)
+        sink.append(idx)
+        return w, idx, probs
+    layers_mod._router = router
+    try:
+        yield
+    finally:
+        layers_mod._router = inner
+
+
+def alone_steps(torch, api, params, req, frames, backend, mods):
+    """One served request alone on ``backend``: its prompt (and frames), then
+    its served tokens fed back but the last; the logits (f32) after the
+    prompt and after each token."""
+    out = []
+    with mods.use_backend(mods.get_backend(backend)):
+        batch = {"tokens": torch.tensor([req.prompt], device=DEVICE)}
+        if api.cfg.family == "encdec":
+            batch["frames"] = frames
+        logits, state = api.prefill(params, batch, max_len=MAX_LEN)
+        out.append(logits[0].float())
+        for t in req.out_tokens[:-1]:
+            logits, state = api.decode_step(
+                params, state, torch.tensor([[t]], device=DEVICE))
+            out.append(logits[0].float())
+    return out
+
+
+def serve_family(torch, arch, cfg, params, mods, counters, layers_mod):
+    """seamless-m4t-medium, llama4-scout-17b-a16e (depth cut) or
+    llava-next-mistral-7b through the launcher at published width, the phi4
+    phase's traffic under ``reference``: GEMM and kernel counts, zero flags,
+    tokens equal to a ``slots=1`` run's and under ``ideal`` equal up to ties
+    (C1).  Each request alone on both backends gives the logits' largest gap
+    and, for llama4, the routing decisions that differ; seamless is also
+    served with seeded frames on its requests."""
+    serve_mod = mods.serve
+    prefill_gemms, decode_gemms = family_gemms(cfg)
+    argv = ["--arch", arch, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--requests", str(REQUESTS), "--max-new", str(MAX_NEW), "--mixed",
+            "--seed", str(SEED)]
+
+    def check_run(what, stats, launches, requests):
+        tel = stats.backend_telemetry
+        want = (prefill_gemms * stats.prefill_steps
+                + decode_gemms * stats.decode_steps)
+        if stats.completed != REQUESTS or stats.truncated or stats.unserved:
+            fail(f"{what}: {stats.completed} of {REQUESTS} completed, "
+                 f"{stats.truncated} truncated, {stats.unserved} unserved")
+        if not launches["systolic_mac"] == tel["calls"] == want:
+            fail(f"{what}: {launches['systolic_mac']} systolic_mac launches, "
+                 f"{tel['calls']} backend GEMMs, expected {prefill_gemms} x "
+                 f"{stats.prefill_steps} prefill + {decode_gemms} x "
+                 f"{stats.decode_steps} decode steps")
+        if tel["flags"] != 0:
+            fail(f"{what}: {tel['flags']} flags at nominal rails")
+        for r in requests:
+            if len(r.out_tokens) != r.max_new_tokens or not all(
+                    0 <= t < cfg.padded_vocab for t in r.out_tokens):
+                fail(f"{what}: request {r.uid} produced {r.out_tokens}")
+
+    with depth_cut(serve_mod, cfg):
+        for backend in ("reference", "ideal"):          # warm-up, uncounted
+            serve_mod.run(serve_mod.parse_args(
+                ["--arch", arch, "--slots", "2", "--max-len", str(MAX_LEN),
+                 "--requests", "2", "--max-new", "2", "--backend", backend]),
+                params)
+        torch.cuda.synchronize()
+
+        # ---- the main path: counts set to 0 just before, read just after
+        counters.zero()
+        run = serve_mod.run(serve_mod.parse_args(argv + ["--backend",
+                                                         "reference"]), params)
+        torch.cuda.synchronize()
+        launches = counters.read()
+        stats, tel = run.stats, run.stats.backend_telemetry
+        check_run(f"serve_families {arch}", stats, launches, run.requests)
+
+        # ---- beside it: one slot at a time (must be equal), under ideal
+        # (equal up to ties), each request alone on both backends
+        run1 = serve_mod.run(serve_mod.parse_args(
+            argv[:2] + ["--slots", "1"] + argv[4:]
+            + ["--backend", "reference"]), params)
+        if [r.out_tokens for r in run.requests] != [r.out_tokens
+                                                   for r in run1.requests]:
+            fail(f"serve_families {arch}: tokens differ from a slots=1 run")
+        ideal = serve_mod.run(serve_mod.parse_args(argv + ["--backend",
+                                                           "ideal"]), params)
+    api = mods.model_api(cfg)
+    # the frames the engine gives a request that carries none
+    frames = torch.zeros((1, MAX_LEN // cfg.enc_frames_ratio, cfg.d_model),
+                         dtype=torch.bfloat16, device=DEVICE)
+    alone, routes = {}, {"reference": [], "ideal": []}
+    for backend in ("reference", "ideal"):
+        with recording_routes(layers_mod, routes[backend]):
+            alone[backend] = [alone_steps(torch, api, params, r, frames,
+                                          backend, mods)
+                              for r in run.requests]
+    for r, steps in zip(run.requests, alone["reference"]):
+        if [int(lg.argmax()) for lg in steps] != r.out_tokens:
+            fail(f"serve_families {arch}: request {r.uid} alone gives other "
+                 f"tokens than served beside the others")
+    worst_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for ra, rb in zip(alone["reference"], alone["ideal"])
+                    for a, b in zip(ra, rb))
+    parted, worst_gap = tokens_up_to_ties(
+        torch, run.requests, ideal.requests,
+        lambda r, fed: alone["ideal"][r.uid][len(fed)],
+        f"serve_families {arch} reference against ideal")
+    if len(routes["reference"]) != len(routes["ideal"]):
+        fail(f"serve_families {arch}: {len(routes['reference'])} routing "
+             f"calls on reference, {len(routes['ideal'])} on ideal")
+    routings = sum(int((a != b).any(-1).sum())
+                   for a, b in zip(routes["reference"], routes["ideal"]))
+    route_rows = sum(int(x.shape[0]) for x in routes["reference"])
+    row = {
+        "arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": mods.param_count(params),
+        "backend": "reference", "slots": SLOTS, "max_len": MAX_LEN,
+        "requests": REQUESTS, "completed": stats.completed,
+        "prefill_steps": stats.prefill_steps,
+        "decode_steps": stats.decode_steps,
+        "tokens_generated": stats.tokens_generated,
+        "gemm_calls": tel["calls"], "gemms_per_prefill": prefill_gemms,
+        "gemms_per_decode_step": decode_gemms, "launches": launches,
+        "macs": tel["macs"], "flags": tel["flags"], "wall_s": run.wall_s,
+        "model_step_ms": 1e3 * run.wall_s / stats.model_steps,
+        "tokens_per_s": stats.tokens_generated / run.wall_s,
+        "ttft_mean_s": sum(stats.ttft_s) / len(stats.ttft_s),
+        "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tokens_equal_to_slots_1": True,
+        "alone_tokens_equal_to_served": True,
+        "ideal_tokens_per_s": ideal.stats.tokens_generated / ideal.wall_s,
+        "ideal_model_step_ms": 1e3 * ideal.wall_s / ideal.stats.model_steps,
+        "requests_parting_from_ideal": parted,
+        "worst_gap_at_parting": worst_gap,
+        "worst_logits_err_vs_ideal_alone": worst_err,
+        "tie_limit": 2 * TOL_LOGITS}
+    if cfg.n_experts:
+        # not bounded: where a routing differs, that token's expert output
+        # is another function's, so its logits are too; the tokens are held
+        # to the C1 rule above
+        row["routings_differing_from_ideal"] = routings
+        row["routings_compared"] = route_rows
+    if arch in FAMILY_LAYERS:
+        row["reduced"] = {"n_layers": [mods.get_config(arch).n_layers,
+                                       cfg.n_layers],
+                          "why": "one card holds 8 of the 48 layers with "
+                                 "the 2.07 GB embedding (about 37 GB of "
+                                 "bf16); the whole model is about 211 GB"}
+    if cfg.family == "encdec":
+        with depth_cut(serve_mod, cfg):
+            row["with_frames"] = encdec_frames_run(
+                torch, cfg, params, mods, counters, check_run, argv,
+                run.requests)
+    return row
+
+
+def encdec_frames_run(torch, cfg, params, mods, counters, check_run, argv,
+                      zero_frame_requests):
+    """The seamless traffic again, each request carrying seeded nonzero
+    frames of ``MAX_LEN // enc_frames_ratio`` positions: counts as the main
+    run, tokens equal to a ``slots=1`` run's, and at least one request's
+    tokens moved by its frames (the engine reads ``Request.frames``)."""
+    serve_mod = mods.serve
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 30)
+    frames = [torch.randn((1, MAX_LEN // cfg.enc_frames_ratio, cfg.d_model),
+                          generator=gen, device=DEVICE).to(torch.bfloat16)
+              for _ in range(REQUESTS)]
+
+    def served(slots):
+        args = serve_mod.parse_args(argv[:2] + ["--slots", str(slots)]
+                                    + argv[4:] + ["--backend", "reference"])
+        engine = serve_mod.build_engine(args, params)
+        reqs = serve_mod.make_requests(engine.cfg, REQUESTS, MAX_NEW, True,
+                                       SEED)
+        for r in reqs:
+            r.frames = frames[r.uid]
+        counters.zero()
+        for r in reqs:
+            engine.submit(r)
+        t0 = time.monotonic()
+        stats = engine.run_until_drained()
+        torch.cuda.synchronize()
+        return reqs, stats, counters.read(), time.monotonic() - t0
+
+    reqs, stats, launches, wall = served(SLOTS)
+    check_run(f"serve_families {cfg.name} with frames", stats, launches,
+              reqs)
+    reqs1, *_ = served(1)
+    if [r.out_tokens for r in reqs] != [r.out_tokens for r in reqs1]:
+        fail(f"serve_families {cfg.name} with frames: tokens differ from a "
+             f"slots=1 run")
+    moved = sum(a.out_tokens != b.out_tokens
+                for a, b in zip(reqs, zero_frame_requests))
+    if moved == 0:
+        fail(f"serve_families {cfg.name}: no request's tokens moved with its "
+             f"frames")
+    return {"frames_shape": list(frames[0].shape),
+            "gemm_calls": stats.backend_telemetry["calls"],
+            "launches": launches, "completed": stats.completed,
+            "model_step_ms": 1e3 * wall / stats.model_steps,
+            "tokens_equal_to_slots_1": True,
+            "requests_moved_by_frames": moved}
+
+
+def frontend_loss(torch, cfg, params, api, mods, counters):
+    """``ModelAPI.loss`` on a seeded (1, 256) batch (seamless: with seeded
+    frames of 64 positions) under ``reference`` and under ``ideal``: finite,
+    near ln(V) for random weights, the two within TOL_LOSS relative; B1
+    launches = the backend's GEMM calls; seconds per call."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 31)
+    b, s = FRONTEND_LOSS
+    batch = {"tokens": torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
+                                     device=DEVICE),
+             "labels": torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
+                                     device=DEVICE)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (b, s // cfg.enc_frames_ratio, cfg.d_model), generator=gen,
+            device=DEVICE).to(torch.bfloat16)
+    out = {}
+    for backend in ("ideal", "reference"):
+        be = mods.get_backend(backend)
+        with mods.use_backend(be):
+            api.loss(params, batch)                      # warm-up
+            torch.cuda.synchronize()
+            counters.zero()
+            calls0 = be.summary()["calls"] if backend != "ideal" else 0
+            t0 = time.monotonic()
+            loss = float(api.loss(params, batch))
+            seconds = time.monotonic() - t0
+            launches = counters.read()["systolic_mac"]
+            calls = be.summary()["calls"] - calls0 if backend != "ideal" \
+                else 0
+        if launches != calls:
+            fail(f"frontends loss {cfg.name} {backend}: {launches} "
+                 f"systolic_mac launches for {calls} GEMM calls")
+        out[backend] = {"loss": loss, "seconds_per_call": seconds,
+                        "systolic_mac_launches": launches}
+    ln_v = math.log(cfg.padded_vocab)
+    ref, ideal = out["reference"]["loss"], out["ideal"]["loss"]
+    gap = abs(ref - ideal) / abs(ideal)
+    if not (math.isfinite(ref) and 0.5 * ln_v < ref < 2 * ln_v):
+        fail(f"frontends loss {cfg.name}: {ref} (random weights: near ln V "
+             f"= {ln_v})")
+    if not gap <= TOL_LOSS:
+        fail(f"frontends loss {cfg.name}: {ref} on reference, {ideal} on "
+             f"ideal (gap {gap}, limit {TOL_LOSS})")
+    return {"arch": cfg.name, "what": "loss", "batch": [b, s],
+            **({"frames": list(batch["frames"].shape)}
+               if "frames" in batch else {}),
+            "by_backend": out, "loss_gap_rel": gap, "loss_gap_limit": TOL_LOSS,
+            "ln_padded_vocab": ln_v}
+
+
+def vlm_prefill(torch, cfg, params, api, mods, counters, plain):
+    """llava's ``ModelAPI.prefill`` at published width with seeded patch
+    embeddings (1, 2880, d) in front of a 64-token prompt, then 8 decode
+    steps, under ``reference`` (B1 launches = 225 a model call) and under
+    ``ideal`` with the reference's tokens fed: prefill logits within
+    TOL_LOGITS, tokens equal up to ties (C1) at every step; the reference
+    prefill's device time by kernel (B1 at M = 2944), and its GEMMs on their
+    own operands (:func:`prefill_gemms`)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 32)
+    p = cfg.frontend_tokens
+    batch = {"patch_embeds": torch.randn((1, p, cfg.d_model), generator=gen,
+                                         device=DEVICE).to(torch.bfloat16),
+             "tokens": torch.randint(3, cfg.vocab_size, (1, VLM_PROMPT),
+                                     generator=gen, device=DEVICE)}
+    s = p + VLM_PROMPT
+    max_len = s + VLM_STEPS
+    per_call = family_gemms(cfg)[1]
+
+    def steps(backend, fed=None):
+        out, toks = [], []
+        with mods.use_backend(mods.get_backend(backend)):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            logits, state = api.prefill(params, batch, max_len=max_len)
+            torch.cuda.synchronize()
+            prefill_s = time.monotonic() - t0
+            if state["index"].tolist() != [s]:
+                fail(f"frontends llava prefill: index {state['index']}, "
+                     f"expected {s}")
+            for i in range(VLM_STEPS + 1):
+                out.append(logits[0].float())
+                toks.append(int(logits[0].argmax()))
+                if i == VLM_STEPS:
+                    break
+                t = toks[-1] if fed is None else fed[i]
+                logits, state = api.decode_step(
+                    params, state, torch.tensor([[t]], device=DEVICE))
+        return out, toks, prefill_s
+
+    steps("reference")                                   # warm-up
+    counters.zero()
+    ref, ref_toks, ref_s = steps("reference")
+    torch.cuda.synchronize()
+    launches = counters.read()["systolic_mac"]
+    if launches != per_call * (VLM_STEPS + 1):
+        fail(f"frontends llava prefill: {launches} systolic_mac launches, "
+             f"expected {per_call} x {VLM_STEPS + 1} model calls")
+    ideal, ideal_toks, ideal_s = steps("ideal", fed=ref_toks)
+    scale = float(ideal[0].abs().max())
+    err = float((ref[0] - ideal[0]).abs().max())
+    if not (bool(torch.isfinite(ref[0]).all()) and err <= TOL_LOGITS * scale):
+        fail(f"frontends llava prefill: logits differ from ideal by {err} "
+             f"(limit {TOL_LOGITS * scale})")
+    worst_gap, parted = 0.0, 0
+    for i, (lr, li) in enumerate(zip(ref, ideal)):
+        t = ref_toks[i]
+        if t == ideal_toks[i]:
+            continue
+        parted += 1
+        gap = float(li.max() - li[t]) / float(li.abs().max())
+        worst_gap = max(worst_gap, gap)
+        if gap > 2 * TOL_LOGITS:
+            fail(f"frontends llava: step {i} parts from ideal with a gap of "
+                 f"{gap} of max|logits| (limit {2 * TOL_LOGITS})")
+    with mods.use_backend(mods.get_backend("reference")):
+        prof = profile_calls(torch, {"prefill": lambda: api.prefill(
+            params, batch, max_len=max_len)})["prefill"]
+    b1 = None if prof is None else sum(r["ms"] for r in prof
+                                       if r["kernel"] == "systolic_mac_kernel")
+    gemms = prefill_gemms(torch, api, params, batch, max_len, mods, plain)
+    if gemms["calls"] != per_call:
+        fail(f"frontends llava prefill: {gemms['calls']} GEMMs recorded, "
+             f"expected {per_call}")
+    return {"arch": cfg.name, "what": "prefill with patch embeddings",
+            "patch_positions": p, "prompt_tokens": VLM_PROMPT,
+            "index": s, "decode_steps": VLM_STEPS,
+            "systolic_mac_launches": launches,
+            "prefill_s": {"reference": ref_s, "ideal": ideal_s},
+            "prefill_logits_max_err_vs_ideal": err,
+            "prefill_logits_max_err_limit": TOL_LOGITS * scale,
+            "steps_parting_from_ideal": parted,
+            "worst_gap_at_parting": worst_gap, "tie_limit": 2 * TOL_LOGITS,
+            "prefill_device_ms": (None if prof is None
+                                  else sum(r["ms"] for r in prof)),
+            "prefill_systolic_mac_device_ms": b1,
+            "prefill_systolic_mac_M": s,
+            "prefill_top_kernels": None if prof is None else prof[:6],
+            "prefill_gemms": gemms}
+
+
+def prefill_gemms(torch, api, params, batch, max_len, mods, plain):
+    """Every GEMM of one ``reference`` prefill, recorded as the backend
+    hands it to B1 (the operands where and as they lie): each launched
+    again and held against the plain version within TOL_CLEAN of its
+    largest magnitude at nominal rails, then all of them timed back to back
+    by events (B1 as the backend launches it, the plain version,
+    ``torch.matmul`` of the same operands) beside the sum of their bounds."""
+    systolic_mac_plain, largest_common_block = plain
+    be = mods.get_backend("reference")
+    ops, execute = [], be._execute
+
+    def recording(a, b, count_flags, counter):
+        ops.append((a, b))
+        return execute(a, b, count_flags, counter)
+    be._execute = recording
+    try:
+        with mods.use_backend(be):
+            api.prefill(params, batch, max_len=max_len)
+    finally:
+        del be._execute
+    rails, bounds, worst = [], [], 0.0
+    for a, b in ops:
+        (m, k), n = a.shape, b.shape[1]
+        block = largest_common_block(m, n)
+        grid = (m // block, n // block)
+        rails.append((torch.ones(grid, device=a.device),
+                      torch.zeros(grid, device=a.device), block))
+        c, _ = execute(a, b, False, None)
+        c_ref, flags = systolic_mac_plain(a, b, *rails[-1][:2],
+                                          block_m=block, block_n=block)
+        ratio = float((c - c_ref).abs().max()) / (
+            TOL_CLEAN * float(c_ref.abs().max()))
+        if not (math.isfinite(ratio) and ratio <= 1 and int(flags.sum()) == 0):
+            fail(f"frontends llava prefill GEMM ({m}, {k}) x ({k}, {n}): "
+                 f"{ratio} of the limit, {int(flags.sum())} flags")
+        worst = max(worst, ratio)
+        bounds.append(bound_ms(m, k, n, *grid,
+                               str(a.dtype).replace("torch.", "")))
+        del c, c_ref
+    n_ops = len(ops)
+
+    def plain_call(i):
+        (a, b), (v, vs, block) = ops[i], rails[i]
+        return systolic_mac_plain(a, b, v, vs, block_m=block, block_n=block)
+    times = {
+        name: n_ops * time_ms(fn, n_ops, n_ops) for name, fn in (
+            ("ms", lambda i: execute(*ops[i], False, None)),
+            ("plain_ms", plain_call),
+            ("library_ms", lambda i: torch.matmul(*ops[i])))}
+    by = {}
+    for _, kind in bounds:
+        by[kind] = by.get(kind, 0) + 1
+    return {"calls": n_ops,
+            "M": sorted({a.shape[0] for a, _ in ops}),
+            "max_err_over_limit": worst, "limit_rel": TOL_CLEAN, **times,
+            "bound_ms": sum(t for t, _ in bounds), "bound_by": by}
+
+
 SSM_GEMMS = {"rwkv6-1.6b": rwkv6_gemms, "zamba2-2.7b": zamba2_gemms}
+FAMILY_GEMMS = {"encdec": encdec_gemms, "moe": moe_gemms, "vlm": dense_gemms}
 
 
 def recurrence_entry(name, source, replaces, rows, timed_case, launches,
@@ -3559,12 +4077,40 @@ def main() -> int:
         shapes += check_serving_shapes(
             torch, arch, SSM_GEMMS[arch](get_config(arch)), systolic_mac,
             systolic_mac_plain, largest_common_block, ms=range(1, 5), timed_ms=(DECODE_M,))
+    family_tables = {
+        arch: FAMILY_GEMMS[c.family](c) for arch, c in (
+            (x, family_config(get_config, x)) for x in FAMILY_ARCHS)}
+    grok = get_config(GROK)
+    family_tables[GROK] = {"router (f32)": (grok.d_model, grok.n_experts,
+                                            grok.n_layers, False, "float32")}
+    for arch, table in family_tables.items():
+        shapes += check_serving_shapes(
+            torch, arch, table, systolic_mac, systolic_mac_plain,
+            largest_common_block,
+            timed_ms=(DECODE_M,) if arch != GROK else ())
+    # the row counts of the new paths past a prompt's: seamless's frames
+    # (served, and in the loss) and loss chunks, llama4's loss chunks and
+    # llava's prefill (patches and prompt; its logits take the last row)
+    seamless = family_config(get_config, FAMILY_ARCHS[0])
+    t_serve, t_loss = (MAX_LEN // seamless.enc_frames_ratio,
+                       FRONTEND_LOSS[1] // seamless.enc_frames_ratio)
+    llava = family_config(get_config, FAMILY_ARCHS[2])
+    long_ms = {FAMILY_ARCHS[0]: (t_serve, t_loss, FRONTEND_LOSS[1]),
+               FAMILY_ARCHS[1]: (FRONTEND_LOSS[1],),
+               FAMILY_ARCHS[2]: (llava.frontend_tokens + VLM_PROMPT,)}
+    for arch, ms in long_ms.items():
+        table = {name: w for name, w in family_tables[arch].items()
+                 if not (arch == FAMILY_ARCHS[2] and name == "logits")}
+        shapes += check_serving_shapes(
+            torch, arch, table, systolic_mac, systolic_mac_plain,
+            largest_common_block, ms=ms, timed_ms=())
     # every model weight's (K, N, transposed view?); phi4-mini's w2 also at
     # M = 64 and 256
     model_shapes = {}
     for arch, table in ((ARCH, dense_gemms(cfg)),
                         *((x, SSM_GEMMS[x](get_config(x)))
-                          for x in SSM_ARCHS)):
+                          for x in SSM_ARCHS),
+                        *family_tables.items()):
         for name, (k, n, _, transposed, _) in table.items():
             key = (k, n, transposed)
             model_shapes[key] = model_shapes.get(key, False) or (
@@ -3638,7 +4184,7 @@ def main() -> int:
     mods = types.SimpleNamespace(
         serve=serve_mod, use_backend=use_backend, get_backend=get_backend,
         model_api=model_api, ShapeConfig=ShapeConfig, param_count=param_count,
-        ServeEngine=ServeEngine)
+        ServeEngine=ServeEngine, get_config=get_config)
     ref = types.SimpleNamespace(requests=ref_run.requests,
                                 engine=ref_run.engine,
                                 model_step_ms=served["model_step_ms"],
@@ -3658,7 +4204,7 @@ def main() -> int:
     campaign = chaos(torch, cfg, params, abft_mod.abft_checksums)
     emit("chaos", campaign)
     del params, ref_run, ref
-    torch.cuda.empty_cache()
+    release(torch)
 
     # ---- the state-space models: served, decode against parallel, scored
     ssm_launches = {}
@@ -3683,7 +4229,41 @@ def main() -> int:
         emit("loss", row)
         ssm_launches[arch, "loss"] = row["launches"]
         del api, params
-        torch.cuda.empty_cache()
+        release(torch)
+
+    # ---- the other families: served through the launcher, then their
+    # frontends (llava's patch prefill; seamless's and llama4's loss)
+    family_launches = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.monotonic()
+        cfg_a = family_config(get_config, arch)
+        api = model_api(cfg_a)
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(SEED)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        row = serve_family(torch, arch, cfg_a, params, mods, counters,
+                           layers_mod)
+        row.update(init_params_s=init_s, init_peak_device_memory_gb=init_peak,
+                   device_memory_held_before_init_gb=held_gb,
+                   seconds=time.monotonic() - t0)
+        emit("serve_families", row)
+        family_launches[arch] = row["launches"]["systolic_mac"]
+        t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+        if cfg_a.family == "vlm":
+            row = vlm_prefill(torch, cfg_a, params, api, mods, counters,
+                              (systolic_mac_plain, largest_common_block))
+        else:
+            row = frontend_loss(torch, cfg_a, params, api, mods, counters)
+        row.update(seconds=time.monotonic() - t0, peak_device_memory_gb=(
+            torch.cuda.max_memory_allocated() / 1e9))
+        emit("frontends", row)
+        del api, params
+        release(torch)
 
     emit("profile_misses", {"rows": PROFILE_MISSES,
                             "tries_per_measurement": PROFILE_TRIES})
@@ -3730,7 +4310,8 @@ def main() -> int:
                         "host's launch work included)",
         "launches_by_path": {"serve": launches,
                              "serve_http": http["kernel_launches"],
-                             "serve_trace": traced["kernel_launches"]},
+                             "serve_trace": traced["kernel_launches"],
+                             "serve_families": family_launches},
         "host_us_per_launch": {key: host[key] for key in (
             "systolic_mac_us", "reference_route_us", "torch_matmul_us")},
         "decode_step_by_arch": {
@@ -3740,7 +4321,7 @@ def main() -> int:
                    for key in ("kernel_ms", "device_ms", "plain_ms",
                                "library_ms", "library_device_ms",
                                "bound_ms")}
-            for arch in SSM_ARCHS}}]
+            for arch in SSM_ARCHS + FAMILY_ARCHS}}]
     for name, source, replaces, rows, n, err_key in (
             ("razor_matmul", "src/repro_torch/csrc/razor_matmul.cu",
              "src/repro/kernels/razor_matmul.py:39", razor_rows, n_razor,

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the unified decoder LM (dense family) and the
-state-space families (rwkv6, zamba2), layers stacked on a leading axis."""
+"""Model zoo of the port: the unified decoder LM (dense, MoE and VLM
+families), the encoder-decoder (seamless) and the state-space families
+(rwkv6, zamba2), layers stacked on a leading axis."""
 
 from .api import ModelAPI, model_api
 from .convert import decode_state_from_numpy, params_from_numpy

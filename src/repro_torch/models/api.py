@@ -11,10 +11,10 @@
         (continuous batching: one batch row is admitted/evicted without
         recomputing the rest of the batch)
 
-Counterpart of ``repro.models.api``.  The dense, ssm (rwkv6) and hybrid
-(zamba2) families are ported; the other families raise
-``NotImplementedError`` naming their ROADMAP item.  As in the JAX package,
-ssm/hybrid prompts are absorbed by ``decode_step`` (``prefill`` raises).  The
+Counterpart of ``repro.models.api``, for every family (dense, moe, vlm,
+ssm, hybrid, encdec); ``BatchSpec`` and ``input_specs`` wait for the training
+slice (ROADMAP A13).  As in the JAX package, ssm/hybrid prompts are absorbed
+by ``decode_step`` (``prefill`` raises).  The
 decode state is updated **in place**: ``decode_step``, ``slot_update`` and
 ``slot_reset`` write into the tensors they are given and return that tree.
 Steps, losses and state surgery run under ``torch.inference_mode()``; a
@@ -32,19 +32,10 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig, ShapeConfig
-from . import lm, ssm
+from . import encdec, lm, ssm
 from .shardlib import init_param_tree, tree_map
 
 Params = Dict[str, Any]
-
-#: families ported so far
-PORTED = ("dense", "ssm", "hybrid")
-
-_ROADMAP_ITEM = {
-    "moe": "queue A: MoE and VLM configs",
-    "vlm": "queue A: MoE and VLM configs",
-    "encdec": "queue A: models/encdec.py",
-}
 
 
 @dataclasses.dataclass
@@ -59,11 +50,6 @@ class ModelAPI:
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
-        if self.cfg.family not in PORTED:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.family} family is not "
-                f"ported yet (ROADMAP.md "
-                f"{_ROADMAP_ITEM.get(self.cfg.family, 'queue A')})")
         if self.backend is not None:
             # resolve a name to ONE instance up front: per-call resolution
             # would strand its telemetry
@@ -82,11 +68,15 @@ class ModelAPI:
 
     def param_specs(self) -> Params:
         f = self.cfg.family
+        if f in ("dense", "moe", "vlm"):
+            return lm.param_specs(self.cfg)
         if f == "ssm":
             return ssm.rwkv6_param_tree(self.cfg)
         if f == "hybrid":
             return ssm.zamba2_param_tree(self.cfg)
-        return lm.param_specs(self.cfg)
+        if f == "encdec":
+            return encdec.param_specs(self.cfg)
+        raise ValueError(f"unknown family {f}")
 
     def init_params(self, seed: int = 0,
                     device: DeviceLike = None) -> Params:
@@ -104,24 +94,29 @@ class ModelAPI:
     def loss(self, params: Params,
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
-        ``batch["labels"]``: a forward pass, no gradient (the training
-        substrate is not ported yet)."""
+        ``batch["labels"]`` (with ``patch_embeds`` in front for vlm, and
+        ``frames`` to attend to for encdec): a forward pass, no gradient
+        (the training substrate is not ported yet)."""
         f = self.cfg.family
         with self._scope(), torch.inference_mode():
             if f == "ssm":
                 return ssm.rwkv6_loss(params, batch, self.cfg)
             if f == "hybrid":
                 return ssm.zamba2_loss(params, batch, self.cfg)
+            if f == "encdec":
+                return encdec.loss_fn(params, batch, self.cfg)
             return lm.loss_fn(params, batch, self.cfg)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
-        if self.cfg.family != "dense":
+        f = self.cfg.family
+        if f in ("ssm", "hybrid"):
             raise NotImplementedError(
-                f"prefill for {self.cfg.family}: SSM/hybrid prompts are "
-                "absorbed by running decode_step over the prompt (O(1) "
-                "state)")
+                f"prefill for {f}: SSM/hybrid prompts are absorbed by "
+                "running decode_step over the prompt (O(1) state)")
         with self._scope(), torch.inference_mode():
+            if f == "encdec":
+                return encdec.prefill(params, batch, self.cfg, max_len)
             return lm.prefill(params, batch, self.cfg, max_len)
 
     def decode_step(self, params: Params, state: Params,
@@ -132,6 +127,8 @@ class ModelAPI:
                 return ssm.rwkv6_decode_step(params, state, tokens, self.cfg)
             if f == "hybrid":
                 return ssm.zamba2_decode_step(params, state, tokens, self.cfg)
+            if f == "encdec":
+                return encdec.decode_step(params, state, tokens, self.cfg)
             return lm.decode_step(params, state, tokens, self.cfg)
 
     # ---- specs ---------------------------------------------------------------
@@ -144,6 +141,8 @@ class ModelAPI:
         if self.cfg.family == "hybrid":
             return ssm.zamba2_state_specs(self.cfg, b, s,
                                           long_context=long_ctx)
+        if self.cfg.family == "encdec":
+            return encdec.decode_state_specs(self.cfg, b, s)
         return lm.decode_state_specs(self.cfg, b, s, long_context=long_ctx)
 
     # ---- per-slot state surgery (continuous batching) ------------------------

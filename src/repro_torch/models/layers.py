@@ -1,7 +1,8 @@
 """Shared model building blocks: norms, RoPE, GQA attention (prefill /
-cached decode, causal + sliding-window), SwiGLU/GELU MLPs, embedding and
-unembedding, and the sequence-chunked cross-entropy (forward only).
-Counterpart of ``repro.models.layers``; MoE is not ported yet.
+cached decode, causal + sliding-window), SwiGLU/GELU MLPs, MoE (dense
+dispatch), embedding and unembedding, and the sequence-chunked cross-entropy
+(forward only).  Counterpart of ``repro.models.layers``; the
+expert-parallel all-to-all MoE waits for the mesh (ROADMAP A14).
 
 Numerics policy: params bf16 (norm scales f32), matmuls bf16 with f32
 softmax/normalization.  Every dense GEMM goes through
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..backend import matmul as bmm
+from ..backend.base import routes_ideal
 from ..configs.base import ModelConfig
 from .shardlib import ParamSpec, shard
 
@@ -366,6 +368,102 @@ def mlp(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
                    approximate="tanh").to(x.dtype)
     h = shard(h, "batch", None, "tp")
     return bmm(h, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def moe_param_specs(cfg: ModelConfig, layers: Optional[int] = None) -> Params:
+    L = cfg.n_layers if layers is None else layers
+    lead = (L,) if L else ()
+    lax = ("layers",) if L else ()
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    bf = torch.bfloat16
+    if cfg.moe_shard == "expert":
+        # experts over the TP axis (llama4: 16 experts == 16-way model axis)
+        in_ax = lax + ("expert", "fsdp", None)
+        out_ax = lax + ("expert", None, "fsdp")
+    else:
+        # experts replicated across TP, FFN hidden sharded (grok: 8 experts)
+        in_ax = lax + (None, "fsdp", "tp")
+        out_ax = lax + (None, "tp", "fsdp")
+    specs = {
+        "router": ParamSpec(lead + (d, e), torch.float32,
+                            lax + ("fsdp", None)),
+        "w1": ParamSpec(lead + (e, d, ff), bf, in_ax),
+        "w2": ParamSpec(lead + (e, ff, d), bf, out_ax),
+    }
+    if cfg.act == "swiglu":
+        specs["wg"] = ParamSpec(lead + (e, d, ff), bf, in_ax)
+    return specs
+
+
+def _router(x: torch.Tensor, p: Params, cfg: ModelConfig):
+    """Top-k routing.  Returns (weights (t, k), indices (t, k), probs
+    (t, E)) over flat tokens.  Tied probabilities keep the lower expert
+    first, as ``jax.lax.top_k`` does: a stable descending sort
+    (``torch.topk`` promises no order among ties)."""
+    logits = bmm(x.to(torch.float32), p["router"])           # (t, E)
+    probs = F.softmax(logits, dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[:, :cfg.top_k], idx[:, :cfg.top_k]
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return w, idx, probs
+
+
+def moe_dense(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """Dense dispatch: every expert computes every token, gated combine.
+
+    Under the ideal backend one einsum contracts all experts; any other
+    backend gets E separate GEMMs an up/gate/down product, as the JAX
+    package's non-ideal branch.  The combine sums the experts in index order
+    in f32 and rounds once to bf16, so a token's output does not depend on
+    how many tokens share the batch."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    w, idx, _ = _router(xt, p, cfg)
+    gates = torch.zeros((t, cfg.n_experts), dtype=torch.float32,
+                        device=x.device)
+    gates.scatter_(1, idx, w)                                 # (t, E)
+    if routes_ideal():
+        def up(key):
+            return torch.einsum("td,edf->etf", xt, p[key])
+
+        def down(h):
+            return torch.einsum("etf,efd->etd", h, p["w2"])
+    else:
+        # per-expert GEMMs through the active backend (E dense matmuls)
+        def up(key):
+            return torch.stack([bmm(xt, p[key][e])
+                                for e in range(cfg.n_experts)])
+
+        def down(h):
+            return torch.stack([bmm(h[e], p["w2"][e])
+                                for e in range(cfg.n_experts)])
+    if cfg.act == "swiglu":
+        h = F.silu(up("wg").to(torch.float32)).to(xt.dtype)
+        h = h * up("w1")
+    else:
+        h = F.gelu(up("w1").to(torch.float32),
+                   approximate="tanh").to(xt.dtype)
+    y = down(h)                                               # (E, t, d)
+    # the gates round to y's dtype first, as the JAX package's einsum
+    g = gates.to(y.dtype).to(torch.float32)
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for e in range(cfg.n_experts):
+        out = out + y[e].to(torch.float32) * g[:, e:e + 1]
+    return out.to(y.dtype).reshape(b, s, d)
+
+
+def moe(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.moe_impl == "ep_a2a":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl='ep_a2a' (expert-parallel all-to-all "
+            "over a device mesh) is not ported yet (ROADMAP.md queue A, A14)")
+    return moe_dense(x, p, cfg)
 
 
 # ---------------------------------------------------------------------------

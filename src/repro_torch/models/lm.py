@@ -1,7 +1,7 @@
-"""Decoder-only transformer LM: the dense architectures (phi4-mini,
-starcoder2, granite, qwen1.5).  Counterpart of ``repro.models.lm``; the MoE
-and VLM branches are not ported yet, and ``loss_fn`` is a forward pass (no
-training substrate yet).
+"""Decoder-only transformer LM covering the dense, MoE and VLM-backbone
+architectures (llava-next-mistral, grok-1, llama4-scout, granite, qwen1.5,
+starcoder2, phi4-mini).  Counterpart of ``repro.models.lm``; ``loss_fn`` is
+a forward pass (no training substrate yet).
 
 Layers are stacked on a leading L axis (the JAX package's layout, so its
 parameter trees convert leaf by leaf) and driven by a Python loop over that
@@ -9,8 +9,8 @@ axis.  The stacked KV cache ``(L, b, S, n_kv, d_head)`` is **updated in
 place**, layer by layer: :func:`decode_step` returns the cache tensors it was
 given.  Callers run under ``torch.inference_mode()``.
 
-Every dense GEMM (qkv/o projections, MLP, unembedding logits) routes through
-the active ``repro_torch.backend``.
+Every dense GEMM (qkv/o projections, MLP, MoE router and experts,
+unembedding logits) routes through the active ``repro_torch.backend``.
 """
 
 from __future__ import annotations
@@ -23,17 +23,14 @@ from ..configs.base import ModelConfig
 from .layers import (KVCacheSpec, _quant_kv, attention,
                      attention_param_specs, chunked_softmax_xent,
                      decode_attention, embed, embed_param_specs, logits_last,
-                     mlp, mlp_param_specs, rmsnorm, rmsnorm_spec)
+                     mlp, mlp_param_specs, moe, moe_param_specs, rmsnorm,
+                     rmsnorm_spec)
 from .shardlib import ParamSpec, tree_map
 
 Params = Dict[str, Any]
 
 
 def param_specs(cfg: ModelConfig) -> Params:
-    if cfg.n_experts or cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md queue A: MoE and VLM configs)")
     L = cfg.n_layers
     blocks: Params = {
         "norm_attn": ParamSpec((L, cfg.d_model), torch.float32,
@@ -41,8 +38,13 @@ def param_specs(cfg: ModelConfig) -> Params:
         "norm_mlp": ParamSpec((L, cfg.d_model), torch.float32,
                               ("layers", None), init="ones"),
         "attn": attention_param_specs(cfg),
-        "mlp": mlp_param_specs(cfg),
     }
+    if cfg.n_experts:
+        blocks["moe"] = moe_param_specs(cfg)
+        if cfg.shared_expert:
+            blocks["mlp"] = mlp_param_specs(cfg)
+    else:
+        blocks["mlp"] = mlp_param_specs(cfg)
     return {
         **embed_param_specs(cfg),
         "blocks": blocks,
@@ -55,12 +57,23 @@ def _layer(tree: Params, i: int) -> Params:
     return tree_map(lambda t: t[i], tree)
 
 
+def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
+    """A block's feed-forward: the MLP, or the MoE plus the shared expert's
+    MLP."""
+    if not cfg.n_experts:
+        return mlp(h, lp["mlp"], cfg)
+    y = moe(h, lp["moe"], cfg)
+    if cfg.shared_expert:
+        y = y + mlp(h, lp["mlp"], cfg)
+    return y
+
+
 def _block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = rmsnorm(x, lp["norm_attn"])
     x = x + attention(h, lp["attn"], cfg, causal=True, positions=positions)
     h = rmsnorm(x, lp["norm_mlp"])
-    return x + mlp(h, lp["mlp"], cfg)
+    return x + _ffn(h, lp, cfg)
 
 
 def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -72,12 +85,24 @@ def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return rmsnorm(x, params["final_norm"])
 
 
+def _inputs_to_embedding(params: Params, batch: Dict[str, torch.Tensor],
+                         cfg: ModelConfig) -> Tuple[torch.Tensor, int]:
+    """Returns (x, n_prefix) where the first n_prefix positions carry no
+    loss (VLM patch embeddings, put in front of the tokens)."""
+    x = embed(batch["tokens"], params)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(torch.bfloat16)         # (b, p, d)
+        return torch.cat([pe, x], dim=1), pe.shape[1]
+    return x, 0
+
+
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (a 0-d float32 tensor)."""
-    x = embed(batch["tokens"], params)
-    y = backbone(params, x, cfg)
+    ``batch["labels"]`` (a 0-d float32 tensor); patch positions carry no
+    loss."""
+    x, n_prefix = _inputs_to_embedding(params, batch, cfg)
+    y = backbone(params, x, cfg)[:, n_prefix:]
     return chunked_softmax_xent(y, params["embedding"], batch["labels"],
                                 chunk=cfg.loss_chunk,
                                 unroll=cfg.unroll_layers)
@@ -113,7 +138,7 @@ def _decode_block(x, lp, kv_l, index, cfg):
     a, kv_new = decode_attention(h, lp["attn"], cfg, kv_l, index)
     x = x + a
     h = rmsnorm(x, lp["norm_mlp"])
-    return x + mlp(h, lp["mlp"], cfg), kv_new
+    return x + _ffn(h, lp, cfg), kv_new
 
 
 def decode_step(params: Params, state: Params, tokens: torch.Tensor,
@@ -134,9 +159,9 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
-    """Process a full prompt, building the KV cache; returns (last-position
-    logits, decode state)."""
-    x = embed(batch["tokens"], params)
+    """Process a full prompt (behind its patch embeddings, if any), building
+    the KV cache; returns (last-position logits, decode state)."""
+    x, _ = _inputs_to_embedding(params, batch, cfg)
     b, s, _ = x.shape
     max_len = s if max_len is None else max_len
     cache_len = kv_cache_spec(cfg, b, max_len).max_len
@@ -153,7 +178,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                             return_kv=True)
         x = x + a
         h2 = rmsnorm(x, lp["norm_mlp"])
-        x = x + mlp(h2, lp["mlp"], cfg)
+        x = x + _ffn(h2, lp, cfg)
         k, v = k[:, s - keep:], v[:, s - keep:]
         if cfg.kv_cache_dtype == "int8":
             kq, ks = _quant_kv(k)

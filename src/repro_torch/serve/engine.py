@@ -290,7 +290,7 @@ class ServeEngine:
                 "guard_events_total",
                 "ABFT guard escalation events by kind", labels=("kind",))
             self._flag_slots = 0   # partition-step observations seen
-        # optional rail autoscaler (duck-typed; not ported yet): closed-loop
+        # optional rail autoscaler (duck-typed): closed-loop
         # energy-aware rail control.  Attached last so it sees the fully
         # wired ObsBus/hwloop; ticked once per decode step AFTER that
         # step's telemetry (queue gauges, backend counters, hwloop
@@ -337,6 +337,19 @@ class ServeEngine:
 
     # ---- prompt absorption ---------------------------------------------------
 
+    def _frames(self, req: Request) -> torch.Tensor:
+        """An encdec request's frame embeddings (1, t_enc, d) as bf16 on the
+        engine's device; zeros of the decode state's memory length
+        (``max_len // enc_frames_ratio``) where the request carries none."""
+        if req.frames is None:
+            t_enc = self.max_len // self.cfg.enc_frames_ratio
+            return torch.zeros((1, t_enc, self.cfg.d_model),
+                               dtype=torch.bfloat16, device=self.device)
+        frames = req.frames
+        if not isinstance(frames, torch.Tensor):
+            frames = torch.as_tensor(np.asarray(frames, np.float32))
+        return frames.to(device=self.device, dtype=torch.bfloat16)
+
     def _absorb(self, req: Request):
         """Absorb one request's prompt at batch 1.
 
@@ -345,7 +358,10 @@ class ServeEngine:
         prompt = req.prompt if req.prompt else [BOS]
         toks = self._tokens(np.asarray(prompt)[None, :])
         if self._has_prefill:
-            logits, sub = self.api.prefill(self.params, {"tokens": toks},
+            batch = {"tokens": toks}
+            if self.cfg.family == "encdec":
+                batch["frames"] = self._frames(req)
+            logits, sub = self.api.prefill(self.params, batch,
                                            max_len=self.max_len)
             return logits, sub, 1
         sub = self.api.make_decode_state(self._sub_shape)

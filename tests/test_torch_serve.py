@@ -37,6 +37,7 @@ from repro_torch.models import model_api, params_from_numpy
 from repro_torch.obs import ObsBus
 from repro_torch.serve import (EngineStats, Request, ServeEngine,
                                WaveServeEngine)
+from test_torch_encdec import without_self_kv
 
 # mixed prompt lengths AND mixed output budgets (the workload shape of
 # tests/serve/test_engine.py); token ids 3..511 of the smoke vocabulary
@@ -290,6 +291,104 @@ def test_stats_view_agrees_with_registry(pair):
         stats.decode_steps
 
 
+#: the encoder-decoder family: a prompt is absorbed by one prefill that also
+#: encodes the request's frames (zeros of max_len // enc_frames_ratio where
+#: it carries none)
+ENCDEC = "seamless-m4t-medium"
+
+
+@pytest.fixture(scope="module")
+def encdec_pair():
+    jcfg = j_get_config(ENCDEC, smoke=True)
+    jparams = j_model_api(jcfg).init_params(jax.random.PRNGKey(0))
+    tcfg = get_config(ENCDEC, smoke=True)
+    tparams = params_from_numpy(
+        _np_tree(jparams), model_api(tcfg, device="cpu").param_specs(), "cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+def _request_frames(cfg, uid, max_len):
+    """Seeded nonzero frames of one request, (1, t_enc, d) float32."""
+    return np.random.default_rng(100 + uid).standard_normal(
+        (1, max_len // cfg.enc_frames_ratio, cfg.d_model)).astype(np.float32)
+
+
+@pytest.mark.parametrize("with_frames", [False, True],
+                         ids=["zero_frames", "request_frames"])
+def test_encdec_engine_matches_jax_engine_and_one_slot_decode(
+        encdec_pair, with_frames):
+    """A seamless smoke engine (2 slots, max_len 32, ``reference``) drains
+    the reference's requests, with and without ``Request.frames``: tokens
+    equal to the JAX engine's (C1 tie rule) and to the port's one-slot
+    decode of each request alone; every other stat and the backends'
+    telemetry equal."""
+    jcfg, jparams, tcfg, tparams = encdec_pair
+    max_len = 32
+    jclock, tclock = ManualClock(), ManualClock()
+    jeng = JServeEngine(jcfg, jparams, slots=2, max_len=max_len,
+                        backend="reference", clock=jclock,
+                        obs=JObsBus(clock=jclock))
+    teng = ServeEngine(tcfg, tparams, slots=2, max_len=max_len,
+                       backend="reference", clock=tclock,
+                       obs=ObsBus(clock=tclock), device="cpu")
+    jreqs, treqs = _requests(JRequest), _requests(Request)
+    frames = [_request_frames(tcfg, r.uid, max_len) if with_frames else None
+              for r in treqs]
+    for jr, tr, fr in zip(jreqs, treqs, frames):
+        jr.frames, tr.frames = fr, fr
+    jstats = _drain_in_virtual_time(jeng, jreqs, jclock)
+    tstats = _drain_in_virtual_time(teng, treqs, tclock)
+    japi = j_model_api(jcfg)
+    tapi = model_api(tcfg, backend="reference", device="cpu")
+    zeros = np.zeros((1, max_len // tcfg.enc_frames_ratio, tcfg.d_model),
+                     np.float32)
+
+    def jax_logits(prompt, fr, fed):
+        step = jax.jit(japi.decode_step)
+        logits, state = japi.prefill(
+            jparams, {"tokens": jnp.asarray([prompt]),
+                      "frames": jnp.asarray(fr).astype(jnp.bfloat16)},
+            max_len=max_len)
+        for t in fed:
+            logits, state = step(jparams, state, jnp.asarray([[t]]))
+        return np.asarray(logits)[0]
+
+    for jr, tr, fr in zip(jreqs, treqs, frames):
+        fr = zeros if fr is None else fr
+        _assert_same_or_tied(
+            tr.out_tokens, jr.out_tokens,
+            lambda i: jax_logits(jr.prompt, fr, jr.out_tokens[:i]), tr.uid)
+        assert len(tr.out_tokens) == tr.max_new_tokens and not tr.truncated
+        # the port's one-slot decode of the request alone
+        logits, state = tapi.prefill(
+            tparams, {"tokens": torch.tensor([tr.prompt]),
+                      "frames": torch.from_numpy(fr)}, max_len=max_len)
+        out, steps = [int(logits[0].argmax())], [logits[0].numpy()]
+        while len(out) < tr.max_new_tokens:
+            logits, state = tapi.decode_step(tparams, state,
+                                             torch.tensor([[out[-1]]]))
+            out.append(int(logits[0].argmax()))
+            steps.append(logits[0].numpy())
+        _assert_same_or_tied(tr.out_tokens, out, steps.__getitem__, tr.uid)
+    jd, td = jstats.to_dict(), tstats.to_dict()
+    jtel = without_self_kv(jd.pop("backend_telemetry"), tcfg,
+                           jstats.prefill_steps,
+                           sum(len(r.prompt) for r in jreqs))
+    assert td.pop("backend_telemetry") == jtel
+    assert td == jd
+    assert jtel["flags"] == 0
+    # every series equal but the per-GEMM callback histogram, which counts
+    # the prefills' GEMMs too
+    assert _series_but_callbacks(teng) == _series_but_callbacks(jeng)
+    assert teng.obs.render_json()["backend_callback_seconds"]["values"][0][
+        "count"] == jtel["calls"]
+
+
+def _series_but_callbacks(engine):
+    return [line for line in engine.obs.render_prometheus().splitlines()
+            if not line.startswith("backend_callback_seconds")]
+
+
 def test_launcher_writes_the_jax_launchers_json(tmp_path, monkeypatch, capsys):
     flags = ["--arch", "phi4-mini-3.8b", "--smoke", "--backend", "reference",
              "--requests", "3", "--slots", "2", "--max-new", "3"]
@@ -334,6 +433,41 @@ def test_launcher_serves_the_ssm_archs_as_the_jax_launcher(
         assert t[key] == j[key], key
     assert t["prefill_steps"] > 0 and t["completed"] == 3
     assert t["backend_telemetry"] == j["backend_telemetry"]
+
+
+@pytest.mark.parametrize("arch", [ENCDEC, "llama4-scout-17b-a16e",
+                                  "grok-1-314b", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("backend", ["ideal", "reference"])
+def test_launcher_serves_the_other_families_as_the_jax_launcher(
+        arch, backend, tmp_path, monkeypatch, capsys):
+    """The encdec, moe and vlm archs at ``--smoke`` through both launchers:
+    the same accounting and, under ``reference``, the same GEMM calls and
+    MACs (the weights come from each framework's own generator) but, for
+    seamless, the two a decoder layer that the JAX prefill spends
+    projecting the prompt's self-attention K/V again."""
+    flags = ["--arch", arch, "--smoke", "--backend", backend, "--requests",
+             "3", "--slots", "2", "--max-new", "3", "--mixed"]
+    t_out, j_out = tmp_path / "torch.json", tmp_path / "jax.json"
+    t_launch.main(flags + ["--device", "cpu", "--json-out", str(t_out)])
+    monkeypatch.setattr(sys, "argv", ["serve"] + flags
+                        + ["--json-out", str(j_out)])
+    j_launch.main()
+    capsys.readouterr()
+    t, j = json.loads(t_out.read_text()), json.loads(j_out.read_text())
+    assert list(t) == list(j)
+    for key in ("arch", "engine", "slots", "max_len", "requests",
+                "prefill_steps", "decode_steps", "admitted", "completed",
+                "truncated", "tokens_generated", "slot_busy_steps", "backend",
+                "model_steps", "occupancy"):
+        assert t[key] == j[key], key
+    assert t["prefill_steps"] == 3 and t["completed"] == 3
+    jtel = j["backend_telemetry"]
+    if arch == ENCDEC and backend == "reference":
+        cfg = get_config(arch, smoke=True)
+        prompts = t_launch.make_requests(cfg, 3, 3, True, 0)
+        jtel = without_self_kv(jtel, cfg, t["prefill_steps"],
+                               sum(len(r.prompt) for r in prompts))
+    assert t["backend_telemetry"] == jtel
 
 
 @pytest.mark.parametrize("flags", [

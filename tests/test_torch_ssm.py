@@ -447,15 +447,24 @@ def test_loss_matches_jax(pair, capsys):
 
 @pytest.mark.parametrize("backend", ["ideal", "reference"])
 def test_eight_decode_steps(pair, backend):
-    jcfg, _, jparams, tcfg, _, tparams = pair
-    japi = j_model_api(jcfg, backend=backend)
+    """Eight decode steps against the reference run op by op on its
+    ``ideal`` backend (whose GEMMs the port's ``reference`` one computes at
+    nominal rails).  The reference's ``reference`` backend runs compiled
+    only: its host callback dispatches JAX operations, which can deadlock
+    against a computation run op by op.  Compiled, it is held against a
+    compiled ``ideal`` run on the same tokens (logits and state within
+    BF16_TOL: the reference backend computes the numbers the op-by-op
+    ``ideal`` run witnesses), and the port's telemetry against its."""
+    jcfg, japi, jparams, tcfg, _, tparams = pair
     tapi = model_api(tcfg, backend=backend, device="cpu")
     jshape, tshape = JShape("s", 16, 2, "decode"), ShapeConfig("s", 16, 2,
                                                               "decode")
     jstate, tstate = japi.make_decode_state(jshape), tapi.make_decode_state(
         tshape)
     toks = np.random.default_rng(0).integers(3, jcfg.vocab_size, (2, 1))
+    fed = []
     for step in range(8):
+        fed.append(toks)
         with jax.disable_jit():
             jlog, jstate = japi.decode_step(jparams, jstate, jnp.asarray(toks))
         tlog, tstate2 = tapi.decode_step(tparams, tstate,
@@ -479,7 +488,26 @@ def test_eight_decode_steps(pair, backend):
         elif key != "index":
             _close(tstate[key], jstate[key])
     if backend == "reference":
-        assert tapi.backend.summary() == japi.backend.summary()
+        compiled = {}
+        for name in ("ideal", "reference"):
+            api = j_model_api(jcfg, backend=name)
+            state, step, logits = api.make_decode_state(jshape), jax.jit(
+                api.decode_step), []
+            for toks in fed:
+                jlog, state = step(jparams, state, jnp.asarray(toks))
+                logits.append(jlog)
+            compiled[name] = api, logits, state
+        jref, ref_logits, ref_state = compiled["reference"]
+        _, ideal_logits, ideal_state = compiled["ideal"]
+        for got, want in zip(ref_logits, ideal_logits):
+            _close(got, want)
+        for key in ref_state:
+            if key == "kv":
+                for kk in ("k", "v"):
+                    _close(ref_state["kv"][kk], ideal_state["kv"][kk])
+            elif key != "index":
+                _close(ref_state[key], ideal_state[key])
+        assert tapi.backend.summary() == jref.backend.summary()
 
 
 def _parallel_last_logits(tapi, tparams, toks):

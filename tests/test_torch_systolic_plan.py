@@ -26,12 +26,19 @@ from repro_torch.kernels import systolic_mac as smod
 from repro_torch.kernels.systolic_mac import launch_plan, systolic_mac
 
 #: (K, N) of every weight the served models multiply by: phi4-mini-3.8b,
-#: rwkv6-1.6b, zamba2-2.7b (chip_smoke.py's tables), plus ragged edges
+#: rwkv6-1.6b, zamba2-2.7b, seamless-m4t-medium, llama4-scout-17b-a16e
+#: (its f32 router at N = 16), llava-next-mistral-7b and grok-1-314b's f32
+#: router at N = 8 (chip_smoke.py's tables), plus ragged edges
 MODEL_KN = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
             (3072, 200192), (2048, 2048), (2048, 32), (32, 2048),
             (2048, 7168), (7168, 2048), (2048, 65536), (2560, 10448),
             (5120, 2560), (2560, 2560), (2560, 10240), (10240, 2560),
-            (2560, 32000)]
+            (2560, 32000),
+            (1024, 1024), (1024, 4096), (4096, 1024), (1024, 256256),
+            (5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120),
+            (5120, 16), (5120, 202240),
+            (4096, 4096), (4096, 14336), (14336, 4096), (4096, 32000),
+            (6144, 8)]
 EDGE_KN = [(0, 1), (1, 1), (15, 7), (1000, 1001), (64, 128), (65, 129)]
 
 
