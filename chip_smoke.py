@@ -36,12 +36,19 @@ seamless-m4t-medium (encoder-decoder; also with seeded frames on its
 requests), llama4-scout-17b-a16e (MoE, 8 of its 48 layers) and
 llava-next-mistral-7b (VLM), each beside ``--slots 1`` and ``ideal``; and
 their frontends: llava's prefill of 2880 patch embeddings, seamless's and
-llama4's ``ModelAPI.loss``.  Weights are random, from seeded generators.
+llama4's ``ModelAPI.loss``.  Last, training: phi4-mini-3.8b at published
+width and depth through ``repro_torch.train.train`` (4 steps of 2 x 256
+tokens under ``reference``, every forward GEMM on ``systolic_mac`` with
+straight-through gradients, then the same steps under ``ideal``, then 2
+steps with int8 moments), the JAX package's trainer tests at their smoke
+sizes (descent, resume), whether a repeated step gives the same bits, and
+the ssm / hybrid refusals.  Weights are random, from seeded generators.
 Needs a GPU and ``nvcc``; any phase that fails ends the run with
 a non-zero exit code.
 
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
-(``systolic_mac`` at every model's GEMM shapes, ``razor_matmul``,
+(``systolic_mac`` at every model's GEMM shapes, phi4-mini's also at a train
+step's 512 rows, ``razor_matmul``,
 ``precision_island``, ``wkv6``, ``ssd_chunk``), ``paper_flow``,
 ``precision_islands``, ``hwloop_checks``, ``abft_checks``, ``serve`` (with a
 ``torch.profiler`` pass over a short run), ``serve_hwloop``, ``serve_guard``,
@@ -49,9 +56,12 @@ Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
 model
 ``serve_ssm``, ``decode_vs_parallel`` and ``loss`` (with a profile by CUDA
 kernel), per model of the other families ``serve_families`` and
-``frontends``, ``profile_misses`` (profiled measurements left null, with what
-each
-try saw), ``total`` (the script's seconds),
+``frontends``, ``train`` (per backend: losses, seconds a step, tokens/s, the
+optimizer's seconds on the stream (CUDA events; the timed steps add no host
+synchronisation to the trainer's), step 0's gradient norm, peak memory, B1 launches and
+device ms a step; the smoke trainer's checks), ``profile_misses`` (profiled
+measurements left null, with what each try saw), ``total`` (the script's
+seconds),
 then ``{"kernels": [...]}`` (per
 kernel: launches on its path, error against the plain version, time, the
 plain version's and one library call's time, and the least time the card
@@ -180,6 +190,22 @@ FRONTEND_LOSS = (1, 256)
 #: (cfg.frontend_tokens) in front of a prompt of this many tokens, then
 #: this many decode steps
 VLM_PROMPT, VLM_STEPS = 64, 8
+#: the train phase, phi4-mini at published width and depth: SyntheticDataset
+#: batches of (batch, sequence), steps under reference and then under ideal
+#: from the same seeded state, steps with int8 moments
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_INT8_STEPS = (2, 256), 4, 2
+#: B1's rows in a train step's GEMMs: every position of the batch
+TRAIN_M = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+#: step 0's loss under reference against ideal, relative (as TOL_LOSS)
+TOL_TRAIN_LOSS = 1e-3
+#: step 0's global gradient norm under reference against ideal, relative:
+#: the two gradients g and g + e agree leaf by leaf within |e| <= 1.8e-2 |g|
+#: (the worst leaf of tests/test_torch_train.py's step-0 comparisons, both
+#: backends), and | |g + e| - |g| | <= |e|
+TOL_GNORM = 2e-2
+#: the JAX package's trainer tests at their own smoke sizes (batch 4 x 32):
+#: descent over 16 steps, and 4 steps + resume for 2 = 6 straight steps
+SMOKE_TRAIN_SHAPE = (32, 4)
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -3936,6 +3962,328 @@ SSM_GEMMS = {"rwkv6-1.6b": rwkv6_gemms, "zamba2-2.7b": zamba2_gemms}
 FAMILY_GEMMS = {"encdec": encdec_gemms, "moe": moe_gemms, "vlm": dense_gemms}
 
 
+def train_gemms(cfg):
+    """name -> (K, N, launches per train step, transposed view?, dtype) of
+    every GEMM B1 runs in a dense model's train step under ``reference``:
+    the forward's, and the block heads' again in the backward pass (every
+    GEMM but the MLP's down projection, ``models/lm.py::_block``); the
+    backward's products are ``torch.matmul``."""
+    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    L, bf = cfg.n_layers, "bfloat16"
+    return {"wq/wo": (d, qd, 4 * L, False, bf),
+            "wk/wv": (d, kvd, 4 * L, False, bf),
+            "w1/wg": (d, ff, 4 * L, False, bf),
+            "w2": (ff, d, L, False, bf),
+            "logits": (d, cfg.padded_vocab, 1, True, bf)}
+
+
+@contextlib.contextmanager
+def recording_optimizer(torch, optim_mod, adamw_mod, norms, spans):
+    """Inside the block each step's global gradient norm is kept as the
+    0-d tensor the optimizer computed (``norms``), and every AdamW update
+    is bracketed by two CUDA events (``spans``).  Neither reads the device:
+    the timed steps keep the trainer's own synchronisation, the one read of
+    the loss a step.  Read both after the block (:func:`read_recorded`)."""
+    real_norm, real_apply = adamw_mod.global_norm, optim_mod.apply_updates
+
+    def norm(tree):
+        n = real_norm(tree)
+        norms.append(n.detach())
+        return n
+
+    def apply(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_apply(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+    adamw_mod.global_norm, optim_mod.apply_updates = norm, apply
+    try:
+        yield
+    finally:
+        adamw_mod.global_norm, optim_mod.apply_updates = real_norm, real_apply
+
+
+def read_recorded(torch, norms, spans):
+    """(the norms as floats, each update's seconds on the stream between
+    its two events) once the device is done."""
+    torch.cuda.synchronize()
+    return ([float(n) for n in norms],
+            [start.elapsed_time(end) / 1e3 for start, end in spans])
+
+
+def train_batch(torch, cfg, tmods, step):
+    """The trainer's batch at ``step`` for TRAIN_BATCH, on the card."""
+    data = tmods.DataConfig(
+        vocab_size=cfg.padded_vocab, seq_len=TRAIN_BATCH[1],
+        global_batch=TRAIN_BATCH[0], seed=SEED,
+        mean_doc_len=max(TRAIN_BATCH[1] // 8, 8))
+    batch = tmods.SyntheticDataset(data).batch_at(step).data
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def train_run(torch, cfg, mods, tmods, counters, backend, opt_cfg, steps):
+    """``repro_torch.train.train`` at full width for ``steps`` steps on
+    ``backend``, from ``init_params(SEED)``: losses, seconds a step (the
+    trainer's heartbeats), the optimizer's seconds a step on the stream,
+    step 0's global gradient norm (both recorded without a host
+    synchronisation: :func:`recording_optimizer`), peak memory, B1 launches and the backend's telemetry;
+    then one more step under ``torch.profiler`` (device ms a step by
+    kernel, B1's part).  The launches are read before the profiled step."""
+    shape = mods.ShapeConfig("train", TRAIN_BATCH[1], TRAIN_BATCH[0], "train")
+    be = mods.get_backend(backend)
+    monitor = tmods.HeartbeatMonitor(num_hosts=1)
+    norms, spans = [], []
+    release(torch)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    counters.zero()
+    t0 = time.monotonic()
+    with mods.use_backend(be), recording_optimizer(
+            torch, tmods.optim, tmods.adamw, norms, spans):
+        res = tmods.train(cfg, shape, tmods.TrainConfig(
+            steps=steps, log_every=0, checkpoint_every=0, seed=SEED),
+            opt_cfg, monitor=monitor)
+    norms, opt_s = read_recorded(torch, norms, spans)
+    seconds = time.monotonic() - t0
+    launches = counters.read()["systolic_mac"]
+    summary = be.summary() if backend != "ideal" else None
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = list(monitor.hosts[0].durations)
+    steady = step_s[1:] or step_s
+    row = {"backend": backend, "steps": steps,
+           "int8_moments": opt_cfg.int8_moments, "losses": res.losses,
+           "step_s": step_s, "step_s_mean_after_first": sum(steady)
+           / len(steady),
+           "tokens_per_s": TRAIN_M * len(steady) / sum(steady),
+           "optimizer_stream_s": opt_s,
+           "optimizer_stream_s_mean_after_first": sum(opt_s[1:] or opt_s)
+           / len(opt_s[1:] or opt_s),
+           "global_grad_norm": norms, "peak_device_memory_gb": peak,
+           "device_memory_held_before_gb": held_gb,
+           "seconds": seconds, "systolic_mac_launches": launches,
+           "systolic_mac_launches_per_step": launches / steps,
+           "backend_summary": summary}
+    if not all(math.isfinite(x) for x in res.losses):
+        fail(f"train {backend}: losses {res.losses}")
+    if backend != "ideal":
+        gemms = 13 * cfg.n_layers + 1
+        if launches != steps * gemms or summary["calls"] != launches:
+            fail(f"train {backend}: {launches} systolic_mac launches and "
+                 f"{summary['calls']} GEMM calls over {steps} steps; "
+                 f"{gemms} a step expected")
+        if summary["flags"] != 0:
+            fail(f"train {backend}: {summary['flags']} flags at nominal "
+                 f"rails")
+    elif launches:
+        fail(f"train ideal: {launches} systolic_mac launches")
+    if opt_cfg.int8_moments:
+        del res
+        release(torch)
+        return row
+    api = mods.model_api(cfg)
+    step_fn = tmods.make_train_step(api, cfg, opt_cfg)
+    batch = train_batch(torch, cfg, tmods, steps)
+    with mods.use_backend(be):
+        rows = profile_calls(torch, {"step": lambda: step_fn(
+            res.final_params, res.final_opt_state, batch)})["step"]
+    if rows is not None:
+        b1 = [r for r in rows if r["kernel"] == "systolic_mac_kernel"]
+        row.update(
+            device_ms_per_step=sum(r["ms"] for r in rows),
+            kernels_per_step=sum(r["calls"] for r in rows),
+            systolic_mac_device_ms_per_step=sum(r["ms"] for r in b1),
+            systolic_mac_launches_profiled=sum(r["calls"] for r in b1),
+            top_kernels=rows[:8])
+    else:
+        row.update(device_ms_per_step=None,
+                   systolic_mac_device_ms_per_step=None)
+    del res, step_fn, batch
+    release(torch)
+    return row
+
+
+def smoke_trainer(torch, mods, tmods):
+    """The JAX package's trainer tests at their own smoke sizes, on the
+    card, every GEMM on B1 (``reference``): the loss descends over 16 steps
+    (phi4-mini smoke) and resumes; 4 steps, an async checkpoint and a
+    resume for 2 give the 6 straight steps' losses within rtol 1e-5
+    (starcoder2 smoke).  Then whether a step repeated from the same state
+    gives the same bits, dense and MoE, on both backends: which leaves
+    differ, if any."""
+    import shutil
+    import tempfile
+    seq, batch = SMOKE_TRAIN_SHAPE
+    shape = mods.ShapeConfig("t", seq, batch, "train")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="train_ckpt_"))
+    out = {}
+    try:
+        with mods.use_backend(mods.get_backend("reference")):
+            cfg = mods.get_config(ARCH, smoke=True)
+            tc = tmods.TrainConfig(steps=16, log_every=0, checkpoint_every=8,
+                                   checkpoint_dir=str(tmp / "descent"),
+                                   async_checkpoint=False)
+            ocfg = tmods.optim.AdamWConfig(lr=5e-3, warmup_steps=2,
+                                           total_steps=16)
+            res = tmods.train(cfg, shape, tc, ocfg)
+            first, last = (sum(res.losses[:4]) / 4,
+                           sum(res.losses[-4:]) / 4)
+            res2 = tmods.train(cfg, shape, dataclasses.replace(tc, steps=20),
+                               ocfg, resume=True)
+            out["descent"] = {"arch": cfg.name, "losses": res.losses,
+                              "mean_first_4": first, "mean_last_4": last,
+                              "resumed_steps": res2.steps_done}
+            if not (all(math.isfinite(x) for x in res.losses)
+                    and last < first - 0.05 and res2.steps_done == 4):
+                fail(f"smoke trainer: descent {first} -> {last}, resumed "
+                     f"{res2.steps_done} steps")
+            cfg = mods.get_config("starcoder2-3b", smoke=True)
+            ocfg = tmods.optim.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                           total_steps=6)
+            straight = tmods.train(cfg, shape, tmods.TrainConfig(
+                steps=6, log_every=0, checkpoint_every=0), ocfg)
+            tmods.train(cfg, shape, tmods.TrainConfig(
+                steps=4, log_every=0, checkpoint_every=4,
+                checkpoint_dir=str(tmp / "resume")), ocfg)
+            part2 = tmods.train(cfg, shape, tmods.TrainConfig(
+                steps=6, log_every=0, checkpoint_every=0,
+                checkpoint_dir=str(tmp / "resume")), ocfg, resume=True)
+            gap = max(abs(a - b) / abs(b) for a, b in zip(
+                part2.losses, straight.losses[4:]))
+            out["resume"] = {"arch": cfg.name, "straight": straight.losses,
+                             "resumed": part2.losses, "max_rel_gap": gap,
+                             "bit_equal": part2.losses
+                             == straight.losses[4:]}
+            if not gap <= 1e-5:
+                fail(f"smoke trainer: resumed losses {part2.losses} against "
+                     f"{straight.losses[4:]} (rtol 1e-5)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    repeats = []
+    for arch in (ARCH, GROK):
+        cfg = mods.get_config(arch, smoke=True)
+        for backend in ("reference", "ideal"):
+            api = mods.model_api(cfg, backend=backend)
+            ocfg = tmods.optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+            data = tmods.SyntheticDataset(tmods.DataConfig(
+                vocab_size=cfg.padded_vocab, seq_len=seq, global_batch=batch,
+                seed=SEED)).batch_at(0).data
+            b = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+            trees = []
+            for _ in range(2):
+                params = api.init_params(SEED)
+                state = tmods.optim.init_state(params, ocfg)
+                tmods.make_train_step(api, cfg, ocfg)(params, state, b)
+                trees.append(params)
+            names = [n for n, _ in tmods.flatten(trees[0])]
+            flat = [dict(tmods.flatten(t)) for t in trees]
+            differ = [n for n in names if not torch.equal(
+                flat[0][n].view(torch.int16) if flat[0][n].dtype
+                == torch.bfloat16 else flat[0][n],
+                flat[1][n].view(torch.int16) if flat[1][n].dtype
+                == torch.bfloat16 else flat[1][n])]
+            repeats.append({"arch": arch, "backend": backend,
+                            "bit_equal": not differ,
+                            "leaves_that_differ": differ})
+    out["repeat_step_bits"] = repeats
+    for arch in ("rwkv6-1.6b", "zamba2-2.7b"):
+        try:
+            tmods.train(mods.get_config(arch, smoke=True), shape,
+                        tmods.TrainConfig(steps=1, log_every=0))
+        except NotImplementedError as err:
+            if "A19" not in str(err):
+                fail(f"{arch} training refused without naming A19: {err}")
+            out.setdefault("refused", {})[arch] = str(err)
+        else:
+            fail(f"{arch} smoke training ran: it needs backward passes of "
+                 f"its recurrences (A19)")
+    return out
+
+
+def train_phase(torch, cfg, mods, counters):
+    """phi4-mini-3.8b at published width and depth through
+    ``repro_torch.train.train``: TRAIN_STEPS steps under ``reference`` (B1
+    launches = 13 L + 1 a step, 0 flags), the same steps from the same
+    seeded state under ``ideal`` (step 0's loss within TOL_TRAIN_LOSS, its
+    global gradient norm within TOL_GNORM), TRAIN_INT8_STEPS with int8
+    moments; then :func:`smoke_trainer`."""
+    from repro_torch import optim as optim_mod
+    from repro_torch.checkpoint.manager import _flatten_with_names
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import HeartbeatMonitor
+    from repro_torch.train import TrainConfig, make_train_step, train
+    tmods = types.SimpleNamespace(
+        optim=optim_mod, adamw=adamw, DataConfig=DataConfig,
+        SyntheticDataset=SyntheticDataset, HeartbeatMonitor=HeartbeatMonitor,
+        TrainConfig=TrainConfig, make_train_step=make_train_step,
+        train=train, flatten=_flatten_with_names)
+    specs = mods.model_api(cfg).param_specs()
+    runs = [train_run(torch, cfg, mods, tmods, counters, backend,
+                      optim_mod.AdamWConfig(), TRAIN_STEPS)
+            for backend in ("reference", "ideal")]
+    ref, ideal = runs
+    loss_gap = abs(ref["losses"][0] - ideal["losses"][0]) / abs(
+        ideal["losses"][0])
+    norm_gap = abs(ref["global_grad_norm"][0] - ideal["global_grad_norm"][0]
+                   ) / ideal["global_grad_norm"][0]
+    if not loss_gap <= TOL_TRAIN_LOSS:
+        fail(f"train: step 0's loss {ref['losses'][0]} on reference, "
+             f"{ideal['losses'][0]} on ideal (limit {TOL_TRAIN_LOSS})")
+    if not norm_gap <= TOL_GNORM:
+        fail(f"train: step 0's gradient norm {ref['global_grad_norm'][0]} "
+             f"on reference, {ideal['global_grad_norm'][0]} on ideal "
+             f"(limit {TOL_GNORM})")
+    int8 = train_run(torch, cfg, mods, tmods, counters, "reference",
+                     optim_mod.AdamWConfig(int8_moments=True),
+                     TRAIN_INT8_STEPS)
+    return {"arch": cfg.name, "batch": list(TRAIN_BATCH),
+            "parameters": mods.param_count(specs),
+            "gemms_per_step": 13 * cfg.n_layers + 1,
+            "reference": ref, "ideal": ideal, "int8_moments": int8,
+            "step0_loss_gap_rel": loss_gap,
+            "step0_loss_gap_limit": TOL_TRAIN_LOSS,
+            "step0_grad_norm_gap_rel": norm_gap,
+            "step0_grad_norm_gap_limit": TOL_GNORM,
+            "smoke": smoke_trainer(torch, mods, tmods)}
+
+
+def train_entry(shapes, trained):
+    """B1 over a phi4-mini train step's GEMMs at M = TRAIN_M (13 L + 1), from
+    the per-shape measurements, beside the step's own profile."""
+    rows = [s for s in shapes if s.get("M") == TRAIN_M
+            and s.get("arch") == ARCH and "launches_per_model_step" in s]
+
+    def total(key):
+        vals = [r[key] for r in rows]
+        if any(v is None for v in vals):
+            return None
+        return sum(v * r["launches_per_model_step"]
+                   for v, r in zip(vals, rows))
+    share = {}
+    for r in rows:
+        share[r["bound_by"]] = share.get(r["bound_by"], 0.0) + (
+            r["bound_ms"] * r["launches_per_model_step"])
+    ref = trained["reference"]
+    return {"M": TRAIN_M,
+            "gemms": sum(r["launches_per_model_step"] for r in rows),
+            "timed": "each weight's launches in one reference train step "
+                     "(forward, and the block heads again in the backward "
+                     "pass), bf16, each weight cold in L2, summed",
+            "ms": total("kernel_ms"), "device_ms": total("device_ms"),
+            "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
+            "library_device_ms": total("library_device_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": max(share, key=share.get),
+            "bound_by_shape": {r["weight"]: r["bound_by"] for r in rows},
+            "device_ms_in_the_step": ref.get(
+                "systolic_mac_device_ms_per_step"),
+            "launches_per_step": ref["systolic_mac_launches_per_step"]}
+
+
 def recurrence_entry(name, source, replaces, rows, timed_case, launches,
                      per_step, timed):
     """A recurrence kernel's entry of the ``kernels`` line: the timed row
@@ -4104,6 +4452,11 @@ def main() -> int:
         shapes += check_serving_shapes(
             torch, arch, table, systolic_mac, systolic_mac_plain,
             largest_common_block, ms=ms, timed_ms=())
+    # a phi4-mini train step's GEMMs: every weight and the logits at the
+    # step's rows (TRAIN_M), timed with the step's launch counts
+    shapes += check_serving_shapes(
+        torch, ARCH, train_gemms(cfg), systolic_mac, systolic_mac_plain,
+        largest_common_block, ms=(TRAIN_M,), timed_ms=(TRAIN_M,))
     # every model weight's (K, N, transposed view?); phi4-mini's w2 also at
     # M = 64 and 256
     model_shapes = {}
@@ -4265,6 +4618,13 @@ def main() -> int:
         del api, params
         release(torch)
 
+    # ---- training: phi4-mini at published width through the trainer
+    t0 = time.monotonic()
+    trained = train_phase(torch, cfg, mods, counters)
+    trained["seconds"] = time.monotonic() - t0
+    emit("train", trained)
+    release(torch)
+
     emit("profile_misses", {"rows": PROFILE_MISSES,
                             "tries_per_measurement": PROFILE_TRIES})
     emit("total", {"seconds": time.monotonic() - t_start})
@@ -4311,7 +4671,13 @@ def main() -> int:
         "launches_by_path": {"serve": launches,
                              "serve_http": http["kernel_launches"],
                              "serve_trace": traced["kernel_launches"],
-                             "serve_families": family_launches},
+                             "serve_families": family_launches,
+                             "train": {
+                                 "reference": trained["reference"][
+                                     "systolic_mac_launches"],
+                                 "int8_moments": trained["int8_moments"][
+                                     "systolic_mac_launches"]}},
+        "train_step": train_entry(shapes, trained),
         "host_us_per_launch": {key: host[key] for key in (
             "systolic_mac_us", "reference_route_us", "torch_matmul_us")},
         "decode_step_by_arch": {

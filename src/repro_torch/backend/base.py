@@ -420,11 +420,17 @@ def use_backend(spec: Any, **kw: Any):
 # ---------------------------------------------------------------------------
 
 
+def routed_backend() -> Optional[MatmulBackend]:
+    """The backend :func:`matmul` routes through right now (the innermost
+    scope, else the installed default), or None where neither is set.
+    Unlike :func:`current_backend` it makes none, so it needs no GPU."""
+    return _STACK[-1] if _STACK else _DEFAULT
+
+
 def routes_ideal() -> bool:
     """Whether :func:`matmul` takes the plain ``torch.matmul`` path right now
-    (no backend scoped or installed, or the ideal one).  Unlike
-    ``current_backend().is_ideal`` it makes no backend, so it needs no GPU."""
-    be = _STACK[-1] if _STACK else _DEFAULT
+    (no backend scoped or installed, or the ideal one)."""
+    be = routed_backend()
     return be is None or be.is_ideal
 
 
@@ -435,9 +441,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``torch.matmul(a, b)``; any other backend receives the flattened (M, K)
     problem.
     """
-    if routes_ideal():
+    be = routed_backend()
+    if be is None or be.is_ideal:
         return torch.matmul(a, b)
-    be = _STACK[-1] if _STACK else _DEFAULT
     lead = a.shape[:-1]
     out = be.traced_matmul(a.reshape(-1, a.shape[-1]), b)
     return out.reshape(*lead, b.shape[-1])

@@ -3,8 +3,10 @@
     api = model_api(cfg, device="cpu")
     api.param_specs() / api.init_params(seed)
     api.loss(params, batch) -> mean cross-entropy (a forward pass)
+    api.train_loss(params, batch) -> the same loss, differentiable
     api.prefill(params, batch) -> (logits, state)
     api.decode_step(params, state, tokens) -> (logits, state)
+    api.input_specs(shape) -> batch of BatchSpecs (meta tensors + logical axes)
     api.decode_state_specs(shape) -> decode-state ParamSpecs
     api.make_decode_state(shape) -> all-zeros decode state
     api.slot_slice / slot_update / slot_reset -> per-slot state surgery
@@ -12,21 +14,22 @@
         recomputing the rest of the batch)
 
 Counterpart of ``repro.models.api``, for every family (dense, moe, vlm,
-ssm, hybrid, encdec); ``BatchSpec`` and ``input_specs`` wait for the training
-slice (ROADMAP A13).  As in the JAX package, ssm/hybrid prompts are absorbed
+ssm, hybrid, encdec).  As in the JAX package, ssm/hybrid prompts are absorbed
 by ``decode_step`` (``prefill`` raises).  The
 decode state is updated **in place**: ``decode_step``, ``slot_update`` and
 ``slot_reset`` write into the tensors they are given and return that tree.
-Steps, losses and state surgery run under ``torch.inference_mode()``; a
-decode state is made by ``make_decode_state`` / ``prefill`` and only ever
-handed back to these methods.
+Serving steps, ``loss`` and state surgery run under
+``torch.inference_mode()``; a decode state is made by ``make_decode_state`` /
+``prefill`` and only ever handed back to these methods.  ``train_loss`` runs
+with autograd recording (the trainer's loss): every family but ssm and
+hybrid, whose recurrence kernels have no backward pass yet (ROADMAP A19).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -36,6 +39,36 @@ from . import encdec, lm, ssm
 from .shardlib import init_param_tree, tree_map
 
 Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSpec:
+    """Shape, dtype and logical axes of one batch input."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    logical: Tuple[Optional[str], ...]
+
+    def struct(self) -> torch.Tensor:
+        """A stand-in with this shape and dtype that holds no data (a
+        ``meta`` tensor; the reference's ``ShapeDtypeStruct``)."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise where the port cannot train ``cfg``'s family yet."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family needs backward "
+            "passes of the wkv6 / ssd_chunk recurrences, which are not "
+            "ported yet (ROADMAP.md queue A, A19)")
+
+
+def _token_batch(b: int, s: int, with_labels: bool) -> Dict[str, BatchSpec]:
+    out = {"tokens": BatchSpec((b, s), torch.int32, ("batch", None))}
+    if with_labels:
+        out["labels"] = BatchSpec((b, s), torch.int32, ("batch", None))
+    return out
 
 
 @dataclasses.dataclass
@@ -96,7 +129,7 @@ class ModelAPI:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (with ``patch_embeds`` in front for vlm, and
         ``frames`` to attend to for encdec): a forward pass, no gradient
-        (the training substrate is not ported yet)."""
+        (:meth:`train_loss` is the differentiable one)."""
         f = self.cfg.family
         with self._scope(), torch.inference_mode():
             if f == "ssm":
@@ -104,6 +137,19 @@ class ModelAPI:
             if f == "hybrid":
                 return ssm.zamba2_loss(params, batch, self.cfg)
             if f == "encdec":
+                return encdec.loss_fn(params, batch, self.cfg)
+            return lm.loss_fn(params, batch, self.cfg)
+
+    def train_loss(self, params: Params,
+                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """:meth:`loss` with autograd recording: the same family dispatch in
+        the same backend scope, each block under ``cfg.remat``.  A routed
+        GEMM's gradient is the straight-through one (exact products; the
+        backend's ``traced_matmul``).  The ssm and hybrid families raise:
+        their recurrence kernels have no backward pass (ROADMAP A19)."""
+        check_trainable(self.cfg)
+        with self._scope():
+            if self.cfg.family == "encdec":
                 return encdec.loss_fn(params, batch, self.cfg)
             return lm.loss_fn(params, batch, self.cfg)
 
@@ -132,6 +178,32 @@ class ModelAPI:
             return lm.decode_step(params, state, tokens, self.cfg)
 
     # ---- specs ---------------------------------------------------------------
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, BatchSpec]:
+        """Batch stand-ins for one (arch x shape) cell, as the
+        reference's."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": BatchSpec((b, 1), torch.int32,
+                                        ("batch", None))}
+        with_labels = shape.is_train
+        if cfg.family == "vlm":
+            p = min(cfg.frontend_tokens, s // 2)
+            return {
+                "patch_embeds": BatchSpec((b, p, cfg.d_model),
+                                          torch.bfloat16,
+                                          ("batch", None, None)),
+                **_token_batch(b, s - p, with_labels),
+            }
+        if cfg.family == "encdec":
+            t_enc = max(s // cfg.enc_frames_ratio, 1)
+            return {
+                "frames": BatchSpec((b, t_enc, cfg.d_model), torch.bfloat16,
+                                    ("batch", None, None)),
+                **_token_batch(b, s, with_labels),
+            }
+        return _token_batch(b, s, with_labels)
 
     def decode_state_specs(self, shape: ShapeConfig) -> Params:
         b, s = shape.global_batch, shape.seq_len

@@ -5,8 +5,10 @@ The speech frontend is a stub: the caller supplies precomputed frame
 embeddings (b, t_enc, d).  Encoder: bidirectional attention; decoder: causal
 self-attention + cross-attention to the encoder output.  Layers are stacked
 on a leading L axis and driven by a Python loop over that axis, which sums
-layer by layer as the JAX package's ``scan_layers`` does.  As in
-:mod:`.lm`, the decode state is written **in place** and handed back.
+layer by layer as the JAX package's ``scan_layers`` does.  ``loss_fn`` is
+differentiable, each block under ``cfg.remat`` (:func:`.lm.remat`, its MLP's
+down projection outside, as in :mod:`.lm`).  As in :mod:`.lm`, the decode
+state is written **in place** and handed back.
 
 Every dense GEMM (self/cross-attention projections, memory K/V, MLP,
 unembedding logits) routes through the active ``repro_torch.backend``.
@@ -23,8 +25,9 @@ from ..configs.base import ModelConfig
 from .layers import (KVCacheSpec, _repeat_kv, _sdpa, attention,
                      attention_param_specs, chunked_softmax_xent,
                      decode_attention, embed, embed_param_specs, logits_last,
-                     mlp, mlp_param_specs, rmsnorm, rmsnorm_spec)
-from .lm import _layer
+                     mlp, mlp_hidden, mlp_param_specs, rmsnorm,
+                     rmsnorm_spec)
+from .lm import _layer, _unbound, remat
 from .shardlib import ParamSpec, shard, tree_map
 
 Params = Dict[str, Any]
@@ -80,37 +83,49 @@ def param_specs(cfg: ModelConfig) -> Params:
             "final_norm": rmsnorm_spec(cfg.d_model)}
 
 
+def _enc_head(x, lp, cfg):
+    """An encoder block up to its MLP's down projection: (x after
+    attention, the MLP's hidden)."""
+    h = rmsnorm(x, lp["norm_attn"])
+    x = x + attention(h, lp["attn"], cfg, causal=False)
+    h = rmsnorm(x, lp["norm_mlp"])
+    return x, mlp_hidden(h, lp["mlp"], cfg)
+
+
 def encode(params: Params, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     x = shard(frames.to(torch.bfloat16), "batch", None, None)
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(params["encoder"], i)
-        h = rmsnorm(x, lp["norm_attn"])
-        x = x + attention(h, lp["attn"], cfg, causal=False)
-        h = rmsnorm(x, lp["norm_mlp"])
-        x = x + mlp(h, lp["mlp"], cfg)
+    for lp in _unbound(params["encoder"], cfg.n_enc_layers):
+        x, hid = remat(_enc_head, cfg)(x, lp, cfg)
+        x = x + bmm(hid, lp["mlp"]["w2"])
     return rmsnorm(x, params["enc_norm"])
 
 
-def _dec_block(x, mem, lp, cfg):
+def _dec_head(x, mem, lp, cfg):
+    """A decoder block up to its MLP's down projection."""
     h = rmsnorm(x, lp["norm_self"])
     x = x + attention(h, lp["self_attn"], cfg, causal=True)
     h = rmsnorm(x, lp["norm_cross"])
     mk, mv = project_memory(mem, lp["cross_attn"], cfg)
     x = x + cross_attention(h, mk, mv, lp["cross_attn"], cfg)
     h = rmsnorm(x, lp["norm_mlp"])
-    return x + mlp(h, lp["mlp"], cfg)
+    return x, mlp_hidden(h, lp["mlp"], cfg)
+
+
+def _dec_block(x, mem, lp, cfg):
+    x, hid = remat(_dec_head, cfg)(x, mem, lp, cfg)
+    return x + bmm(hid, lp["mlp"]["w2"])
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross-entropy of the decoder's ``batch["tokens"]``
     against ``batch["labels"]``, attending to ``batch["frames"]`` (a 0-d
-    float32 tensor; a forward pass)."""
+    float32 tensor, differentiable)."""
     mem = encode(params, batch["frames"], cfg)
     x = embed(batch["tokens"], params)
-    for i in range(cfg.n_layers):
-        x = _dec_block(x, mem, _layer(params["decoder"], i), cfg)
+    for lp in _unbound(params["decoder"], cfg.n_layers):
+        x = _dec_block(x, mem, lp, cfg)
     x = rmsnorm(x, params["final_norm"])
     return chunked_softmax_xent(x, params["embedding"], batch["labels"],
                                 cfg.loss_chunk, unroll=cfg.unroll_layers)

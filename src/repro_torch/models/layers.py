@@ -1,7 +1,8 @@
 """Shared model building blocks: norms, RoPE, GQA attention (prefill /
 cached decode, causal + sliding-window), SwiGLU/GELU MLPs, MoE (dense
-dispatch), embedding and unembedding, and the sequence-chunked cross-entropy
-(forward only).  Counterpart of ``repro.models.layers``; the
+dispatch), embedding and unembedding, and the sequence-chunked cross-entropy,
+each differentiable by autograd (a routed GEMM's backward is the backend's
+straight-through one).  Counterpart of ``repro.models.layers``; the
 expert-parallel all-to-all MoE waits for the mesh (ROADMAP A14).
 
 Numerics policy: params bf16 (norm scales f32), matmuls bf16 with f32
@@ -358,7 +359,9 @@ def mlp_param_specs(cfg: ModelConfig, layers: Optional[int] = None,
     return specs
 
 
-def mlp(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+def mlp_hidden(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP up to its down projection: the (..., d_ff) activations that
+    ``w2`` multiplies."""
     if cfg.act == "swiglu":
         h = F.silu(bmm(x, p["wg"]).to(torch.float32)).to(x.dtype)
         h = h * bmm(x, p["w1"])
@@ -366,8 +369,11 @@ def mlp(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
         # tanh form: jax.nn.gelu's default
         h = F.gelu(bmm(x, p["w1"]).to(torch.float32),
                    approximate="tanh").to(x.dtype)
-    h = shard(h, "batch", None, "tp")
-    return bmm(h, p["w2"])
+    return shard(h, "batch", None, "tp")
+
+
+def mlp(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    return bmm(mlp_hidden(x, p, cfg), p["w2"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,14 @@
 """Decoder-only transformer LM covering the dense, MoE and VLM-backbone
 architectures (llava-next-mistral, grok-1, llama4-scout, granite, qwen1.5,
-starcoder2, phi4-mini).  Counterpart of ``repro.models.lm``; ``loss_fn`` is
-a forward pass (no training substrate yet).
+starcoder2, phi4-mini).  Counterpart of ``repro.models.lm``.
 
 Layers are stacked on a leading L axis (the JAX package's layout, so its
 parameter trees convert leaf by leaf) and driven by a Python loop over that
-axis.  The stacked KV cache ``(L, b, S, n_kv, d_head)`` is **updated in
-place**, layer by layer: :func:`decode_step` returns the cache tensors it was
-given.  Callers run under ``torch.inference_mode()``.
+axis.  ``loss_fn`` is differentiable: under autograd each block runs under
+``cfg.remat`` (:func:`remat`, the reference's ``jax.checkpoint``).  The
+stacked KV cache ``(L, b, S, n_kv, d_head)`` is **updated in place**, layer
+by layer: :func:`decode_step` returns the cache tensors it was given; the
+serving steps run under ``torch.inference_mode()``.
 
 Every dense GEMM (qkv/o projections, MLP, MoE router and experts,
 unembedding logits) routes through the active ``repro_torch.backend``.
@@ -15,16 +16,21 @@ unembedding logits) routes through the active ``repro_torch.backend``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import contextlib
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..backend import matmul as bmm
+from ..backend import use_backend
+from ..backend.base import routed_backend
 from ..configs.base import ModelConfig
 from .layers import (KVCacheSpec, _quant_kv, attention,
                      attention_param_specs, chunked_softmax_xent,
                      decode_attention, embed, embed_param_specs, logits_last,
-                     mlp, mlp_param_specs, moe, moe_param_specs, rmsnorm,
-                     rmsnorm_spec)
+                     mlp_hidden, mlp_param_specs, moe, moe_param_specs,
+                     rmsnorm, rmsnorm_spec)
 from .shardlib import ParamSpec, tree_map
 
 Params = Dict[str, Any]
@@ -57,31 +63,94 @@ def _layer(tree: Params, i: int) -> Params:
     return tree_map(lambda t: t[i], tree)
 
 
+def _unbound(tree: Params, n: int) -> List[Params]:
+    """The ``n`` layers of a stacked tree as views, each stacked leaf
+    unbound once.  Under autograd a select a layer would give back a
+    full-size gradient of the stacked leaf for every layer (1.6 GB each for
+    phi4-mini's ``w1``); unbind's backward stacks the layers' gradients
+    once."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda u: u[i], parts) for i in range(n)]
+
+
+def remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under ``cfg.remat`` where autograd records: "full" (the
+    default) keeps only ``fn``'s inputs and runs it again in the backward
+    pass (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``); "none" and "dots" keep what autograd saves, so no
+    GEMM runs twice; ``remat_save_attn`` counts as "full" (ROADMAP C4: the
+    reference's counts under those two differ).  The second run routes its
+    GEMMs through the backend that the first one used, whatever is scoped
+    when the backward pass runs."""
+    if cfg.remat != "full" and not cfg.remat_save_attn:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        be = routed_backend()
+
+        def body(*a):
+            with (use_backend(be) if be is not None
+                  else contextlib.nullcontext()):
+                return fn(*a)
+        return checkpoint(body, *args, use_reentrant=False)
+    return run
+
+
+def _ffn_head(h: torch.Tensor, lp: Params, cfg: ModelConfig
+              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """A block's feed-forward up to the MLP's down projection: (the
+    experts' output or None, the (shared) MLP's hidden or None)."""
+    y = moe(h, lp["moe"], cfg) if cfg.n_experts else None
+    hid = (mlp_hidden(h, lp["mlp"], cfg)
+           if not cfg.n_experts or cfg.shared_expert else None)
+    return y, hid
+
+
+def _ffn_sum(y: Optional[torch.Tensor], hid: Optional[torch.Tensor],
+             lp: Params) -> torch.Tensor:
+    """The rest of :func:`_ffn_head`: the MLP's down projection, added to
+    the experts' output."""
+    if hid is None:
+        return y
+    m = bmm(hid, lp["mlp"]["w2"])
+    return m if y is None else y + m
+
+
 def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     """A block's feed-forward: the MLP, or the MoE plus the shared expert's
     MLP."""
-    if not cfg.n_experts:
-        return mlp(h, lp["mlp"], cfg)
-    y = moe(h, lp["moe"], cfg)
-    if cfg.shared_expert:
-        y = y + mlp(h, lp["mlp"], cfg)
-    return y
+    return _ffn_sum(*_ffn_head(h, lp, cfg), lp)
+
+
+def _block_head(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+                positions: Optional[torch.Tensor]):
+    """A block up to its MLP's down projection: (x after attention,
+    :func:`_ffn_head`'s pair)."""
+    h = rmsnorm(x, lp["norm_attn"])
+    x = x + attention(h, lp["attn"], cfg, causal=True, positions=positions)
+    h = rmsnorm(x, lp["norm_mlp"])
+    return (x, *_ffn_head(h, lp, cfg))
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = rmsnorm(x, lp["norm_attn"])
-    x = x + attention(h, lp["attn"], cfg, causal=True, positions=positions)
-    h = rmsnorm(x, lp["norm_mlp"])
-    return x + _ffn(h, lp, cfg)
+    """One layer.  Only the head runs under :func:`remat`: the down
+    projection of the MLP (dense, or the shared expert's) feeds the
+    residual sum alone, so the reference's compiled backward drops its
+    second run as dead code, and a train step runs as many GEMMs as the
+    reference's."""
+    x, y, hid = remat(_block_head, cfg)(x, lp, cfg, positions)
+    return x + _ffn_sum(y, hid, lp)
 
 
 def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig,
              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Embedding-space input -> final-norm output (a loop over the layer
     stack)."""
-    for i in range(cfg.n_layers):
-        x = _block(x, _layer(params["blocks"], i), cfg, positions)
+    for lp in _unbound(params["blocks"], cfg.n_layers):
+        x = _block(x, lp, cfg, positions)
     return rmsnorm(x, params["final_norm"])
 
 
@@ -99,8 +168,8 @@ def _inputs_to_embedding(params: Params, batch: Dict[str, torch.Tensor],
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (a 0-d float32 tensor); patch positions carry no
-    loss."""
+    ``batch["labels"]`` (a 0-d float32 tensor, differentiable); patch
+    positions carry no loss."""
     x, n_prefix = _inputs_to_embedding(params, batch, cfg)
     y = backbone(params, x, cfg)[:, n_prefix:]
     return chunked_softmax_xent(y, params["embedding"], batch["labels"],
