@@ -42,7 +42,14 @@ tokens under ``reference``, every forward GEMM on ``systolic_mac`` with
 straight-through gradients, then the same steps under ``ideal``, then 2
 steps with int8 moments), the JAX package's trainer tests at their smoke
 sizes (descent, resume), whether a repeated step gives the same bits, and
-the ssm / hybrid refusals.  Weights are random, from seeded generators.
+the ssm / hybrid refusals.  Then the device mesh: a one-rank ``nccl`` group
+and a (1, 1) mesh (``repro_torch.launch.mesh``), one phi4-mini train step
+at full width and four decode steps of the served model through
+``build_cell``'s rules, each bit-equal to the unsharded step with
+``systolic_mac`` launches equal to the GEMMs, and the dry run
+(``repro_torch.launch.dryrun``) of phi4-mini-3.8b x train_4k on a ``fake``
+group of 256 ranks in a child process.  Weights are random, from seeded
+generators.
 Needs a GPU and ``nvcc``; any phase that fails ends the run with
 a non-zero exit code.
 
@@ -59,7 +66,9 @@ kernel), per model of the other families ``serve_families`` and
 ``frontends``, ``train`` (per backend: losses, seconds a step, tokens/s, the
 optimizer's seconds on the stream (CUDA events; the timed steps add no host
 synchronisation to the trainer's), step 0's gradient norm, peak memory, B1 launches and
-device ms a step; the smoke trainer's checks), ``profile_misses`` (profiled
+device ms a step; the smoke trainer's checks), ``mesh_note``, ``mesh``
+(the one-rank mesh's train and decode steps beside the unsharded ones, the
+dry run's record and trace seconds), ``profile_misses`` (profiled
 measurements left null, with what each try saw), ``total`` (the script's
 seconds),
 then ``{"kernels": [...]}`` (per
@@ -76,6 +85,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -206,6 +216,10 @@ TOL_GNORM = 2e-2
 #: the JAX package's trainer tests at their own smoke sizes (batch 4 x 32):
 #: descent over 16 steps, and 4 steps + resume for 2 = 6 straight steps
 SMOKE_TRAIN_SHAPE = (32, 4)
+#: the mesh phase: decode steps of the served phi4 on a one-rank mesh, and
+#: the dry run's cell (traced on a fake process group of 256 ranks)
+MESH_DECODE_STEPS = 4
+DRYRUN_CELL = ("phi4-mini-3.8b", "train_4k")
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -4251,6 +4265,253 @@ def train_phase(torch, cfg, mods, counters):
             "smoke": smoke_trainer(torch, mods, tmods)}
 
 
+def tree_digest(torch, tree, flatten):
+    """name -> a 128-bit digest of a tree's leaves' bits, on the device: each
+    leaf's raw words (int16 for 2-byte dtypes, else int32) summed, and
+    summed again weighted by their index mod a prime, in int64 (integer
+    sums wrap and do not depend on their order).  Two trees with equal
+    digests are bit-equal but for a collision."""
+    out = {}
+    mult = None
+    for name, leaf in flatten(tree):
+        t = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+        t = t.detach().reshape(-1)
+        words = t.view(torch.int16 if t.element_size() == 2 else torch.int32
+                       ) if t.element_size() in (2, 4) else t.to(torch.int64)
+        plain = weighted = 0
+        for i in range(0, words.numel(), 1 << 24):
+            w = words[i:i + (1 << 24)].to(torch.int64)
+            if mult is None or mult.numel() < w.numel():
+                mult = torch.arange(1 << 24, device=w.device,
+                                    dtype=torch.int64) % 1000003 + 1
+            plain = plain + w.sum()
+            weighted = weighted + (w * mult[:w.numel()]).sum()
+        out[name] = (int(plain), int(weighted))
+    return out
+
+
+def profiled_b1(rows):
+    """B1's device ms and launches among one profiled call's kernel rows
+    (:func:`profile_calls`), beside every kernel's; None where the
+    profiler gave no rows (not measured)."""
+    if rows is None:
+        return {"systolic_mac_device_ms": None, "device_ms": None}
+    b1 = [r for r in rows if r["kernel"] == "systolic_mac_kernel"]
+    return {"systolic_mac_device_ms": sum(r["ms"] for r in b1),
+            "systolic_mac_launches": sum(r["calls"] for r in b1),
+            "device_ms": sum(r["ms"] for r in rows),
+            "kernels": sum(r["calls"] for r in rows)}
+
+
+def mesh_phase(torch, cfg, mods, counters):
+    """The device mesh on the card: a one-rank ``nccl`` group and a (1, 1)
+    ("data", "model") mesh (``launch.mesh.start_mesh``).  (b) One phi4-mini
+    train step at full width on ``reference`` through ``build_cell``'s
+    rules, from the same seeded parameters and batch as a ``rules=None``
+    step: loss, gradient norm and every updated leaf bit-equal (one rank
+    shards nothing; leaves by :func:`tree_digest`), B1 launches = the
+    step's 13 L + 1 GEMMs; a second step of each timed, and B1's device
+    time in a third by ``torch.profiler``.  (c) MESH_DECODE_STEPS decode
+    steps of the served phi4 (SLOTS rows) on the mesh: logits and tokens
+    bit-equal to the unsharded decode step's (what ServeEngine runs), B1
+    launches = 225 a step; B1's device time in one more profiled step of
+    each.  (d) The dry run of DRYRUN_CELL as a
+    child process (one process holds one default group): ``status: ok``,
+    flops > 0, collectives > 0, its trace seconds."""
+    from repro_torch import optim as optim_mod
+    from repro_torch.checkpoint.manager import _flatten_with_names
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.shardlib import distribute_tree
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    out = {"moe_ep_a2a": "not run on the card: it needs n_experts ranks on "
+                         "the expert axis and one H100 is a one-rank mesh; "
+                         "held on the CPU (tests/test_torch_mesh.py, 4 gloo "
+                         "ranks against the JAX package's 4-device mesh)"}
+    emit("mesh_note", out)
+    t0 = time.monotonic()
+    mesh = mesh_mod.start_mesh((1, 1), ("data", "model"))
+    try:
+        out["start_mesh_s"] = time.monotonic() - t0
+        out["mesh"] = {"shape": list(mesh.mesh.shape),
+                       "axes": list(mesh.mesh_dim_names),
+                       "backend": torch.distributed.get_backend(),
+                       "device_type": mesh.device_type}
+        shape = mods.ShapeConfig("train", TRAIN_BATCH[1], TRAIN_BATCH[0],
+                                 "train")
+        ocfg = optim_mod.AdamWConfig()
+        cell = build_cell(ARCH, shape, mesh, opt_cfg=ocfg)
+        api = mods.model_api(cfg)
+        batch = train_batch(torch, cfg, types.SimpleNamespace(
+            DataConfig=DataConfig, SyntheticDataset=SyntheticDataset), 0)
+        gemms = 13 * cfg.n_layers + 1
+        runs = {}
+        for label, rules in (("rules_none", None), ("mesh", cell.rules)):
+            release(torch)
+            params = api.init_params(SEED)
+            state = optim_mod.init_state(params, ocfg)
+            if rules is not None:
+                params = distribute_tree(params, api.param_specs(), rules)
+                state = distribute_tree(
+                    state, optim_mod.state_specs(api.param_specs(), ocfg),
+                    rules)
+            step = cell.fn if rules is not None else make_train_step(
+                api, cfg, ocfg)
+            norms, spans = [], []
+            be = mods.get_backend("reference")
+            torch.cuda.synchronize()
+            seconds, losses = [], []
+            with mods.use_backend(be), recording_optimizer(
+                    torch, optim_mod, adamw, norms, spans):
+                for i in range(2):
+                    if i == 0:
+                        counters.zero()
+                    t1 = time.monotonic()
+                    _, state, loss = step(params, state, batch)
+                    losses.append(float(loss))
+                    seconds.append(time.monotonic() - t1)
+                    if i == 0:
+                        launches = counters.read()["systolic_mac"]
+                        digest = tree_digest(
+                            torch, {"params": params, "opt": state},
+                            _flatten_with_names)
+            norms, opt_s = read_recorded(torch, norms, spans)
+            summary = be.summary()
+            # B1's device time inside one more step (torch.profiler)
+            with mods.use_backend(mods.get_backend("reference")):
+                prof = profile_calls(torch, {"step": lambda: step(
+                    params, state, batch)})["step"]
+            runs[label] = {"loss": losses[0], "global_grad_norm": norms[0],
+                           "step_s": seconds, "optimizer_stream_s": opt_s,
+                           "systolic_mac_launches_step0": launches,
+                           "backend_calls": summary["calls"],
+                           "flags": summary["flags"], "digest": digest,
+                           "profiled_step": profiled_b1(prof)}
+            if launches != gemms:
+                fail(f"mesh train ({label}): {launches} systolic_mac "
+                     f"launches in a step; {gemms} GEMMs expected")
+            del params, state, step
+        none, on_mesh = runs["rules_none"], runs["mesh"]
+        differ = [k for k in none["digest"]
+                  if none["digest"][k] != on_mesh["digest"].get(k)]
+        bits = (none["loss"] == on_mesh["loss"]
+                and none["global_grad_norm"] == on_mesh["global_grad_norm"]
+                and not differ and len(none["digest"]) == len(
+                    on_mesh["digest"]))
+        out["train"] = {
+            "arch": cfg.name, "batch": list(TRAIN_BATCH), "backend":
+            "reference", "gemms_per_step": gemms,
+            "rules_none": {k: v for k, v in none.items() if k != "digest"},
+            "mesh": {k: v for k, v in on_mesh.items() if k != "digest"},
+            "leaves_compared": len(none["digest"]),
+            "leaves_that_differ": differ, "bit_equal": bits,
+            "step_s_second": {"rules_none": none["step_s"][1],
+                              "mesh": on_mesh["step_s"][1]}}
+        if not bits:
+            fail(f"mesh train step not bit-equal to rules=None: loss "
+                 f"{on_mesh['loss']} / {none['loss']}, norm "
+                 f"{on_mesh['global_grad_norm']} / "
+                 f"{none['global_grad_norm']}, leaves {differ[:8]}")
+        release(torch)
+
+        # (c) the served phi4's decode steps on the mesh
+        params = api.init_params(SEED)
+        dshape = mods.ShapeConfig("serve", MAX_LEN, SLOTS, "decode")
+        dcell = build_cell(ARCH, dshape, mesh)
+        dparams = distribute_tree(params, api.param_specs(), dcell.rules)
+        plain_state = api.make_decode_state(dshape)
+        mesh_state = distribute_tree(api.make_decode_state(dshape),
+                                     api.decode_state_specs(dshape),
+                                     dcell.rules)
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 24)
+        tok = torch.randint(0, cfg.vocab_size, (SLOTS, 1), generator=gen,
+                            dtype=torch.int32).to(DEVICE)
+        steps_out, mesh_launches, mesh_s, plain_s = [], 0, [], []
+        be = mods.get_backend("reference")
+        with mods.use_backend(be):
+            for _ in range(MESH_DECODE_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.monotonic()
+                want, plain_state = api.decode_step(params, plain_state, tok)
+                torch.cuda.synchronize()
+                plain_s.append(time.monotonic() - t1)
+                counters.zero()
+                t1 = time.monotonic()
+                got, mesh_state = dcell.fn(dparams, mesh_state, tok)
+                got = got.full_tensor()
+                torch.cuda.synchronize()
+                mesh_s.append(time.monotonic() - t1)
+                mesh_launches += counters.read()["systolic_mac"]
+                same = torch.equal(want, got)
+                nxt = want.argmax(-1, keepdim=True).to(torch.int32)
+                steps_out.append({"logits_bit_equal": bool(same),
+                                  "tokens": nxt[:, 0].tolist(),
+                                  "tokens_mesh": got.argmax(-1).tolist()})
+                if not same:
+                    fail(f"mesh decode step {len(steps_out)}: logits differ "
+                         f"from the unsharded step's")
+                tok = nxt
+        per_step = sum(n for _, _, n, _, _ in dense_gemms(cfg).values())
+        out["decode"] = {"arch": cfg.name, "slots": SLOTS, "steps":
+                         steps_out, "systolic_mac_launches": mesh_launches,
+                         "gemms_per_step": per_step,
+                         "step_s_mesh": mesh_s, "step_s_rules_none": plain_s,
+                         "kv_cache_bit_equal": bool(torch.equal(
+                             plain_state["kv"]["k"],
+                             mesh_state["kv"]["k"].to_local()))}
+        if mesh_launches != MESH_DECODE_STEPS * per_step:
+            fail(f"mesh decode: {mesh_launches} systolic_mac launches over "
+                 f"{MESH_DECODE_STEPS} steps; {per_step} a step expected")
+        if not out["decode"]["kv_cache_bit_equal"]:
+            fail("mesh decode: the KV caches differ")
+        # B1's device time inside one more step of each (torch.profiler)
+        with mods.use_backend(mods.get_backend("reference")):
+            prof = profile_calls(torch, {
+                "rules_none": lambda: api.decode_step(params, plain_state,
+                                                      tok),
+                "mesh": lambda: dcell.fn(dparams, mesh_state, tok)})
+        out["decode"]["profiled_step"] = {
+            k: profiled_b1(v) for k, v in prof.items()}
+        del params, dparams, plain_state, mesh_state
+    finally:
+        mesh_mod.stop_mesh()
+    release(torch)
+
+    # (d) the dry run in a child process: a fake group of 256 ranks
+    arch, shape_name = DRYRUN_CELL
+    out_dir = ROOT / "build" / "dryrun"
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.monotonic()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape_name, "--out-dir", str(out_dir)],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.monotonic() - t0
+    path = out_dir / f"{arch}_{shape_name}_pod_16x16.json"
+    if done.returncode != 0 or not path.exists():
+        fail(f"dry run of {arch} x {shape_name} exited {done.returncode}: "
+             f"{done.stderr[-2000:]}")
+    rec = json.loads(path.read_text())
+    n_colls = sum(v["count"] for v in rec.get("collectives", {}).values())
+    out["dryrun"] = {"record": rec, "child_wall_s": wall,
+                     "collectives": n_colls}
+    if not (rec["status"] == "ok" and rec["cost"]["flops"] > 0
+            and n_colls > 0):
+        fail(f"dry run of {arch} x {shape_name}: {rec.get('status')}, "
+             f"{rec.get('error')}")
+    print(f"mesh: dry run {arch} x {shape_name} x pod_16x16 trace_s "
+          f"{rec['trace_s']}", flush=True)
+    for what, prof in (("train", {k: out["train"][k]["profiled_step"]
+                                  for k in ("rules_none", "mesh")}),
+                       ("decode", out["decode"]["profiled_step"])):
+        print(f"mesh: B1 device ms in a profiled {what} step, rules=None / "
+              f"mesh: {prof['rules_none']['systolic_mac_device_ms']} / "
+              f"{prof['mesh']['systolic_mac_device_ms']}", flush=True)
+    return out, mesh_launches + runs["mesh"]["systolic_mac_launches_step0"]
+
+
 def train_entry(shapes, trained):
     """B1 over a phi4-mini train step's GEMMs at M = TRAIN_M (13 L + 1), from
     the per-shape measurements, beside the step's own profile."""
@@ -4625,6 +4886,19 @@ def main() -> int:
     emit("train", trained)
     release(torch)
 
+    # ---- the device mesh: one rank, the train and decode steps on it
+    # bit-equal to no mesh; the dry run on a fake group of 256
+    t0 = time.monotonic()
+    meshed, mesh_launches = mesh_phase(torch, cfg, mods, counters)
+    meshed["seconds"] = time.monotonic() - t0
+    emit("mesh", meshed)
+    step_s = {k: meshed["train"][k]["step_s"][1]
+              for k in ("mesh", "rules_none")}
+    print(f"mesh: second train step {step_s['mesh']:.3f} s on the one-rank "
+          f"mesh beside {step_s['rules_none']:.3f} s with rules=None "
+          f"({smi})", flush=True)
+    release(torch)
+
     emit("profile_misses", {"rows": PROFILE_MISSES,
                             "tries_per_measurement": PROFILE_TRIES})
     emit("total", {"seconds": time.monotonic() - t_start})
@@ -4676,7 +4950,8 @@ def main() -> int:
                                  "reference": trained["reference"][
                                      "systolic_mac_launches"],
                                  "int8_moments": trained["int8_moments"][
-                                     "systolic_mac_launches"]}},
+                                     "systolic_mac_launches"]},
+                             "mesh": mesh_launches},
         "train_step": train_entry(shapes, trained),
         "host_us_per_launch": {key: host[key] for key in (
             "systolic_mac_us", "reference_route_us", "torch_matmul_us")},

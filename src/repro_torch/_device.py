@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import Any, Union
 
 import torch
 
@@ -26,3 +27,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.cache
+def _dtensor_class() -> type:
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor`` (a tensor laid
+    out on a device mesh)."""
+    return isinstance(x, _dtensor_class())

@@ -26,6 +26,12 @@ JAX package):
   gets the flattened (M, K) problem.  Nothing crosses to the host: flag
   counts stay on the device and are read once per ``pop_telemetry()`` /
   ``summary()``, not once per GEMM.
+* On ``DTensor`` operands (a device mesh) the ideal backend is still
+  ``a @ b``, laid out by DTensor's own propagation; any other backend runs
+  each rank's ``(M_local, K) x (K, N_local)`` block with K whole
+  (``torch.distributed.tensor.experimental.local_map``), so a product's
+  summation order never depends on the mesh, and counts each rank's
+  local MACs.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .._device import DeviceLike, resolve_device
+from .._device import DeviceLike, is_dtensor, resolve_device
 from ..obs.serialize import to_plain
 
 
@@ -281,8 +287,12 @@ class MatmulBackend:
     def _route(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         # one running count on the operands' device, made at the first GEMM
         # after a settling and added into by every routed GEMM
-        if (self._deferred_flags is not None
-                and self._deferred_flags.device != a.device):
+        if self._deferred_flags is not None and (
+                self._deferred_flags.device != a.device
+                or (self._deferred_flags.is_inference()
+                    and not torch.is_inference_mode_enabled())):
+            # a count made on another device, or in inference mode (a
+            # mesh step runs under no_grad), cannot be added into here
             self._settle_flags()
         if self._deferred_flags is None:
             self._deferred_flags = torch.zeros((), dtype=torch.int32,
@@ -444,9 +454,64 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     be = routed_backend()
     if be is None or be.is_ideal:
         return torch.matmul(a, b)
+    if is_dtensor(a) or is_dtensor(b):
+        return _mesh_matmul(be, a, b)
+    return _flat_matmul(be, a, b)
+
+
+def _flat_matmul(be: "MatmulBackend", a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
     lead = a.shape[:-1]
     out = be.traced_matmul(a.reshape(-1, a.shape[-1]), b)
     return out.reshape(*lead, b.shape[-1])
+
+
+def _mesh_matmul(be: "MatmulBackend", a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """A routed GEMM on ``DTensor`` operands: each rank multiplies its
+    ``(M_local, K) x (K, N_local)`` block on the backend.
+
+    K is made whole on every rank first (a's last dimension and b's first
+    are gathered), so each output element is one backend sum over all of
+    K: the kernel's summation order stays fixed by (K, N, dtype), never by
+    the mesh, and on one rank the bits equal the unsharded call's.  (A
+    partial sum over a split K would add the ranks' sums in another
+    order.)  The output takes a's row placements and b's column placements;
+    where one mesh axis would split both, a's rows are gathered on it.
+    Gradients come back as partial sums where the other operand was split
+    (the local products' straight-through VJP)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    if not is_dtensor(a):
+        a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if not is_dtensor(b):
+        b = DTensor.from_local(b, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    k_dim = a.ndim - 1
+    a_pl, b_pl, out_pl = [], [], []
+    for pa, pb in zip(a.placements, b.placements):
+        rows = isinstance(pa, Shard) and pa.dim != k_dim
+        cols = isinstance(pb, Shard) and pb.dim == 1
+        if rows and cols:
+            rows = False
+        a_pl.append(Shard(pa.dim) if rows else Replicate())
+        b_pl.append(Shard(1) if cols else Replicate())
+        out_pl.append(Shard(pa.dim) if rows else
+                      Shard(k_dim) if cols else Replicate())
+    a = a.redistribute(mesh, a_pl)
+    b = b.redistribute(mesh, b_pl)
+    # the gradient of a's block sums over b's column split, and b's over
+    # a's row split: partial on those axes
+    a_grad = [Partial() if isinstance(pb, Shard) else pa
+              for pa, pb in zip(a_pl, b_pl)]
+    b_grad = [Partial() if isinstance(pa, Shard) else pb
+              for pa, pb in zip(a_pl, b_pl)]
+    fn = local_map(lambda x, w: _flat_matmul(be, x, w),
+                   out_placements=out_pl, in_placements=(a_pl, b_pl),
+                   in_grad_placements=(a_grad, b_grad), device_mesh=mesh)
+    return fn(a, b)
 
 
 def largest_common_block(m: int, n: int,

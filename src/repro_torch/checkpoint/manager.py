@@ -15,7 +15,10 @@ reinterpreted on restore from the manifest's logical dtype, as the
 reference does.  Leaves may be tensors (any device) or numpy arrays;
 :meth:`CheckpointManager.restore` writes into the template's tensors in
 place and returns them (a new CPU tensor for a numpy template leaf), where
-the reference returns new numpy arrays.
+the reference returns new numpy arrays.  On a device mesh a ``DTensor``
+leaf is saved whole (``full_tensor()``, gathered on every rank; rank 0
+writes, as the reference saves gathered arrays) and restored into each
+rank's shard of the template.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import is_dtensor
+
 Pytree = Any
 
 _SEP = "/"
@@ -42,6 +47,8 @@ def _snapshot(leaf: Any) -> Tuple[np.ndarray, str]:
     must not read the live tensor."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if is_dtensor(t):
+            t = t.full_tensor()         # the gathered leaf, on every rank
         if t.dtype == torch.bfloat16:
             bits = t.view(torch.int16).to("cpu", copy=True).numpy()
             return bits.view(np.uint16), "bfloat16"
@@ -51,6 +58,14 @@ def _snapshot(leaf: Any) -> Tuple[np.ndarray, str]:
     if arr.dtype.name == "bfloat16":            # an ml_dtypes array
         return arr.view(np.uint16), "bfloat16"
     return arr, str(arr.dtype)
+
+
+def _writes() -> bool:
+    """Whether this process writes a checkpoint: rank 0 of the default
+    process group, or a process with none (every rank gathers a mesh's
+    leaves, one writes them)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _decode(arr: np.ndarray, logical_dtype: str) -> torch.Tensor:
@@ -91,7 +106,14 @@ def _place(leaf: Any, value: torch.Tensor, key: str) -> torch.Tensor:
                          f"{tuple(value.shape)} {value.dtype}, the template "
                          f"{tuple(leaf.shape)} {leaf.dtype}")
     with torch.no_grad():
-        leaf.copy_(value)
+        if is_dtensor(leaf):
+            # this rank's shard of the whole value
+            from torch.distributed.tensor import distribute_tensor
+            part = distribute_tensor(value.to(leaf.device), leaf.device_mesh,
+                                     leaf.placements)
+            leaf.to_local().copy_(part.to_local())
+        else:
+            leaf.copy_(value)
     return leaf
 
 
@@ -154,6 +176,8 @@ class CheckpointManager:
             shutil.rmtree(tmp, ignore_errors=True)
             self._gc()
 
+        if not _writes():
+            return final
         if blocking:
             _write()
         else:

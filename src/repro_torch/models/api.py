@@ -19,8 +19,9 @@ by ``decode_step`` (``prefill`` raises).  The
 decode state is updated **in place**: ``decode_step``, ``slot_update`` and
 ``slot_reset`` write into the tensors they are given and return that tree.
 Serving steps, ``loss`` and state surgery run under
-``torch.inference_mode()``; a decode state is made by ``make_decode_state`` /
-``prefill`` and only ever handed back to these methods.  ``train_loss`` runs
+``torch.inference_mode()`` (``torch.no_grad()`` under mesh rules); a decode
+state is made by ``make_decode_state`` / ``prefill`` and only ever handed
+back to these methods.  ``train_loss`` runs
 with autograd recording (the trainer's loss): every family but ssm and
 hybrid, whose recurrence kernels have no backward pass yet (ROADMAP A19).
 """
@@ -36,7 +37,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig, ShapeConfig
 from . import encdec, lm, ssm
-from .shardlib import init_param_tree, tree_map
+from .shardlib import current_rules, init_param_tree, tree_map
 
 Params = Dict[str, Any]
 
@@ -62,6 +63,15 @@ def check_trainable(cfg: ModelConfig) -> None:
             f"{cfg.name}: training the {cfg.family} family needs backward "
             "passes of the wkv6 / ssd_chunk recurrences, which are not "
             "ported yet (ROADMAP.md queue A, A19)")
+
+
+def _no_grad():
+    """``torch.inference_mode()``; ``torch.no_grad()`` where the active
+    rules carry a mesh (a ``DTensor`` view cannot be made in inference
+    mode)."""
+    if current_rules().mesh is not None:
+        return torch.no_grad()
+    return torch.inference_mode()
 
 
 def _token_batch(b: int, s: int, with_labels: bool) -> Dict[str, BatchSpec]:
@@ -131,7 +141,7 @@ class ModelAPI:
         ``frames`` to attend to for encdec): a forward pass, no gradient
         (:meth:`train_loss` is the differentiable one)."""
         f = self.cfg.family
-        with self._scope(), torch.inference_mode():
+        with self._scope(), _no_grad():
             if f == "ssm":
                 return ssm.rwkv6_loss(params, batch, self.cfg)
             if f == "hybrid":
@@ -160,7 +170,7 @@ class ModelAPI:
             raise NotImplementedError(
                 f"prefill for {f}: SSM/hybrid prompts are absorbed by "
                 "running decode_step over the prompt (O(1) state)")
-        with self._scope(), torch.inference_mode():
+        with self._scope(), _no_grad():
             if f == "encdec":
                 return encdec.prefill(params, batch, self.cfg, max_len)
             return lm.prefill(params, batch, self.cfg, max_len)
@@ -168,7 +178,7 @@ class ModelAPI:
     def decode_step(self, params: Params, state: Params,
                     tokens: torch.Tensor):
         f = self.cfg.family
-        with self._scope(), torch.inference_mode():
+        with self._scope(), _no_grad():
             if f == "ssm":
                 return ssm.rwkv6_decode_step(params, state, tokens, self.cfg)
             if f == "hybrid":
@@ -225,7 +235,7 @@ class ModelAPI:
 
     def make_decode_state(self, shape: ShapeConfig) -> Params:
         """All-zeros decode state matching ``decode_state_specs(shape)``."""
-        with torch.inference_mode():
+        with _no_grad():
             return tree_map(
                 lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                       device=self.device),
@@ -240,7 +250,7 @@ class ModelAPI:
                 return leaf
             ax = spec.logical.index("batch")
             return leaf.narrow(ax, int(slot), 1).clone()
-        with torch.inference_mode():
+        with _no_grad():
             return tree_map(take, self.decode_state_specs(shape), state)
 
     def slot_update(self, shape: ShapeConfig, state: Params, slot: int,
@@ -252,7 +262,7 @@ class ModelAPI:
             if "batch" in spec.logical:
                 ax = spec.logical.index("batch")
                 leaf.narrow(ax, int(slot), 1).copy_(s)
-        with torch.inference_mode():
+        with _no_grad():
             tree_map(put, self.decode_state_specs(shape), state, sub)
         return state
 
@@ -263,7 +273,7 @@ class ModelAPI:
             if "batch" in spec.logical:
                 ax = spec.logical.index("batch")
                 leaf.narrow(ax, int(slot), 1).zero_()
-        with torch.inference_mode():
+        with _no_grad():
             tree_map(zero, self.decode_state_specs(shape), state)
         return state
 

@@ -22,13 +22,14 @@ import torch
 
 from ..backend import matmul as bmm
 from ..configs.base import ModelConfig
-from .layers import (KVCacheSpec, _repeat_kv, _sdpa, attention,
-                     attention_param_specs, chunked_softmax_xent,
+from .layers import (KVCacheSpec, _merge_heads, _per_head, _repeat_kv,
+                     _sdpa, _split_heads, attention,
+                     attention_param_specs, cache_fill, chunked_softmax_xent,
                      decode_attention, embed, embed_param_specs, logits_last,
-                     mlp, mlp_hidden, mlp_param_specs, rmsnorm,
+                     layer_write, mlp, mlp_hidden, mlp_param_specs, rmsnorm,
                      rmsnorm_spec)
-from .lm import _layer, _unbound, remat
-from .shardlib import ParamSpec, shard, tree_map
+from .lm import _layer, _residual, _unbound, new_state, remat
+from .shardlib import ParamSpec, shard
 
 Params = Dict[str, Any]
 
@@ -41,19 +42,19 @@ def cross_attention(x: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor,
                     p: Params, cfg: ModelConfig) -> torch.Tensor:
     """x: (b, s, d) queries; mem_k/mem_v: (b, t, h_kv, dh) projected
     memory."""
-    b, s, _ = x.shape
-    q = bmm(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
+    s = x.shape[1]
+    q = _split_heads(bmm(x, p["wq"]), cfg.n_heads, cfg.d_head)
     k = _repeat_kv(mem_k, cfg.n_heads)
     v = _repeat_kv(mem_v, cfg.n_heads)
     keep = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
-    o = _sdpa(q, k, v, keep, cfg.d_head).reshape(b, s, cfg.q_dim)
-    return bmm(o, p["wo"])
+    o = _per_head(lambda q_, k_, v_: _sdpa(q_, k_, v_, keep, cfg.d_head),
+                  q, k, v)
+    return bmm(_merge_heads(o), p["wo"])
 
 
 def project_memory(mem: torch.Tensor, p: Params, cfg: ModelConfig):
-    b, t, _ = mem.shape
-    k = bmm(mem, p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.d_head)
-    v = bmm(mem, p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.d_head)
+    k = _split_heads(bmm(mem, p["wk"]), cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(bmm(mem, p["wv"]), cfg.n_kv_heads, cfg.d_head)
     return k, v
 
 
@@ -87,7 +88,7 @@ def _enc_head(x, lp, cfg):
     """An encoder block up to its MLP's down projection: (x after
     attention, the MLP's hidden)."""
     h = rmsnorm(x, lp["norm_attn"])
-    x = x + attention(h, lp["attn"], cfg, causal=False)
+    x = _residual(x + attention(h, lp["attn"], cfg, causal=False))
     h = rmsnorm(x, lp["norm_mlp"])
     return x, mlp_hidden(h, lp["mlp"], cfg)
 
@@ -97,24 +98,24 @@ def encode(params: Params, frames: torch.Tensor,
     x = shard(frames.to(torch.bfloat16), "batch", None, None)
     for lp in _unbound(params["encoder"], cfg.n_enc_layers):
         x, hid = remat(_enc_head, cfg)(x, lp, cfg)
-        x = x + bmm(hid, lp["mlp"]["w2"])
+        x = _residual(x + bmm(hid, lp["mlp"]["w2"]))
     return rmsnorm(x, params["enc_norm"])
 
 
 def _dec_head(x, mem, lp, cfg):
     """A decoder block up to its MLP's down projection."""
     h = rmsnorm(x, lp["norm_self"])
-    x = x + attention(h, lp["self_attn"], cfg, causal=True)
+    x = _residual(x + attention(h, lp["self_attn"], cfg, causal=True))
     h = rmsnorm(x, lp["norm_cross"])
     mk, mv = project_memory(mem, lp["cross_attn"], cfg)
-    x = x + cross_attention(h, mk, mv, lp["cross_attn"], cfg)
+    x = _residual(x + cross_attention(h, mk, mv, lp["cross_attn"], cfg))
     h = rmsnorm(x, lp["norm_mlp"])
     return x, mlp_hidden(h, lp["mlp"], cfg)
 
 
 def _dec_block(x, mem, lp, cfg):
     x, hid = remat(_dec_head, cfg)(x, mem, lp, cfg)
-    return x + bmm(hid, lp["mlp"]["w2"])
+    return _residual(x + bmm(hid, lp["mlp"]["w2"]))
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -169,22 +170,24 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     max_len = s if max_len is None else max_len
     x = embed(tokens, params)
     pos = torch.arange(s, device=x.device)
-    state = tree_map(
-        lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device=x.device),
-        decode_state_specs(cfg, b, max(max_len, s), t_enc=mem.shape[1]))
+    state = new_state(decode_state_specs(cfg, b, max(max_len, s),
+                                         t_enc=mem.shape[1]), x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["decoder"], i)
         h = rmsnorm(x, lp["norm_self"])
         a, k, v = attention(h, lp["self_attn"], cfg, causal=True,
                             positions=pos, return_kv=True)
-        x = x + a
+        x = _residual(x + a)
         h = rmsnorm(x, lp["norm_cross"])
         mk, mv = project_memory(mem, lp["cross_attn"], cfg)
-        x = x + cross_attention(h, mk, mv, lp["cross_attn"], cfg)
+        x = _residual(x + cross_attention(h, mk, mv, lp["cross_attn"],
+                                          cfg))
         h = rmsnorm(x, lp["norm_mlp"])
-        x = x + mlp(h, lp["mlp"], cfg)
-        state["kv"]["k"][i, :, :s], state["kv"]["v"][i, :, :s] = k, v
-        state["mem_k"][i], state["mem_v"][i] = mk, mv
+        x = _residual(x + mlp(h, lp["mlp"], cfg))
+        cache_fill(state["kv"]["k"], i, k)
+        cache_fill(state["kv"]["v"], i, v)
+        layer_write(state["mem_k"], i, mk)
+        layer_write(state["mem_v"], i, mv)
     x = rmsnorm(x, params["final_norm"])
     logits = logits_last(x[:, -1:], params["embedding"])
     state["index"].fill_(s)
@@ -202,12 +205,13 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
         h = rmsnorm(x, lp["norm_self"])
         a, _ = decode_attention(h, lp["self_attn"], cfg,
                                 _layer(state["kv"], i), index)
-        x = x + a
+        x = _residual(x + a)
         h = rmsnorm(x, lp["norm_cross"])
-        x = x + cross_attention(h, state["mem_k"][i], state["mem_v"][i],
-                                lp["cross_attn"], cfg)
+        x = _residual(x + cross_attention(h, state["mem_k"][i],
+                                          state["mem_v"][i],
+                                          lp["cross_attn"], cfg))
         h = rmsnorm(x, lp["norm_mlp"])
-        x = x + mlp(h, lp["mlp"], cfg)
+        x = _residual(x + mlp(h, lp["mlp"], cfg))
     x = rmsnorm(x, params["final_norm"])
     logits = logits_last(x, params["embedding"])
     return logits, {**state, "index": index + 1}

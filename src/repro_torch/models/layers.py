@@ -2,8 +2,13 @@
 cached decode, causal + sliding-window), SwiGLU/GELU MLPs, MoE (dense
 dispatch), embedding and unembedding, and the sequence-chunked cross-entropy,
 each differentiable by autograd (a routed GEMM's backward is the backend's
-straight-through one).  Counterpart of ``repro.models.layers``; the
-expert-parallel all-to-all MoE waits for the mesh (ROADMAP A14).
+straight-through one), and the expert-parallel all-to-all MoE on a device
+mesh.  Counterpart of ``repro.models.layers``.
+
+On a mesh (``shardlib.use_rules`` with mesh rules) the operands are
+``DTensor`` s.  Elementwise ops, norms and reductions propagate their
+placements; attention runs per (batch, head) block and the KV cache is
+written shard by shard, each rank on its own local tensors.
 
 Numerics policy: params bf16 (norm scales f32), matmuls bf16 with f32
 softmax/normalization.  Every dense GEMM goes through
@@ -27,7 +32,7 @@ import torch.nn.functional as F
 from ..backend import matmul as bmm
 from ..backend.base import routes_ideal
 from ..configs.base import ModelConfig
-from .shardlib import ParamSpec, shard
+from .shardlib import ParamSpec, is_dtensor, shard
 
 Params = Dict[str, Any]
 
@@ -108,12 +113,43 @@ def _qkv(x: torch.Tensor, p: Params, cfg: ModelConfig,
     v = bmm(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = _split_heads(q, cfg.n_heads, cfg.d_head)
+    k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _head_axis(x: torch.Tensor, dim: int, heads: int) -> Optional[str]:
+    """"tp" where the active rules' split of ``dim`` holds whole heads,
+    else None (the dimension stays whole)."""
+    from .shardlib import current_rules
+    rules = current_rules()
+    if rules.mesh is None or not is_dtensor(x):
+        return None
+    spec = rules.placements(("tp",), (heads,))
+    return "tp" if any(p.is_shard() for p in spec) else None
+
+
+def _split_heads(x: torch.Tensor, heads: int, d_head: int) -> torch.Tensor:
+    """(b, s, heads * d_head) -> (b, s, heads, d_head).  On a mesh the
+    last dimension stays split only where its parts hold whole heads (XLA
+    reshards such a reshape by itself; DTensor needs it laid out first),
+    and the gradient comes back in the same layout."""
+    b, s = x.shape[0], x.shape[1]
+    tp = _head_axis(x, 2, heads)
+    x = shard(x, "batch", None, tp)
+    return shard(x.reshape(b, s, heads, d_head), "batch", None, tp, None)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(b, s, heads, d_head) -> (b, s, heads * d_head), as
+    :func:`_split_heads` lays it out."""
+    b, s, heads, d_head = x.shape
+    tp = _head_axis(x, 2, heads)
+    x = shard(x, "batch", None, tp, None)
+    return shard(x.reshape(b, s, heads * d_head), "batch", None, tp)
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -176,6 +212,70 @@ def _sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, qs, h, d)
 
 
+def _replicated(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` as a ``DTensor`` on ``mesh`` (a plain tensor: replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _batch_head_split(t: torch.Tensor, heads_split) -> list:
+    """Placements of a (b, s, heads, ...) ``DTensor``'s per-(row, head)
+    blocks: each mesh axis keeps its split of the batch (dim 0) where the
+    parts divide it, and of the heads (dim 2) where ``heads_split(parts)``
+    allows; everything else is whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    pl, b_parts, h_parts = [], 1, 1
+    for i, p in enumerate(t.placements):
+        n = mesh.size(i)
+        if p.is_shard(0) and t.shape[0] % (b_parts * n) == 0:
+            pl.append(Shard(0))
+            b_parts *= n
+        elif p.is_shard(2) and heads_split(h_parts * n):
+            pl.append(Shard(2))
+            h_parts *= n
+        else:
+            pl.append(Replicate())
+    return pl
+
+
+def _per_head(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              *extra: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v, *extra)`` -> (b, s_q, h, d): attention math, on each
+    rank's (batch, heads) block where the operands are ``DTensor`` s.
+
+    q, k, v: (b, s, heads, d).  Each (batch row, head) attends on its own,
+    so the ranks keep their batch and head splits and gather the sequence
+    and ``d_head``; the local math is the unsharded one, the gradients of
+    each block complete.  The batch split must divide; heads may split
+    unevenly (DTensor's ``torch.chunk`` parts, as XLA pads) where k has q's
+    head count, and must divide where k's kv heads serve groups of q's.
+    ``extra``:
+    plain tensors without a batch axis (whole on every rank) or
+    ``DTensor`` s with a leading batch axis (split as q's rows)."""
+    if not any(is_dtensor(t) for t in (q, k, v)):
+        return fn(q, k, v, *extra)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
+    q, k, v = (_replicated(t, mesh) for t in (q, k, v))
+    pl = _batch_head_split(q, lambda parts: k.shape[2] == q.shape[2] or (
+        q.shape[2] % parts == 0 and k.shape[2] % parts == 0))
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pl]
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    extra = [e.redistribute(mesh, rows) if is_dtensor(e) else e
+             for e in extra]
+    return local_map(fn, out_placements=pl,
+                     in_placements=(pl, pl, pl, *(rows if is_dtensor(e)
+                                                  else None
+                                                  for e in extra)),
+                     device_mesh=mesh)(q, k, v, *extra)
+
+
 def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
               causal: bool = True,
               positions: Optional[torch.Tensor] = None,
@@ -209,13 +309,16 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
         q_pos = k_pos[ci * ch:(ci + 1) * ch]
         keep = _mask(q_pos, k_pos, cfg.sliding_window, causal)
         if cfg.gqa_grouped:
-            return _sdpa_grouped(qc, k, v, keep, cfg.d_head, cfg.n_kv_heads,
-                                 cfg.attn_scores_f32)
-        return _sdpa(qc, k, v, keep, cfg.d_head, cfg.attn_scores_f32)
+            # the kv heads a rank holds serve its query heads
+            return _per_head(
+                lambda q_, k_, v_: _sdpa_grouped(
+                    q_, k_, v_, keep, cfg.d_head, k_.shape[2],
+                    cfg.attn_scores_f32), qc, k, v)
+        return _per_head(lambda q_, k_, v_: _sdpa(
+            q_, k_, v_, keep, cfg.d_head, cfg.attn_scores_f32), qc, k, v)
 
     o = torch.cat([one_chunk(ci) for ci in range(s // ch)], dim=1)
-    o = o.reshape(b, s, cfg.q_dim)
-    out = bmm(o, p["wo"])
+    out = bmm(_merge_heads(o), p["wo"])
     if return_kv:
         return out, k_raw, v_raw
     return out
@@ -267,16 +370,86 @@ def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def _cache_write(cache: torch.Tensor, rows: torch.Tensor,
-                 slot: torch.Tensor, new: torch.Tensor) -> None:
-    """``cache[rows, slot] = new`` in place, dropping rows whose slot lies
-    past the cache's end (an idle serving slot keeps counting; the JAX
-    package's scatter drops such writes, an indexed assignment would
-    fault)."""
+def _cache_write(cache: torch.Tensor, slot: torch.Tensor,
+                 new: torch.Tensor) -> None:
+    """``cache[r, slot[r]] = new[r]`` for every row r, in place, dropping
+    rows whose slot lies past the cache's end (an idle serving slot keeps
+    counting; the JAX package's scatter drops such writes, an indexed
+    assignment would fault).  On a ``DTensor`` cache (b, S, ...) split over
+    its batch and sequence axes each rank writes the rows and slots it
+    holds, in place in its shard (an indexed assignment into a split axis
+    has no sharding rule): a slot outside the shard is dropped there."""
+    start = 0
+    if is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = cache.device_mesh
+        rows_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+                   else Replicate() for p in cache.placements]
+        slot = _replicated(slot, mesh).redistribute(mesh, rows_pl).to_local()
+        new = _replicated(new, mesh).redistribute(mesh, rows_pl).to_local()
+        start = _shard_start(cache, 1)
+        cache = cache.to_local()
     size = cache.shape[1]
-    safe = slot.clamp(max=size - 1)
-    inside = (slot < size).reshape(-1, *([1] * (new.dim() - 1)))
-    cache[rows, safe] = torch.where(inside, new, cache[rows, safe])
+    if size == 0 or cache.shape[0] == 0:
+        return
+    at = slot.to(torch.int64)
+    if start:
+        at = at - start
+    safe = at.clamp(0, size - 1)
+    tail = (1,) * (new.dim() - 1)
+    inside = (safe == at).reshape(-1, 1, *tail)
+    idx = safe.reshape(-1, 1, *tail).expand(-1, 1, *new.shape[1:])
+    cache.scatter_(1, idx, torch.where(inside, new.unsqueeze(1),
+                                       cache.gather(1, idx)))
+
+
+def _shard_start(t: torch.Tensor, dim: int) -> int:
+    """The global index of this rank's first element along ``dim`` of the
+    ``DTensor`` ``t``: DTensor splits a dimension into ceil(size / parts)
+    runs, the mesh axes that split it nested major to minor."""
+    mesh = t.device_mesh
+    coord, idx, parts = mesh.get_coordinate(), 0, 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard() and p.dim == dim:
+            idx = idx * mesh.size(i) + coord[i]
+            parts *= mesh.size(i)
+    return idx * -(-t.shape[dim] // parts)
+
+
+def layer_write(cache: torch.Tensor, layer: int, new: torch.Tensor) -> None:
+    """``cache[layer] = new`` in place; on a ``DTensor`` each rank writes
+    its shard (the layers axis is never split)."""
+    if is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = cache.device_mesh
+        if any(isinstance(p, Shard) and p.dim == 0
+               for p in cache.placements):
+            raise ValueError("layer_write: the layers axis is split")
+        pl = [Shard(p.dim - 1) if isinstance(p, Shard) else Replicate()
+              for p in cache.placements]
+        new = _replicated(new, mesh).redistribute(mesh, pl).to_local()
+        cache = cache.to_local()
+    cache[layer] = new
+
+
+def cache_fill(cache: torch.Tensor, layer: int, new: torch.Tensor) -> None:
+    """``cache[layer, :, :n] = new`` in place, n = ``new.shape[1]`` (a
+    prefill's K/V, or its scales); on a ``DTensor`` cache (L, b, S, ...)
+    split over its batch and sequence axes each rank fills the slots it
+    holds."""
+    n, first = new.shape[1], 0
+    if is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = cache.device_mesh
+        rows_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 1
+                   else Replicate() for p in cache.placements]
+        new = _replicated(new, mesh).redistribute(mesh, rows_pl).to_local()
+        first = _shard_start(cache, 2)
+        cache = cache.to_local()
+    lo = min(max(first, 0), n)
+    hi = min(first + cache.shape[2], n)
+    if hi > lo:
+        cache[layer, :, lo - first:hi - first] = new[:, lo:hi]
 
 
 def decode_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
@@ -291,30 +464,30 @@ def decode_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     are written **in place**; returns (out, the same kv dict's tensors).
     """
     b = x.shape[0]
-    idx = torch.as_tensor(index, device=x.device).to(torch.int64).expand(b)
+    idx = (index if is_dtensor(index) else torch.as_tensor(
+        index, device=x.device)).to(torch.int64).expand(b)
     pos = idx[:, None]
     q, k_new, v_new = _qkv(x, p, cfg, pos)
     int8 = "k_scale" in kv
 
     k_cache, v_cache = kv["k"], kv["v"]
-    rows = torch.arange(b, device=x.device)
     ring = (cfg.sliding_window is not None
             and k_cache.shape[1] <= cfg.sliding_window)
     slot = idx % k_cache.shape[1] if ring else idx   # ring buffer for SWA
     if int8:
         kq, ks = _quant_kv(k_new)
         vq, vs = _quant_kv(v_new)
-        _cache_write(k_cache, rows, slot, kq[:, 0])
-        _cache_write(v_cache, rows, slot, vq[:, 0])
-        _cache_write(kv["k_scale"], rows, slot, ks[:, 0])
-        _cache_write(kv["v_scale"], rows, slot, vs[:, 0])
+        _cache_write(k_cache, slot, kq[:, 0])
+        _cache_write(v_cache, slot, vq[:, 0])
+        _cache_write(kv["k_scale"], slot, ks[:, 0])
+        _cache_write(kv["v_scale"], slot, vs[:, 0])
         k_full = (k_cache.to(torch.float32) * kv["k_scale"]
                   ).to(torch.bfloat16)
         v_full = (v_cache.to(torch.float32) * kv["v_scale"]
                   ).to(torch.bfloat16)
     else:
-        _cache_write(k_cache, rows, slot, k_new[:, 0])
-        _cache_write(v_cache, rows, slot, v_new[:, 0])
+        _cache_write(k_cache, slot, k_new[:, 0])
+        _cache_write(v_cache, slot, v_new[:, 0])
         k_full, v_full = k_cache, v_cache
 
     k = _repeat_kv(k_full, cfg.n_heads)
@@ -329,12 +502,23 @@ def decode_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
         if cfg.sliding_window is not None:
             valid = valid & (k_pos[None, :] > idx[:, None]
                              - cfg.sliding_window)
+    if is_dtensor(q):
+        # per row, as q's rows: split with them (a plain index, from a
+        # prefill, makes a plain mask)
+        valid = _replicated(valid, q.device_mesh)
+    o = _per_head(lambda q_, k_, v_, valid_: _decode_sdpa(
+        q_, k_, v_, valid_, cfg.d_head), q, k, v, valid)
+    return bmm(_merge_heads(o), p["wo"]), kv
+
+
+def _decode_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: torch.Tensor, d_head: int) -> torch.Tensor:
+    """q:(b,1,h,d) k,v:(b,S,h,d) valid:(b,S) -> (b,1,h,d).  f32 softmax."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
-    scores = scores / math.sqrt(cfg.d_head)
+    scores = scores / math.sqrt(d_head)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     w = F.softmax(scores, dim=-1).to(v.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, 1, cfg.q_dim)
-    return bmm(o, p["wo"]), kv
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +603,16 @@ def _router(x: torch.Tensor, p: Params, cfg: ModelConfig):
     return w, idx, probs
 
 
+def _gates(xt: torch.Tensor, router: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """(t, E) float32 combine weights: each token's top-k router weights
+    at its experts, zeros elsewhere."""
+    w, idx, _ = _router(xt, {"router": router}, cfg)
+    gates = torch.zeros((xt.shape[0], cfg.n_experts), dtype=torch.float32,
+                        device=xt.device)
+    return gates.scatter_(1, idx, w)
+
+
 def moe_dense(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     """Dense dispatch: every expert computes every token, gated combine.
 
@@ -430,18 +624,22 @@ def moe_dense(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    w, idx, _ = _router(xt, p, cfg)
-    gates = torch.zeros((t, cfg.n_experts), dtype=torch.float32,
-                        device=x.device)
-    gates.scatter_(1, idx, w)                                 # (t, E)
-    if routes_ideal():
+    if is_dtensor(xt):
+        # routing is row by row: each rank routes its own tokens
+        gates = _rows_local(lambda rows, r: _gates(rows, r, cfg), xt,
+                            p["router"], table=True)
+    else:
+        gates = _gates(xt, p["router"], cfg)                  # (t, E)
+    if routes_ideal() and not is_dtensor(xt):
         def up(key):
             return torch.einsum("td,edf->etf", xt, p[key])
 
         def down(h):
             return torch.einsum("etf,efd->etd", h, p["w2"])
     else:
-        # per-expert GEMMs through the active backend (E dense matmuls)
+        # per-expert GEMMs through the active backend (E dense matmuls; on
+        # a mesh also on ideal: DTensor has no rule for the einsum's
+        # merged (token, expert) reshapes)
         def up(key):
             return torch.stack([bmm(xt, p[key][e])
                                 for e in range(cfg.n_experts)])
@@ -464,11 +662,116 @@ def moe_dense(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     return out.to(y.dtype).reshape(b, s, d)
 
 
+def moe_ep_a2a(x: torch.Tensor, p: Params, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """Expert-parallel MoE with all-to-all dispatch.
+
+    Requires n_experts == size of the 'expert' mesh axis.  Tokens are split
+    over the batch and expert axes; each rank buckets its tokens into
+    per-expert capacity buffers, exchanges them with an all-to-all over the
+    expert axis (``all_to_all_single``, a functional collective, inside
+    ``local_map``), runs its resident expert, and sends the results back.
+    Capacity C = int(T_local * top_k / E * capacity_factor + 1); overflow
+    tokens contribute zero (Switch-style dropping).  Without a mesh (or an
+    expert axis) this is :func:`moe_dense`."""
+    from .shardlib import current_rules
+    rules = current_rules()
+    mesh = rules.mesh
+    axis = rules.table.get("expert")
+    if mesh is None or axis is None:
+        return moe_dense(x, p, cfg)            # no mesh: smoke-test fallback
+    e_axis = axis if isinstance(axis, str) else axis[0]
+    names = tuple(mesh.mesh_dim_names)
+    e_dim = names.index(e_axis)
+    esize = mesh.size(e_dim)
+    if cfg.n_experts != esize:
+        raise ValueError(
+            f"ep_a2a needs n_experts == mesh['{e_axis}'] ({cfg.n_experts} vs "
+            f"{esize}); use moe_impl='dense'")
+    from torch.distributed._functional_collectives import \
+        all_to_all_single_autograd
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    d = x.shape[-1]
+    n_e, top_k = cfg.n_experts, cfg.top_k
+    batch_axes = rules.table["batch"]
+    batch_axes = (() if batch_axes is None else (batch_axes,)
+                  if isinstance(batch_axes, str) else tuple(batch_axes))
+
+    def exchange(t: torch.Tensor) -> torch.Tensor:
+        # (E * cap, d): block i goes to expert rank i, block j comes from j
+        out = all_to_all_single_autograd(t, None, None, (mesh, e_dim))
+        return out.wait() if hasattr(out, "wait") else out
+
+    def local(xl, router, wg, w1, w2):
+        # xl: (b_local, s_local, d); expert weights: (1, d, ff) local shard
+        bl, sl = xl.shape[0], xl.shape[1]
+        t = bl * sl
+        xt = xl.reshape(t, d)
+        wgt, idx, _ = _router(xt, {"router": router}, cfg)
+        cap = int(t * top_k / n_e * cfg.capacity_factor + 1)
+        # position of each (token, k) among its expert's claims
+        onehot = F.one_hot(idx, n_e).to(torch.int32)          # (t, k, E)
+        flat = onehot.reshape(t * top_k, n_e)
+        pos = torch.cumsum(flat, dim=0) * flat - 1            # rank in expert
+        expert_pos = (pos.reshape(t, top_k, n_e) * onehot).sum(-1)  # (t, k)
+        keep = expert_pos < cap
+        # scatter tokens into the (E, cap, d) send buffer
+        e_idx = idx.reshape(-1)
+        c_idx = torch.where(keep, expert_pos, cap - 1).reshape(-1)
+        src = torch.repeat_interleave(xt, top_k, dim=0)
+        src = torch.where(keep.reshape(-1, 1), src, torch.zeros_like(src))
+        buf = torch.zeros((n_e, cap, d), dtype=xl.dtype, device=xl.device)
+        buf = buf.index_put((e_idx, c_idx), src, accumulate=True)
+        recv = exchange(buf.reshape(n_e * cap, d))
+        # the resident expert's FFN (weights arrive as (1, d, ff) shards)
+        if cfg.act == "swiglu":
+            h = F.silu(bmm(recv, wg[0]).to(torch.float32)).to(recv.dtype)
+            h = h * bmm(recv, w1[0])
+        else:
+            h = F.gelu(bmm(recv, w1[0]).to(torch.float32),
+                       approximate="tanh").to(recv.dtype)
+        y = bmm(h, w2[0])
+        back = exchange(y).reshape(n_e, cap, d)
+        # each (token, k)'s result, combined with its router weight
+        out_tk = back[e_idx, c_idx].reshape(t, top_k, d)
+        out_tk = torch.where(keep[..., None], out_tk,
+                             torch.zeros_like(out_tk))
+        out = (out_tk * wgt[..., None].to(out_tk.dtype)).sum(1)
+        return out.reshape(bl, sl, d)
+
+    # tokens are split over BOTH the batch (data) and sequence (expert)
+    # axes before dispatch, so no two ranks dispatch the same tokens
+    x_pl = [Shard(0) if n in batch_axes else Shard(1) if n == e_axis
+            else Replicate() for n in names]
+    w_pl = [Shard(0) if n == e_axis else Replicate() for n in names]
+    rep = [Replicate()] * len(names)
+    # gradients: the router's sums over every split of the tokens, the
+    # experts' over the batch split
+    split = [isinstance(q, Shard) for q in x_pl]
+    r_grad = [Partial() if sp else Replicate() for sp in split]
+    w_grad = [Shard(0) if n == e_axis else Partial() if sp else Replicate()
+              for n, sp in zip(names, split)]
+    wg = p.get("wg", p["w1"])
+    # the output goes back to the residual stream's layout (tokens whole
+    # over the sequence, as the next layer's projections expect)
+    x_home = [Replicate() if q.is_partial() else q
+              for q in _replicated(x, mesh).placements]
+    args = [_replicated(t, mesh) for t in (x, p["router"], wg, p["w1"],
+                                           p["w2"])]
+    args = [a.redistribute(mesh, pl) for a, pl in
+            zip(args, (x_pl, rep, w_pl, w_pl, w_pl))]
+    fn = local_map(local, out_placements=x_pl,
+                   in_placements=(x_pl, rep, w_pl, w_pl, w_pl),
+                   in_grad_placements=(x_pl, r_grad, w_grad, w_grad, w_grad),
+                   device_mesh=mesh)
+    return fn(*args).redistribute(mesh, x_home)
+
+
 def moe(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.moe_impl == "ep_a2a":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='ep_a2a' (expert-parallel all-to-all "
-            "over a device mesh) is not ported yet (ROADMAP.md queue A, A14)")
+        return moe_ep_a2a(x, p, cfg)
     return moe_dense(x, p, cfg)
 
 
@@ -484,8 +787,34 @@ def embed_param_specs(cfg: ModelConfig) -> Params:
 
 
 def embed(tokens: torch.Tensor, p: Params) -> torch.Tensor:
-    x = p["embedding"][tokens]
+    emb = p["embedding"]
+    if is_dtensor(emb) or is_dtensor(tokens):
+        x = _rows_local(lambda t, e: e[t], tokens, emb, table=True)
+    else:
+        x = emb[tokens]
     return shard(x, "batch", None, None)
+
+
+def _rows_local(fn, rows: torch.Tensor, other: torch.Tensor,
+                table: bool = False) -> torch.Tensor:
+    """``fn(rows, other)`` on each rank's rows: ``rows`` keeps its batch
+    split (dim 0) and is whole elsewhere; ``other`` is split as ``rows``
+    (``table=False``: a row-wise partner) or whole on every rank
+    (``table=True``: an embedding table, whose gradient then sums over the
+    batch split).  The local op is the unsharded one (an index or gather
+    over a split dimension has no dependable DTensor rule, ROADMAP C12)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (rows if is_dtensor(rows) else other).device_mesh
+    rows, other = _replicated(rows, mesh), _replicated(other, mesh)
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in rows.placements]
+    other_pl = [Replicate()] * mesh.ndim if table else pl
+    grad = ([Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+            if table else pl)
+    return local_map(fn, out_placements=pl, in_placements=(pl, other_pl),
+                     in_grad_placements=(pl, grad), device_mesh=mesh)(
+        rows.redistribute(mesh, pl), other.redistribute(mesh, other_pl))
 
 
 def chunked_softmax_xent(x: torch.Tensor, emb: torch.Tensor,
@@ -510,9 +839,16 @@ def chunked_softmax_xent(x: torch.Tensor, emb: torch.Tensor,
         logits = bmm(xc, emb.T).to(torch.float32)            # (b, ch, V)
         logits = shard(logits, "batch", None, "tp")
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
-        loss = loss + (lse - gold).sum()
+        # the gold logit, picked from whole rows (ROADMAP C12)
+        gold = (_rows_local(_pick, yc, logits) if is_dtensor(logits)
+                else _pick(yc, logits))
+        loss = loss + shard(lse - gold, "batch", None).sum()
     return loss / (b * s)
+
+
+def _pick(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """Each position's logit of its label."""
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
 
 
 def logits_last(x_last: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:

@@ -26,12 +26,12 @@ from ..backend import matmul as bmm
 from ..backend import use_backend
 from ..backend.base import routed_backend
 from ..configs.base import ModelConfig
-from .layers import (KVCacheSpec, _quant_kv, attention,
+from .layers import (KVCacheSpec, _quant_kv, attention, cache_fill,
                      attention_param_specs, chunked_softmax_xent,
                      decode_attention, embed, embed_param_specs, logits_last,
                      mlp_hidden, mlp_param_specs, moe, moe_param_specs,
                      rmsnorm, rmsnorm_spec)
-from .shardlib import ParamSpec, tree_map
+from .shardlib import ParamSpec, current_rules, shard, tree_map
 
 Params = Dict[str, Any]
 
@@ -129,9 +129,17 @@ def _block_head(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     """A block up to its MLP's down projection: (x after attention,
     :func:`_ffn_head`'s pair)."""
     h = rmsnorm(x, lp["norm_attn"])
-    x = x + attention(h, lp["attn"], cfg, causal=True, positions=positions)
+    x = _residual(x + attention(h, lp["attn"], cfg, causal=True,
+                                positions=positions))
     h = rmsnorm(x, lp["norm_mlp"])
     return (x, *_ffn_head(h, lp, cfg))
+
+
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout: split over the batch, whole over the
+    sequence and the model width (the reference's block-end constraint;
+    on a mesh it sums the row-parallel projections' partial products)."""
+    return shard(x, "batch", None, None)
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
@@ -142,7 +150,7 @@ def _block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     second run as dead code, and a train step runs as many GEMMs as the
     reference's."""
     x, y, hid = remat(_block_head, cfg)(x, lp, cfg, positions)
-    return x + _ffn_sum(y, hid, lp)
+    return _residual(x + _ffn_sum(y, hid, lp))
 
 
 def backbone(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -161,7 +169,7 @@ def _inputs_to_embedding(params: Params, batch: Dict[str, torch.Tensor],
     x = embed(batch["tokens"], params)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(torch.bfloat16)         # (b, p, d)
-        return torch.cat([pe, x], dim=1), pe.shape[1]
+        return _residual(torch.cat([pe, x], dim=1)), pe.shape[1]
     return x, 0
 
 
@@ -205,9 +213,9 @@ def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int,
 def _decode_block(x, lp, kv_l, index, cfg):
     h = rmsnorm(x, lp["norm_attn"])
     a, kv_new = decode_attention(h, lp["attn"], cfg, kv_l, index)
-    x = x + a
+    x = _residual(x + a)
     h = rmsnorm(x, lp["norm_mlp"])
-    return x + _ffn(h, lp, cfg), kv_new
+    return _residual(x + _ffn(h, lp, cfg)), kv_new
 
 
 def decode_step(params: Params, state: Params, tokens: torch.Tensor,
@@ -226,6 +234,19 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     return logits, {"kv": state["kv"], "index": index + 1}
 
 
+def new_state(specs: Params, device: torch.device) -> Params:
+    """Zeros of a state's spec tree; under mesh rules each rank's shards
+    alone (``torch.distributed.tensor.zeros``)."""
+    rules = current_rules()
+    if rules.mesh is None:
+        return tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype,
+                                               device=device), specs)
+    from torch.distributed.tensor import zeros
+    return tree_map(lambda sp: zeros(
+        sp.shape, dtype=sp.dtype, device_mesh=rules.mesh,
+        placements=rules.placements(sp.logical, sp.shape)), specs)
+
+
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Process a full prompt (behind its patch embeddings, if any), building
@@ -235,9 +256,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     max_len = s if max_len is None else max_len
     cache_len = kv_cache_spec(cfg, b, max_len).max_len
     pos = torch.arange(s, device=x.device)
-    kv = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype,
-                                         device=x.device),
-                  kv_cache_spec(cfg, b, max_len).specs())
+    kv = new_state(kv_cache_spec(cfg, b, max_len).specs(), x.device)
     keep = min(s, cache_len)            # SWA ring: keep the tail
 
     for i in range(cfg.n_layers):
@@ -245,18 +264,18 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         h = rmsnorm(x, lp["norm_attn"])
         a, k, v = attention(h, lp["attn"], cfg, causal=True, positions=pos,
                             return_kv=True)
-        x = x + a
+        x = _residual(x + a)
         h2 = rmsnorm(x, lp["norm_mlp"])
-        x = x + _ffn(h2, lp, cfg)
+        x = _residual(x + _ffn(h2, lp, cfg))
         k, v = k[:, s - keep:], v[:, s - keep:]
         if cfg.kv_cache_dtype == "int8":
             kq, ks = _quant_kv(k)
             vq, vs = _quant_kv(v)
-            kv["k"][i, :, :keep], kv["v"][i, :, :keep] = kq, vq
-            kv["k_scale"][i, :, :keep] = ks
-            kv["v_scale"][i, :, :keep] = vs
+            new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         else:
-            kv["k"][i, :, :keep], kv["v"][i, :, :keep] = k, v
+            new = {"k": k, "v": v}
+        for key, val in new.items():
+            cache_fill(kv[key], i, val)
 
     x = rmsnorm(x, params["final_norm"])
     logits = logits_last(x[:, -1:], params["embedding"])

@@ -37,11 +37,12 @@ from ..backend.base import routes_ideal
 from ..configs.base import ModelConfig
 from ..kernels.ssd_chunk import ssd_chunk
 from ..kernels.wkv6 import wkv6
-from .layers import (attention, attention_param_specs, chunked_softmax_xent,
+from .layers import (_batch_head_split, _replicated, attention,
+                     attention_param_specs, chunked_softmax_xent,
                      decode_attention, embed, embed_param_specs, logits_last,
                      mlp, mlp_param_specs, rmsnorm, rmsnorm_spec)
-from .lm import _layer
-from .shardlib import ParamSpec, shard
+from .lm import _layer, _residual
+from .shardlib import ParamSpec, is_dtensor
 
 Params = Dict[str, Any]
 
@@ -255,7 +256,35 @@ def wkv6_chunked(r, k, v, w_log, u, state, chunk: int,
     if compute_dtype != torch.float32:
         raise NotImplementedError(_SSM_BF16)
     ch = _chunk(chunk, r.shape[1])
+    if any(is_dtensor(t) for t in (r, k, v, w_log, u, state)):
+        return _wkv6_blocks(r, k, v, w_log, u, state, ch, state_out)
     return wkv6(r, k, v, w_log, u, state, chunk=ch, state_out=state_out)
+
+
+def _wkv6_blocks(r, k, v, w_log, u, state, ch, state_out):
+    """:func:`wkv6_chunked` on ``DTensor`` operands: each rank runs the
+    recurrence on its (batch, head) block (``local_map``); the sequence and
+    the head width stay whole.  The batch and head splits must divide."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(t for t in (r, k, v, w_log, u, state)
+                if is_dtensor(t)).device_mesh
+    r, k, v, w_log, u, state = (_replicated(t, mesh)
+                                for t in (r, k, v, w_log, u, state))
+    pl = _batch_head_split(r, lambda parts: r.shape[2] % parts == 0)
+    u_pl = [Shard(0) if p == Shard(2) else Replicate() for p in pl]
+    s_pl = [Shard(1) if p == Shard(2) else p for p in pl]
+    fn = local_map(lambda *a: wkv6(*a, chunk=ch), out_placements=(pl, s_pl),
+                   in_placements=(pl, pl, pl, pl, u_pl, s_pl),
+                   device_mesh=mesh)
+    y, final = fn(*(t.redistribute(mesh, q) for t, q in zip(
+        (r, k, v, w_log, u, state), (pl, pl, pl, pl, u_pl, s_pl))))
+    if state_out is None:
+        return y, final
+    state_out = _replicated(state_out, mesh)
+    state_out.to_local().copy_(
+        final.redistribute(mesh, state_out.placements).to_local())
+    return y, state_out
 
 
 def rwkv6_timemix(x, lp, cfg, state=None, prev=None, return_state=False, *,
@@ -323,10 +352,9 @@ def rwkv6_channelmix(x, lp, prev=None, return_state=False):
 
 def rwkv6_block(x, lp, cfg):
     h = rmsnorm(x, lp["norm_att"])
-    x = x + rwkv6_timemix(h, lp, cfg)
+    x = _residual(x + rwkv6_timemix(h, lp, cfg))
     h = rmsnorm(x, lp["norm_ffn"])
-    x = x + rwkv6_channelmix(h, lp)
-    return shard(x, "batch", None, None)
+    return _residual(x + rwkv6_channelmix(h, lp))
 
 
 def rwkv6_param_tree(cfg: ModelConfig) -> Params:
@@ -379,10 +407,10 @@ def rwkv6_decode_step(params, state, tokens, cfg):
         h = rmsnorm(x, lp["norm_att"])
         att, _, pa_new = rwkv6_timemix(h, lp, cfg, state=wkv, prev=pa,
                                        return_state=True, state_out=wkv)
-        x = x + att
+        x = _residual(x + att)
         h = rmsnorm(x, lp["norm_ffn"])
         ffn, pf_new = rwkv6_channelmix(h, lp, prev=pf, return_state=True)
-        x = x + ffn
+        x = _residual(x + ffn)
         pa.copy_(pa_new)
         pf.copy_(pf_new)
     x = rmsnorm(x, params["final_norm"])
@@ -420,7 +448,7 @@ def _zamba_shared_block(x, emb0, sp, cfg):
     h = h + attention(a, sp["attn"], cfg, causal=True)
     a = rmsnorm(h, sp["norm_mlp"])
     h = h + mlp(a, sp["mlp"], cfg)
-    return x + h
+    return _residual(x + h)
 
 
 def _groups(cfg: ModelConfig):
@@ -440,7 +468,8 @@ def zamba2_backbone(params: Params, x: torch.Tensor,
     for _, layers in _groups(cfg):
         for i in layers:
             lp = _layer(params["mamba"], i)
-            x = x + mamba2_forward(rmsnorm(x, lp["norm"]), lp, cfg)
+            x = _residual(x + mamba2_forward(rmsnorm(x, lp["norm"]), lp,
+                                             cfg))
         x = _zamba_shared_block(x, emb0, params["shared"], cfg)
     return rmsnorm(x, params["final_norm"])
 
@@ -489,7 +518,7 @@ def zamba2_decode_step(params, state, tokens, cfg):
                                     conv_l)
             ssm_l.copy_(s2)
             conv_l.copy_(c2)
-            x = x + y
+            x = _residual(x + y)
         # shared attention with its per-application KV cache
         cat = torch.cat([x, emb0], dim=-1)
         h = bmm(cat, sp["down"])
@@ -499,7 +528,7 @@ def zamba2_decode_step(params, state, tokens, cfg):
         h = h + att
         a = rmsnorm(h, sp["norm_mlp"])
         h = h + mlp(a, sp["mlp"], cfg)
-        x = x + h
+        x = _residual(x + h)
     x = rmsnorm(x, params["final_norm"])
     logits = logits_last(x, params["embedding"])
     index.add_(1)

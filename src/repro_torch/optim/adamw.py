@@ -3,8 +3,9 @@ gradient clipping and LR schedules.  Counterpart of ``repro.optim.adamw``
 over dict trees of tensors.
 
 Optimizer state reuses each parameter's *logical axes* (``state_specs``), so
-states would shard exactly like their parameters; on one GPU nothing is
-sharded.
+states shard exactly like their parameters: on a device mesh every leaf is a
+``DTensor`` and each rank updates its own shards (a gradient is first laid
+out as its parameter).
 
 Each element's arithmetic is the reference's, operation by operation, in
 float32: bias corrections, clip, the moments, the decoupled weight decay and
@@ -23,9 +24,10 @@ multiplication by its reciprocal).  Two things differ from the reference:
   change, so no bit does.  A leaf of rank 0 or 1 is updated whole: an int8
   moment's scale spans a vector's whole last axis.
 
-:func:`global_norm` sums each slice's squares, then the leaves in the tree's
-(sorted-key) order: another summation order than XLA's, so the clip factor
-may differ from the reference's in its last bits.
+:func:`global_norm` sums each leaf's slices' squares (on a mesh, each
+rank's shard, then across the ranks that split the leaf), then the leaves in
+the tree's (sorted-key) order: another summation order than XLA's, so the
+clip factor may differ from the reference's in its last bits.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Any, Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
+from .._device import is_dtensor
 from ..models.shardlib import ParamSpec, tree_leaves, tree_map
 
 Pytree = Any
@@ -168,16 +171,50 @@ def _slices(t: torch.Tensor) -> Iterator[slice]:
         yield slice(i, i + rows)
 
 
+def _local(t: Any) -> Any:
+    """A ``DTensor``'s shard on this rank (a view); anything else as it
+    is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _like(grad: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``grad`` laid out as its parameter: a ``DTensor`` gradient (partial
+    sums, or another split) is reduced and redistributed to ``p``'s
+    placements."""
+    if (is_dtensor(grad) and is_dtensor(p)
+            and tuple(grad.placements) != tuple(p.placements)):
+        return grad.redistribute(p.device_mesh, p.placements)
+    return grad
+
+
+def _sum_over_mesh(part: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A rank's sum over its shard of ``like``, summed over the mesh axes
+    that split ``like`` (each shard counted once): a plain 0-d tensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not is_dtensor(like):
+        return part
+    placements = [Partial() if isinstance(pl, Shard) else Replicate()
+                  for pl in like.placements]
+    return DTensor.from_local(part, like.device_mesh, placements,
+                              run_check=False).full_tensor()
+
+
 def global_norm(tree: Pytree) -> torch.Tensor:
     """sqrt of the sum of every element's square, in float32 (a 0-d tensor
-    on the leaves' device); ``None`` leaves count as zeros."""
+    on the leaves' device); ``None`` leaves count as zeros.  A ``DTensor``
+    leaf sums its local shard slice by slice, then across the ranks that
+    split it."""
     total = None
     for g in tree_leaves(tree):
         if g is None:
             continue
-        for sl in _slices(g):
-            part = torch.sum(torch.square(g[sl].to(torch.float32)))
-            total = part if total is None else total + part
+        local = _local(g)
+        leaf = None
+        for sl in _slices(local):
+            part = torch.sum(torch.square(local[sl].to(torch.float32)))
+            leaf = part if leaf is None else leaf + part
+        leaf = _sum_over_mesh(leaf, g)
+        total = leaf if total is None else total + leaf
     return torch.sqrt(total)
 
 
@@ -187,8 +224,11 @@ def apply_updates(params: Pytree, opt_state: Pytree, grads: Pytree,
     """One AdamW step, written into ``params`` and ``opt_state`` in place.
     Returns ``(params, opt_state)``.  A gradient of ``None`` (a parameter
     the loss did not reach) counts as zeros, as the reference's gradient
-    would be."""
-    step = opt_state["step"]
+    would be.  On ``DTensor`` leaves each gradient is first laid out as its
+    parameter, and each rank updates its own shards."""
+    if grads is not None:
+        grads = _pair_map(params, grads, _like)
+    step = _local(opt_state["step"])
     step.add_(1)
     lr = lr_at(cfg, step)
     gnorm = global_norm(grads)
@@ -204,8 +244,9 @@ def apply_updates(params: Pytree, opt_state: Pytree, grads: Pytree,
 
     def leaf(p: torch.Tensor, s: Dict[str, torch.Tensor],
              grad: torch.Tensor) -> None:
-        if grad is None:
-            grad = torch.zeros_like(p)
+        p = _local(p)
+        s = {k: _local(v) for k, v in s.items()}
+        grad = torch.zeros_like(p) if grad is None else _local(grad)
         for sl in _slices(p):
             g = grad[sl].to(torch.float32) * clip
             if cfg.int8_moments:
@@ -233,6 +274,14 @@ def apply_updates(params: Pytree, opt_state: Pytree, grads: Pytree,
 
     _pair(params, opt_state["per_param"], grads, leaf)
     return params, opt_state
+
+
+def _pair_map(params: Pytree, grads: Pytree, fn) -> Pytree:
+    """``fn(grad, param)`` over the gradient tree, ``None`` kept."""
+    if isinstance(params, dict):
+        return {k: _pair_map(params[k], grads.get(k), fn) for k in params
+                if grads is not None and k in grads}
+    return None if grads is None else fn(grads, params)
 
 
 def _pair(params: Pytree, states: Pytree, grads: Pytree, fn) -> None:

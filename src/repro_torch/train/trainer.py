@@ -14,13 +14,17 @@ gradients are dropped when the step returns, so the device holds the
 parameters, the optimizer state and one step's activations and gradients
 at a time.  The ssm and hybrid families do not train yet: their recurrence
 kernels have no backward pass (ROADMAP A19).
+
+With mesh ``rules`` (``repro_torch.launch.mesh``) parameters and optimizer
+state are ``DTensor`` s laid out by their logical axes, each rank updates
+its shards, and checkpoints hold the gathered leaves.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,8 +35,9 @@ from ..checkpoint.manager import CheckpointManager
 from ..configs.base import ModelConfig, ShapeConfig
 from ..data.pipeline import DataConfig, PrefetchLoader, SyntheticDataset
 from ..models import model_api
-from ..models.api import ModelAPI, check_trainable
-from ..models.shardlib import tree_leaves, tree_map
+from ..models.api import BatchSpec, ModelAPI, check_trainable
+from ..models.shardlib import (Rules, distribute_tree, is_dtensor,
+                               tree_leaves, tree_map, use_rules)
 from ..runtime.monitor import HeartbeatMonitor
 
 Pytree = Any
@@ -58,12 +63,38 @@ class TrainResult:
 
 
 def check_rules(rules: Any) -> None:
-    """The port lays every tensor out on one device (the reference's
-    replicated rules); mesh rules arrive with ROADMAP A14."""
-    if rules is not None:
-        raise NotImplementedError(
-            "sharding rules need a device mesh, which is not ported yet "
-            "(ROADMAP.md queue A, A14); pass rules=None")
+    """``rules`` is None (one device holds every tensor whole: the
+    reference's replicated rules) or a :class:`Rules`."""
+    if rules is not None and not isinstance(rules, Rules):
+        raise TypeError(f"rules must be a repro_torch.models.shardlib.Rules "
+                        f"or None, not {type(rules).__name__}")
+
+
+def _on_mesh(rules: Optional[Rules]) -> bool:
+    return rules is not None and rules.mesh is not None
+
+
+def distribute_batch(batch: Dict[str, torch.Tensor],
+                     rules: Optional[Rules]) -> Dict[str, torch.Tensor]:
+    """Every batch input split over its leading (batch) axis on the rules'
+    mesh (``BatchSpec``'s layout: ``("batch", None, ...)``); plain tensors
+    without a mesh, and a ``DTensor`` as it is."""
+    if not _on_mesh(rules):
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if is_dtensor(v):
+            out[k] = v
+            continue
+        spec = BatchSpec(tuple(v.shape), v.dtype,
+                         ("batch",) + (None,) * (v.dim() - 1))
+        out[k] = distribute_tree(v, spec, rules)
+    return out
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A replicated ``DTensor`` as the plain tensor every rank holds."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def make_train_step(api: ModelAPI, cfg: ModelConfig,
@@ -73,21 +104,26 @@ def make_train_step(api: ModelAPI, cfg: ModelConfig,
     loss)``.  The update is written into ``params`` and ``opt_state`` in
     place, the trees returned are the ones given (the reference's
     ``donate=True``; there is no copying form), and ``loss`` is a detached
-    0-d tensor."""
+    0-d tensor.  With mesh ``rules`` the step runs under them
+    (:func:`~repro_torch.models.shardlib.use_rules`) on ``DTensor``
+    parameters and state (:func:`~repro_torch.models.shardlib.
+    distribute_tree`); a plain batch is split over its batch axis first."""
     check_rules(rules)
     check_trainable(cfg)
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
-        with torch.enable_grad():
-            for p in leaves:
-                p.requires_grad_(True)
-            loss = api.train_loss(params, batch)
-            grads = iter(torch.autograd.grad(loss, leaves,
-                                             allow_unused=True))
-        grad_tree = tree_map(lambda _: next(grads), params)
-        optim.apply_updates(params, opt_state, grad_tree, opt_cfg)
-        return params, opt_state, loss.detach()
+        with use_rules(rules):
+            batch = distribute_batch(batch, rules)
+            with torch.enable_grad():
+                for p in leaves:
+                    p.requires_grad_(True)
+                loss = api.train_loss(params, batch)
+                grads = iter(torch.autograd.grad(loss, leaves,
+                                                 allow_unused=True))
+            grad_tree = tree_map(lambda _: next(grads), params)
+            optim.apply_updates(params, opt_state, grad_tree, opt_cfg)
+        return params, opt_state, _whole(loss.detach())
 
     return train_step
 
@@ -129,6 +165,11 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
     params = init(api) if init is not None else api.init_params(
         train_cfg.seed)
     opt_state = optim.init_state(params, opt_cfg)
+    if _on_mesh(rules):
+        # every rank made the same seeded tree; each keeps its shards
+        params = distribute_tree(params, api.param_specs(), rules)
+        opt_state = distribute_tree(
+            opt_state, optim.state_specs(api.param_specs(), opt_cfg), rules)
     start_step = 0
 
     ckpt = None

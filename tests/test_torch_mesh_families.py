@@ -1,0 +1,134 @@
+"""Every model family of the port on a device mesh, on the CPU.
+
+* Each shipped arch's train, prefill and decode steps (smoke config) lower
+  on a ``fake`` (2, 2) mesh with every collective a rank would issue, as
+  ``launch.dryrun`` lowers them; training rwkv6 and zamba2 stops naming
+  ROADMAP A19, on a mesh as without one.
+* On a one-rank ``gloo`` mesh, which shards nothing, the steps of the paths
+  that take each family's own mesh code are bit-equal to the unsharded
+  ones: rwkv6's recurrence on (batch, head) blocks, zamba2's, seamless's
+  prefill (its cache and memory filled shard by shard), grok's and
+  llava's train steps (the MoE router row by row, the patch prefix).
+"""
+
+import contextlib
+
+import pytest
+import torch
+
+from repro_torch import optim
+from repro_torch.backend import use_backend
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import steps
+from repro_torch.models import model_api
+from repro_torch.models.shardlib import distribute_tree, tree_leaves
+from repro_torch.train import make_train_step
+
+KINDS = ("train", "prefill", "decode")
+NOT_TRAINABLE = ("rwkv6-1.6b", "zamba2-2.7b")     # ROADMAP A19
+
+
+@contextlib.contextmanager
+def _mesh(shape, backend):
+    mesh = tmesh.start_mesh(shape, ("data", "model"), backend=backend)
+    try:
+        yield mesh
+    finally:
+        tmesh.stop_mesh()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_family_lowers_on_a_2x2_mesh(arch, kind):
+    shape = ShapeConfig(kind, 64, 4, kind)
+    with _mesh((2, 2), "fake") as mesh:
+        if kind == "train" and arch in NOT_TRAINABLE:
+            with pytest.raises(NotImplementedError, match="A19"):
+                steps.build_cell(arch, shape, mesh, smoke=True)
+            return
+        lowered = steps.build_cell(arch, shape, mesh, smoke=True).lower()
+    assert lowered.cost["flops"] > 0
+    assert lowered.memory["argument_bytes"] > 0
+    assert sum(1 for _ in lowered.collectives) > 0
+
+
+def _batch(cfg, b, s, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(3, cfg.vocab_size, (b, s + 1), generator=gen,
+                         dtype=torch.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = torch.randn(
+            (b, min(cfg.frontend_tokens, s // 2), cfg.d_model),
+            generator=gen).to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llava-next-mistral-7b"])
+def test_one_rank_mesh_train_step_of_the_other_families(arch):
+    cfg = get_config(arch, smoke=True)
+    api = model_api(cfg, device="cpu")
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+    batch = _batch(cfg, 4, 32)
+    with _mesh((1, 1), "gloo") as mesh:
+        cell = steps.build_cell(arch, ShapeConfig("t", 32, 4, "train"), mesh,
+                                smoke=True, opt_cfg=ocfg)
+        out = []
+        for rules in (None, cell.rules):
+            p = api.init_params(0)
+            s = optim.init_state(p, ocfg)
+            if rules is not None:
+                p = distribute_tree(p, api.param_specs(), rules)
+                s = distribute_tree(s, optim.state_specs(api.param_specs(),
+                                                         ocfg), rules)
+            fn = cell.fn if rules else make_train_step(api, cfg, ocfg)
+            with use_backend("reference", device="cpu"):
+                _, _, loss = fn(p, s, batch)
+            out.append((loss, p))
+    (l0, p0), (l1, p1) = out
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a.detach(), b.to_local())
+               for a, b in zip(tree_leaves(p0), tree_leaves(p1)))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b",
+                                  "seamless-m4t-medium"])
+def test_one_rank_mesh_serving_steps_of_the_other_families(arch):
+    cfg = get_config(arch, smoke=True)
+    api = model_api(cfg, device="cpu")
+    params = api.init_params(0)
+    dshape = ShapeConfig("d", 32, 2, "decode")
+    tok = torch.tensor([[3], [5]], dtype=torch.int32)
+    with _mesh((1, 1), "gloo") as mesh:
+        dcell = steps.build_cell(arch, dshape, mesh, smoke=True)
+        dparams = distribute_tree(params, api.param_specs(), dcell.rules)
+        with use_backend("reference", device="cpu"):
+            if cfg.family == "encdec":
+                frames = torch.randn(
+                    (2, 32 // cfg.enc_frames_ratio, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4)).to(
+                        torch.bfloat16)
+                prompt = {"tokens": torch.tensor([[3, 9, 4], [5, 1, 8]],
+                                                 dtype=torch.int32),
+                          "frames": frames}
+                pcell = steps.build_cell(arch, ShapeConfig("p", 32, 2,
+                                                           "prefill"),
+                                         mesh, smoke=True)
+                want, state = api.prefill(params, prompt, max_len=32)
+                got, dstate = pcell.fn(dparams, prompt)
+                assert torch.equal(want, got.full_tensor())
+            else:
+                state = api.make_decode_state(dshape)
+                dstate = distribute_tree(api.make_decode_state(dshape),
+                                         api.decode_state_specs(dshape),
+                                         dcell.rules)
+            for _ in range(3):
+                want, state = api.decode_step(params, state, tok)
+                got, dstate = dcell.fn(dparams, dstate, tok)
+                assert torch.equal(want, got.full_tensor())
+                tok = want.argmax(-1, keepdim=True).to(torch.int32)
+        for a, b in zip(tree_leaves(state), tree_leaves(dstate)):
+            assert torch.equal(a, b.full_tensor()
+                               if hasattr(b, "full_tensor") else b)

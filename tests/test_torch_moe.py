@@ -226,11 +226,21 @@ def test_moe_dense(moe_pair, backend):
 
 
 def test_ep_a2a_is_refused_naming_its_roadmap_item(moe_pair):
-    *_, tcfg, _, tparams = moe_pair
+    """``moe_impl="ep_a2a"`` (ported with the mesh, ROADMAP A14; the mesh
+    runs are in ``test_torch_mesh.py``) without a mesh is the dense
+    dispatch, as the reference's fallback: the same bits as
+    ``moe_dense``, and the reference's ``moe`` on ``ideal``."""
+    jcfg, _, jparams, tcfg, _, tparams = moe_pair
     cfg = dataclasses.replace(tcfg, moe_impl="ep_a2a")
-    _, tx = _x(cfg, 1, 4, seed=9)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, A14"):
-        layers.moe(tx, _layer0(tparams, "moe"), cfg)
+    jx, tx = _x(cfg, 1, 4, seed=9)
+    with torch.inference_mode():
+        got = layers.moe(tx, _layer0(tparams, "moe"), cfg)
+        assert torch.equal(got, layers.moe_dense(tx, _layer0(tparams, "moe"),
+                                                 cfg))
+    with jax.disable_jit():
+        want = jlayers.moe(jx, _layer0(jparams, "moe"),
+                           dataclasses.replace(jcfg, moe_impl="ep_a2a"))
+    _close(got, want)
 
 
 def _record_routes(module, sink):
