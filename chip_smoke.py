@@ -25,12 +25,21 @@ direct run's, and the ``--serve-http`` launcher as a child process serving
 the same six streams to clients in this process), a
 traffic trace replayed through ``--trace`` (every metric but the wall clock
 equal to the CPU's replay), and the chaos campaign's four wire scenarios
-(``repro_torch.resilience.chaos``) on the guarded emulated array.  Then, for
+(``repro_torch.resilience.chaos``) on the guarded emulated array; then the
+dispatch census (``repro_torch.analysis.census``): the six smoke configs'
+routed GEMMs, matrix products and kernel calls equal to the CPU's pins
+(``census_baseline_torch.json``), and the full-width phi4 prefill, decode step
+and ``ServeEngine`` step with their host synchronisations by site.  Then, for
 rwkv6-1.6b and
 zamba2-2.7b at their published width and depth: the same traffic served
 (every rwkv6 layer of every step on the ``wkv6`` kernel), the parallel forward
 against token-by-token decoding, and ``ModelAPI.loss`` on a (2, 2048) batch
-(``wkv6`` / ``ssd_chunk`` in every layer).  Then the other families at their
+(``wkv6`` / ``ssd_chunk`` in every layer); for rwkv6 also the bf16 recurrence
+(``cfg.ssm_bf16=True``): the bf16 ``wkv6`` against its plain bf16 version at
+the loss, decode, ragged, one-chunk and strided shapes, timed beside the f32
+kernel, then a (1, 512) ``loss`` and the launcher's traffic on ``reference``
+with every recurrence on it, and a served request's decode logits against
+the plain bf16 route.  Then the other families at their
 published width, the same traffic through the launcher on ``systolic_mac``:
 seamless-m4t-medium (encoder-decoder; also with seeded frames on its
 requests), llama4-scout-17b-a16e (MoE, 8 of its 48 layers) and
@@ -63,7 +72,9 @@ step's 512 rows, ``razor_matmul``,
 model
 ``serve_ssm``, ``decode_vs_parallel`` and ``loss`` (with a profile by CUDA
 kernel), per model of the other families ``serve_families`` and
-``frontends``, ``train`` (per backend: losses, seconds a step, tokens/s, the
+``frontends``, ``census`` (the census phase's counts, sync sites and
+seconds), ``wkv6_bf16`` (its checks, the bf16 model run and seconds),
+``train`` (per backend: losses, seconds a step, tokens/s, the
 optimizer's seconds on the stream (CUDA events; the timed steps add no host
 synchronisation to the trainer's), step 0's gradient norm, peak memory, B1 launches and
 device ms a step; the smoke trainer's checks), ``mesh_note``, ``mesh``
@@ -220,6 +231,30 @@ SMOKE_TRAIN_SHAPE = (32, 4)
 #: the dry run's cell (traced on a fake process group of 256 ranks)
 MESH_DECODE_STEPS = 4
 DRYRUN_CELL = ("phi4-mini-3.8b", "train_4k")
+#: the census phase: the pins of the CPU's dispatch census, and the prompt of
+#: the full-width phi4 prefill it counts
+CENSUS_BASELINE = "census_baseline_torch.json"
+CENSUS_PROMPT = 16
+#: the bf16 wkv6 against its plain bf16 version, y as a fraction of max|y|:
+#: one bf16 step (2^-7 of a value's leading power of two) of the largest
+#: output; the kernel's f32 sums behind a score or the intra-chunk output
+#: run in another order than cuBLAS's, so now and then one of them rounds to
+#: the neighbouring bf16 value (the state stays f32: TOL_RECURRENCE)
+TOL_WKV6_BF16 = 2.0 ** -7
+#: where a chunk holds more than one row, the bf16 wkv6's y must lie at
+#: least this many times closer to its plain bf16 version than the f32
+#: route's y on the same operands does, by relative Frobenius norm (the CPU
+#: tests' rule against the reference): the kernel differs from the plain
+#: version in a few elements by one bf16 step, the f32 route almost
+#: everywhere, so the max-norm limit alone would pass an f32 kernel
+WKV6_BF16_SEPARATION = 4.0
+#: rwkv6 with ssm_bf16=True on the kernel against the plain bf16 route:
+#: decode logits within the CPU tests' BF16_TOL of max|logits|
+TOL_BF16_LOGITS = 4 * 2.0 ** -8
+#: (batch, sequence) of the bf16 rwkv6 loss on reference, and the served
+#: bf16 run's requests and new tokens
+WKV6_BF16_LOSS = (1, 512)
+WKV6_BF16_REQUESTS, WKV6_BF16_NEW = 4, 4
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -2873,6 +2908,94 @@ def chaos(torch, cfg, params, abft):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the dispatch census (repro_torch.analysis) on the card
+# ---------------------------------------------------------------------------
+
+
+def census_phase(torch, cfg, mods, params):
+    """``repro_torch.analysis.census`` on the card: every config of its
+    CENSUS_ARCHS on ``reference`` and ``ideal``, whose routed GEMMs, dots
+    and kernel calls must equal the CPU's pins (``census_baseline_torch.json``);
+    each call's host synchronisations, which only the card shows whole.
+    Then phi4-mini-3.8b at full width (the serve phase's weights) on
+    ``reference``: one prefill, one ``decode_step`` and one ``ServeEngine``
+    decode step, each with 7 L + 1 = 225 routed GEMMs a decode step, equal to
+    B1's launches, and its host synchronisations by op and frame: the
+    worklist of a CUDA-graph capture of the served step."""
+    from repro_torch.analysis import census as census_mod
+    from repro_torch.serve import Request
+    t0 = time.monotonic()
+    pins = json.loads((ROOT / CENSUS_BASELINE).read_text())
+    report = census_mod.census(device=DEVICE)
+    smoke = {}
+    for be, run in pins["backends"].items():
+        for arch, pinned in run["configs"].items():
+            for phase in ("prefill", "decode"):
+                pin = pinned[phase]
+                cur = report["backends"][be]["configs"][arch][phase]
+                where = f"census {be}/{arch}.{phase}"
+                if (pin is None) != (cur is None):
+                    fail(f"{where}: present on the card {cur is not None}, "
+                         f"pinned {pin is not None}")
+                if pin is None:
+                    continue
+                for key in census_mod.PINNED:
+                    if cur[key] != pin[key]:
+                        fail(f"{where}: {key} {cur[key]} on the card, "
+                             f"{pin[key]} pinned on the CPU")
+                smoke[f"{be}/{arch}.{phase}"] = {
+                    "host_syncs": cur["host_syncs"],
+                    "host_sync_sites": cur["host_sync_sites"],
+                    "host_syncs_cpu_pin": pin["host_syncs"]}
+    smoke_s = time.monotonic() - t0
+
+    per_step = 7 * cfg.n_layers + 1
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 20)
+    be = mods.get_backend("reference")
+    api = mods.model_api(cfg, backend=be)
+    prompt = torch.randint(3, cfg.vocab_size, (1, CENSUS_PROMPT),
+                           generator=gen, device=DEVICE)
+    toks = torch.randint(3, cfg.vocab_size, (SLOTS, 1), generator=gen,
+                         device=DEVICE)
+    state = api.make_decode_state(mods.ShapeConfig("census", MAX_LEN, SLOTS,
+                                                   "decode"))
+    calls = {
+        "prefill": census_mod.count_call(
+            lambda: api.prefill(params, {"tokens": prompt},
+                                max_len=MAX_LEN), be),
+        "decode_step": census_mod.count_call(
+            lambda: api.decode_step(params, state, toks), be)}
+    engine = mods.ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                              backend="reference")
+    for uid in range(SLOTS):
+        engine.submit(Request(uid=uid, prompt=prompt[0, :4 + uid].tolist(),
+                              max_new_tokens=MAX_NEW))
+    engine.step()               # admissions, prefills, the first decode step
+    calls["engine_step"] = census_mod.count_call(engine.step, engine.backend)
+    if calls["prefill"]["backend_gemms"] != per_step:
+        fail(f"census phi4 prefill: {calls['prefill']['backend_gemms']} "
+             f"routed GEMMs, expected {per_step}")
+    for name in ("decode_step", "engine_step"):
+        c = calls[name]
+        if not (c["backend_gemms"] == per_step
+                == c["kernel_calls"].get("systolic_mac")):
+            fail(f"census phi4 {name}: {c['backend_gemms']} routed GEMMs, "
+                 f"{c['kernel_calls']} kernel calls, expected {per_step}")
+    for name, c in calls.items():
+        print(f"census {ARCH} {name}: {c['backend_gemms']} routed GEMMs, "
+              f"{c['dots']} dots, {c['host_syncs']} host syncs "
+              f"{[(x['site'], x['count']) for x in c['host_sync_sites']]}",
+              flush=True)
+    return {"configs": smoke, "configs_equal_to_cpu_pins": True,
+            "configs_seconds": smoke_s,
+            "phi4": {"arch": ARCH, "backend": "reference", "slots": SLOTS,
+                     "prompt": CENSUS_PROMPT, "gemms_per_decode_step":
+                     per_step, **calls},
+            "seconds": time.monotonic() - t0}
+
+
 def wkv6_bound_ms(b, s, h, p, chunk):
     """Least time for one wkv6 call: r, k, v, w read once, y written once,
     u read once, the state read and written once; per chunk and head the
@@ -3522,6 +3645,376 @@ def loss_phase(torch, cfg, params, api, ssm_mod, plains, counters):
             "profile_top_kernels": [
                 {"kernel": k, "ms": v[0], "calls": v[1],
                  "share": v[0] / device_ms} for k, v in top] or None}
+
+
+# ---------------------------------------------------------------------------
+# wkv6 with bf16 operands (cfg.ssm_bf16=True)
+# ---------------------------------------------------------------------------
+
+
+def wkv6_bf16_bound_ms(b, s, h, p, chunk):
+    """Least time for one bf16 wkv6 call: r, k, v read once at 2 bytes, w
+    read once, y written once (f32), u read once, the state read and written
+    once (f32); per chunk and head the score tile's strictly lower entries
+    and their product with v (2 ch (ch - 1) p operations) on the bf16 tensor
+    cores, the carried state's term and the update (4 ch p p) on the TF32
+    tensor cores, TF32_SPLIT_PASSES products each; at chunk 1 the one-token
+    kernel's 4 p p in f32 on the CUDA cores."""
+    n = b * s * h * p
+    nbytes = 2 * 3 * n + 4 * 2 * n + 4 * (h * p + 2 * b * h * p * p)
+    bf16_ops = 2.0 * b * h * s * (chunk - 1) * p
+    f32_ops = 4.0 * b * h * s * p * p
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (f32_ops / PEAK_FLOPS["float32"] if chunk == 1
+             else bf16_ops / PEAK_FLOPS["bfloat16"]
+             + TF32_SPLIT_PASSES * f32_ops / PEAK_FLOPS["tf32"])
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def wkv6_bf16_inputs(torch, gen, b, s, h, p, strided=False):
+    """:func:`wkv6_inputs` with r, k and v in bf16 (the model's operands
+    under ssm_bf16); ``strided``: r, k and v one element into a wider last
+    axis, rows off any alignment."""
+    args = wkv6_inputs(torch, gen, b, s, h, p)
+    for i in range(3):
+        x = args[i].to(torch.bfloat16)
+        if strided:
+            wide = torch.empty((b, s, h, p + 1), dtype=torch.bfloat16,
+                               device=x.device)
+            wide[..., 1:] = x
+            x = wide[..., 1:]
+        args[i] = x
+    return args
+
+
+def fro_rel(got, want):
+    """||got - want||_F / ||want||_F, in f64."""
+    d = (got.double() - want.double()).norm()
+    return float(d / want.double().norm().clamp_min(1e-300))
+
+
+def bf16_separation(y, y_ref, y32):
+    """The bf16 wkv6's y and the f32 route's y against the plain bf16 y:
+    relative Frobenius norms, their ratio (f32 over kernel; inf where the
+    kernel is bit-equal), and the share of elements off by more than one
+    f32 rounding of the largest magnitude."""
+    ulp = 2.0 ** -23 * float(y_ref.abs().max())
+    k_fro, f_fro = fro_rel(y, y_ref), fro_rel(y32, y_ref)
+    return {"fro_y_rel": k_fro, "f32_route_fro_y_rel": f_fro,
+            "separation": f_fro / k_fro if k_fro else math.inf,
+            "share_off_y": float(((y - y_ref).abs() > ulp).double().mean()),
+            "f32_route_share_off_y": float(
+                ((y32 - y_ref).abs() > ulp).double().mean())}
+
+
+def check_wkv6_bf16(torch, wkv6, wkv6_plain):
+    """The bf16 wkv6 (``wkv6_bf16_launch``) against its plain bf16 version
+    on the card: rwkv6-1.6b's loss shape (b 2, s 2048, chunk 64) and decode
+    shapes (b 1 and 4, s 1), ragged chunks (100, 1000), one chunk (64), a
+    strided p 47; y within TOL_WKV6_BF16 and the state within TOL_RECURRENCE of
+    their largest magnitudes, the state written in place and a repeated
+    call the same bits, each call counted by ``wkv6.bf16_launches`` and
+    none by ``wkv6.launches``; where the chunk holds more than one row, y
+    at least WKV6_BF16_SEPARATION times closer (relative Frobenius norm)
+    to the plain bf16 version than the f32 route is (at chunk 1 the two
+    routes are one function, and the f32 route must equal the plain bf16
+    version).  The loss and decode rows are timed beside
+    the f32 kernel on the same values (f32 copies of r, k and v) and beside
+    the plain version, with device ms by pass."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 21)
+    H, P = 32, 64
+    cases = [("rwkv6 loss", 2, 2048, H, P, 64, False),
+             ("rwkv6 decode", 4, 1, H, P, 1, False),
+             ("rwkv6 decode", 1, 1, H, P, 1, False),
+             ("ragged", 1, 100, H, P, 100, False),
+             ("ragged", 1, 1000, H, P, 1000, False),
+             ("one chunk", 1, 64, H, P, 64, False),
+             ("strided", 2, 256, 12, 47, 128, True),
+             ("strided", 2, 3, 12, 47, 1, True)]
+    out = []
+    for name, b, s, h, p, ch, strided in cases:
+        args = wkv6_bf16_inputs(torch, gen, b, s, h, p, strided)
+        what = f"wkv6 bf16 {name} (b, s, h, p) = {(b, s, h, p)} chunk {ch}"
+        n0, f0 = wkv6.bf16_launches, wkv6.launches
+        y, S = wkv6(*args, chunk=ch)
+        y2, S2 = wkv6(*args, chunk=ch)
+        state = args[-1].clone()
+        y3, S3 = wkv6(*args[:-1], state, chunk=ch, state_out=state)
+        torch.cuda.synchronize()
+        if (wkv6.bf16_launches - n0, wkv6.launches - f0) != (3, 0):
+            fail(f"{what}: {wkv6.bf16_launches - n0} bf16 and "
+                 f"{wkv6.launches - f0} f32 launches for 3 calls")
+        if not (torch.equal(y, y2) and torch.equal(S, S2)):
+            fail(f"{what}: a repeated call gives other bits")
+        if S3 is not state or not (torch.equal(y3, y) and torch.equal(S3, S)):
+            fail(f"{what}: with the state written in place the result "
+                 f"differs")
+        y_ref, S_ref = wkv6_plain(*args, chunk=ch,
+                                  compute_dtype=torch.bfloat16)
+        y32, _ = wkv6_plain(*args, chunk=ch, compute_dtype=torch.float32)
+        row = {"case": name, "b": b, "s": s, "h": h, "p": p, "chunk": ch,
+               "repeat_bit_equal": True, "state_in_place_bit_equal": True}
+        for tag, got, want, tol in (("y", y, y_ref, TOL_WKV6_BF16),
+                                    ("state", S, S_ref, TOL_RECURRENCE)):
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            if not (math.isfinite(err) and err <= tol * scale):
+                fail(f"{what}: {tag} off by {err} (limit {tol * scale})")
+            row.update({f"max_err_{tag}": err,
+                        f"max_err_{tag}_limit": tol * scale})
+        row["f32_route_gap_y_rel"] = float(
+            (y32 - y_ref).abs().max()) / float(y_ref.abs().max())
+        row.update(bf16_separation(y, y_ref, y32))
+        if ch > 1 and not (row["separation"] >= WKV6_BF16_SEPARATION):
+            fail(f"{what}: y is {row['fro_y_rel']} from the plain bf16 "
+                 f"version (relative Frobenius), the f32 route "
+                 f"{row['f32_route_fro_y_rel']}: less than "
+                 f"{WKV6_BF16_SEPARATION} times closer, the bf16 roundings "
+                 f"are not shown")
+        if ch == 1 and not torch.equal(y32, y_ref):
+            fail(f"{what}: at chunk 1 the f32 route differs from the plain "
+                 f"bf16 version")
+        del y2, S2, y3, S3, y32
+        out.append(row)
+        if name not in ("rwkv6 loss", "rwkv6 decode") or (s == 1 and b != 4):
+            continue
+        f32_args = [t.to(torch.float32) for t in args[:3]] + args[3:]
+        iters = 50 if s == 1 else 5
+        t_kernel = time_ms(lambda i: wkv6(*args, chunk=ch), 1, iters)
+        t_f32 = time_ms(lambda i: wkv6(*f32_args, chunk=ch), 1, iters)
+        t_plain = time_ms(lambda i: wkv6_plain(*args, chunk=ch), 1,
+                          min(iters, 5))
+        t_bound, by = wkv6_bf16_bound_ms(b, s, h, p, ch)
+        prof = profile_calls(torch, {"wkv6": lambda: [
+            wkv6(*args, chunk=ch) for _ in range(iters)]},
+            repeats=iters)["wkv6"]
+        passes = {r["kernel"]: r["ms"] / iters for r in prof or []
+                  if r["kernel"].startswith("wkv6_")
+                  and r["kernel"].endswith("_kernel")}
+        row.update({"kernel_ms": t_kernel, "f32_kernel_ms": t_f32,
+                    "plain_ms": t_plain, "library_ms": None,
+                    "bound_ms": t_bound, "bound_by": by,
+                    "f32_bound_ms": wkv6_bound_ms(b, s, h, p, ch)[0],
+                    "kernel_device_ms": (sum(passes.values()) if passes
+                                         else None),
+                    "kernel_device_ms_by_pass": passes or None})
+        if s == 1:
+            st = args[-1]
+            row["host_us_per_call"] = host_us_per_call(
+                torch, lambda: wkv6(*args[:-1], st, chunk=ch, state_out=st),
+                200, 7)
+    return out
+
+
+def wkv6_bf16_model(torch, cfg, params, mods, ssm_mod, plains, counters,
+                    wkv6):
+    """rwkv6-1.6b at full width with ``ssm_bf16=True`` (the serve phase's
+    weights): ``ModelAPI.loss`` on ``reference`` (a seeded WKV6_BF16_LOSS
+    batch) against the same loss with the recurrence on its plain bf16
+    version (TOL_LOSS), and beside the f32 recurrence and the plain bf16
+    route under WKV6_NOISE_PROBE of noise (printed, not held: at full
+    depth the loss moves as far under that noise as between the two
+    recurrences, so it cannot tell them apart); the loss run again with
+    every layer's wkv6 call held to WKV6_BF16_SEPARATION against its plain
+    bf16 and f32 routes on the call's own inputs (the check that can);
+    then the launcher's traffic on ``reference`` (the bf16 wkv6's launches =
+    layers x model steps, none of the f32 kernel's, B1's = the routed
+    GEMMs), and one served request replayed alone: each step's logits on
+    the kernel against the plain bf16 route's same step (from a copy of the
+    kernel's state) within TOL_BF16_LOGITS of max|logits|, unless seeded
+    noise of WKV6_NOISE_PROBE on the plain route's wkv6 outputs moves them
+    that far (decode_vs_parallel's rule, ROADMAP C6: at full depth it
+    does), then within TOL_LOGITS; every wkv6 call of the kernel's steps
+    held to the plain bf16 version on its own inputs; the f32 recurrence's
+    step printed beside them."""
+    cfg_bf = dataclasses.replace(cfg, ssm_bf16=True)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 22)
+    b, s = WKV6_BF16_LOSS
+    toks = torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
+                         device=DEVICE)
+    labels = torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
+                           device=DEVICE)
+    batch = {"tokens": toks, "labels": labels}
+    api_bf = mods.model_api(cfg_bf, backend="reference")
+    api_f32 = mods.model_api(cfg, backend="reference")
+    api_bf.loss(params, batch)                      # warm-up
+    torch.cuda.synchronize()
+    counters.zero()
+    wkv6.bf16_launches = 0
+    t0 = time.monotonic()
+    loss = float(api_bf.loss(params, batch))
+    loss_s = time.monotonic() - t0
+    launches = {**counters.read(), "wkv6_bf16": wkv6.bf16_launches}
+    if launches["wkv6_bf16"] != cfg.n_layers or launches["wkv6"] != 0:
+        fail(f"wkv6_bf16 loss: {launches} launches, expected "
+             f"{cfg.n_layers} of the bf16 wkv6 and none of the f32")
+    with plain_route(ssm_mod, *plains):
+        loss_plain = float(api_bf.loss(params, batch))
+    loss_f32 = float(api_f32.loss(params, batch))
+    gap = abs(loss - loss_plain) / abs(loss_plain)
+    ln_v = math.log(cfg.padded_vocab)
+    if not (math.isfinite(loss) and 0.5 * ln_v < loss < 2 * ln_v
+            and gap <= TOL_LOSS):
+        fail(f"wkv6_bf16 loss: {loss} on the kernel, {loss_plain} on the "
+             f"plain bf16 route (gap {gap}, limit {TOL_LOSS})")
+    wkv6_plain, kernel_wkv6 = plains[0], ssm_mod.wkv6
+    noise_gen = torch.Generator(device=DEVICE)
+    noise_gen.manual_seed(SEED + 23)
+
+    def noisy(*args, chunk, state_out=None):
+        y, S = wkv6_plain(*args, chunk=chunk)
+        y = y + WKV6_NOISE_PROBE * float(y.abs().max()) * torch.randn(
+            y.shape, generator=noise_gen, device=y.device)
+        return y, (S if state_out is None else state_out.copy_(S))
+
+    ssm_mod.wkv6 = noisy
+    try:
+        loss_noisy = float(api_bf.loss(params, batch))
+    finally:
+        ssm_mod.wkv6 = kernel_wkv6
+    loss_seps = []
+
+    def separated(r, k, v, w_log, u, state, *, chunk, **kw):
+        # the plain versions first: state_out may be the state
+        y_ref, _ = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk)
+        y32, _ = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk,
+                            compute_dtype=torch.float32)
+        y, S = kernel_wkv6(r, k, v, w_log, u, state, chunk=chunk, **kw)
+        loss_seps.append((chunk, bf16_separation(y, y_ref, y32)))
+        return y, S
+
+    ssm_mod.wkv6 = separated
+    try:
+        api_bf.loss(params, batch)
+    finally:
+        ssm_mod.wkv6 = kernel_wkv6
+    weakest = min(sep["separation"] for _, sep in loss_seps)
+    if len(loss_seps) != cfg.n_layers or not all(
+            ch > 1 and sep["separation"] >= WKV6_BF16_SEPARATION
+            for ch, sep in loss_seps):
+        fail(f"wkv6_bf16 loss: {len(loss_seps)} wkv6 calls at chunks "
+             f"{sorted({ch for ch, _ in loss_seps})}; the weakest lies "
+             f"{weakest} times closer to the plain bf16 version than the f32 "
+             f"route (limit {WKV6_BF16_SEPARATION})")
+
+    # the launcher's traffic, bf16 recurrence, reference
+    argv = ["--arch", cfg.name, "--slots", str(SLOTS), "--max-len",
+            str(MAX_LEN), "--requests", str(WKV6_BF16_REQUESTS), "--max-new",
+            str(WKV6_BF16_NEW), "--mixed", "--seed", str(SEED), "--backend",
+            "reference"]
+    per_step = sum(w[2] for w in SSM_GEMMS[cfg.name](cfg).values())
+    with depth_cut(mods.serve, cfg_bf):
+        counters.zero()
+        wkv6.bf16_launches = 0
+        run = mods.serve.run(mods.serve.parse_args(argv), params)
+        torch.cuda.synchronize()
+        served = {**counters.read(), "wkv6_bf16": wkv6.bf16_launches}
+    stats, tel = run.stats, run.stats.backend_telemetry
+    steps = stats.model_steps
+    if stats.completed != WKV6_BF16_REQUESTS or stats.truncated:
+        fail(f"wkv6_bf16 serve: {stats.completed} of {WKV6_BF16_REQUESTS} "
+             f"completed, {stats.truncated} truncated")
+    if not (served["wkv6_bf16"] == cfg.n_layers * steps
+            and served["wkv6"] == 0
+            and served["systolic_mac"] == tel["calls"] == per_step * steps):
+        fail(f"wkv6_bf16 serve: launches {served} over {steps} model steps "
+             f"({tel['calls']} routed GEMMs, {per_step} a step)")
+
+    # one request alone, replayed on the kernel; at every step the plain
+    # bf16 route, the same route with WKV6_NOISE_PROBE of noise on each wkv6
+    # output, and the f32 recurrence run the same step from a copy of the
+    # kernel's state, and every wkv6 call of the kernel's step is held to
+    # the plain bf16 version on its own inputs (y, state)
+    req = run.requests[0]
+    fed = list(req.prompt) + list(req.out_tokens[:-1])
+    shape1 = mods.ShapeConfig("serve", MAX_LEN, 1, "decode")
+    st_k = api_bf.make_decode_state(shape1)
+    call_errs = []
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1e-30)
+
+    def checked(r, k, v, w_log, u, state, *, chunk, **kw):
+        # the plain version first: state_out may be the state
+        y_ref, S_ref = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk)
+        y, S = kernel_wkv6(r, k, v, w_log, u, state, chunk=chunk, **kw)
+        call_errs.append((rel(y, y_ref), rel(S, S_ref)))
+        return y, S
+
+    worst = worst_f32 = probe = 0.0
+    for t in fed:
+        tok = torch.tensor([[t]], device=DEVICE)
+        copies = [{k: v.clone() for k, v in st_k.items()} for _ in range(3)]
+        with plain_route(ssm_mod, *plains):
+            plain, _ = api_bf.decode_step(params, copies[0], tok)
+        ssm_mod.wkv6 = noisy
+        try:
+            moved, _ = api_bf.decode_step(params, copies[1], tok)
+        finally:
+            ssm_mod.wkv6 = kernel_wkv6
+        f32, _ = api_f32.decode_step(params, copies[2], tok)
+        ssm_mod.wkv6 = checked
+        try:
+            kern, st_k = api_bf.decode_step(params, st_k, tok)
+        finally:
+            ssm_mod.wkv6 = kernel_wkv6
+        worst = max(worst, rel(kern, plain))
+        worst_f32 = max(worst_f32, rel(f32, plain))
+        probe = max(probe, rel(moved, plain))
+    if len(call_errs) != cfg.n_layers * len(fed) or not all(
+            ey <= TOL_WKV6_BF16 and es <= TOL_RECURRENCE
+            for ey, es in call_errs):
+        fail(f"wkv6_bf16 replay: {len(call_errs)} wkv6 calls, worst (y, "
+             f"state) error {max(call_errs)} (limits {TOL_WKV6_BF16}, "
+             f"{TOL_RECURRENCE})")
+    # the logits are held within TOL_BF16_LOGITS where the noise probe shows
+    # that a kernel short of the plain version's own summation order could
+    # meet it; at rwkv6's full depth it moves them further, and the kernel's
+    # logits are held within TOL_LOGITS (the card's full-depth limit)
+    limit = TOL_BF16_LOGITS if probe < TOL_BF16_LOGITS else TOL_LOGITS
+    if not (math.isfinite(worst) and worst <= limit):
+        fail(f"wkv6_bf16 logits: {worst} of max|logits| from the plain bf16 "
+             f"route (limit {limit}; the noise probe moves them {probe})")
+    print(f"wkv6_bf16: rwkv6-1.6b loss {loss:.6f} (plain bf16 route "
+          f"{loss_plain:.6f}, f32 recurrence {loss_f32:.6f}, plain bf16 "
+          f"route under noise {loss_noisy:.6f}); each layer's wkv6 at least "
+          f"{weakest:.1f} times closer to the plain bf16 version than the "
+          f"f32 route; decode logits "
+          f"{worst:.3e} of max from the plain bf16 route a step (noise probe "
+          f"{probe:.3e}, limit {limit}), the f32 recurrence {worst_f32:.3e}",
+          flush=True)
+    return {"arch": cfg.name, "ssm_bf16": True, "backend": "reference",
+            "loss_batch": [b, s], "loss": loss, "loss_plain_bf16_route":
+            loss_plain, "loss_gap_rel": gap, "loss_gap_limit": TOL_LOSS,
+            "loss_f32_recurrence": loss_f32,
+            "loss_gap_to_f32_rel": abs(loss - loss_f32) / abs(loss_f32),
+            "loss_plain_bf16_route_under_noise": loss_noisy,
+            "loss_noise_probe_rel": abs(loss_noisy - loss_plain) / abs(
+                loss_plain),
+            "loss_wkv6_separation": {
+                "calls": len(loss_seps), "chunks": sorted(
+                    {ch for ch, _ in loss_seps}),
+                "limit": WKV6_BF16_SEPARATION, "weakest": weakest,
+                "by_layer": [sep for _, sep in loss_seps]},
+            "loss_seconds": loss_s, "loss_launches": launches,
+            "serve": {"requests": WKV6_BF16_REQUESTS, "model_steps": steps,
+                      "launches": served, "gemm_calls": tel["calls"],
+                      "flags": tel["flags"], "wall_s": run.wall_s,
+                      "model_step_ms": 1e3 * run.wall_s / steps,
+                      "tokens": [r.out_tokens for r in run.requests]},
+            "replayed_steps": len(fed),
+            "logits_err_vs_plain_bf16_rel": worst,
+            "logits_err_limit": limit,
+            "logits_held_to_bf16_tol": limit == TOL_BF16_LOGITS,
+            "plain_route_under_noise_rel": probe,
+            "wkv6_calls_checked": len(call_errs),
+            "wkv6_call_max_err_rel": [max(e[0] for e in call_errs),
+                                      max(e[1] for e in call_errs)],
+            "logits_gap_f32_recurrence_rel": worst_f32}
 
 
 def release(torch):
@@ -4817,6 +5310,9 @@ def main() -> int:
     emit("serve_trace", traced)
     campaign = chaos(torch, cfg, params, abft_mod.abft_checksums)
     emit("chaos", campaign)
+    census = census_phase(torch, cfg, mods, params)
+    emit("census", census)
+    print(f"census: {census['seconds']:.1f} s", flush=True)
     del params, ref_run, ref
     release(torch)
 
@@ -4842,6 +5338,17 @@ def main() -> int:
                          (wkv6_plain, ssd_chunk_plain), counters)
         emit("loss", row)
         ssm_launches[arch, "loss"] = row["launches"]
+        if cfg_a.family == "ssm":
+            # the bf16 recurrence (ssm_bf16=True) on the same weights
+            t0 = time.monotonic()
+            wkv6_bf16_rows = check_wkv6_bf16(torch, wkv6, wkv6_plain)
+            wkv6_bf16_run = wkv6_bf16_model(
+                torch, cfg_a, params, mods, ssm_mod,
+                (wkv6_plain, ssd_chunk_plain), counters, wkv6)
+            bf16_s = time.monotonic() - t0
+            emit("wkv6_bf16", {"checks": wkv6_bf16_rows,
+                               "model": wkv6_bf16_run, "seconds": bf16_s})
+            print(f"wkv6_bf16: {bf16_s:.1f} s", flush=True)
         del api, params
         release(torch)
 
@@ -4993,6 +5500,29 @@ def main() -> int:
         "kernel_device_ms_by_pass", "plain_ms", "bound_ms", "bound_by")}
     entry["loss_shape"]["launches_per_loss_call"] = ssm_launches[
         "rwkv6-1.6b", "loss"]["wkv6"]
+    kernels.append(entry)
+    bf_decode = next(r for r in wkv6_bf16_rows
+                     if r["case"] == "rwkv6 decode" and r["b"] == DECODE_M)
+    bf_loss = next(r for r in wkv6_bf16_rows if r["case"] == "rwkv6 loss")
+    entry = recurrence_entry(
+        "wkv6_bf16", "src/repro_torch/csrc/wkv6.cu (wkv6_bf16_launch)",
+        "src/repro/kernels/wkv6.py:28 (its bf16 operands: the JAX package "
+        "runs ssm_bf16 in jnp, src/repro/models/ssm.py:257)",
+        wkv6_bf16_rows, bf_decode,
+        wkv6_bf16_run["serve"]["launches"]["wkv6_bf16"], rwkv6_layers,
+        f"the {rwkv6_layers} launches of one rwkv6-1.6b decode step at "
+        f"b={DECODE_M} (s=1, h 32, p 64), r/k/v bf16, warm; launches: the "
+        f"wkv6_bf16 phase's served run (ssm_bf16=True, reference)")
+    entry["f32_kernel_ms"] = rwkv6_layers * bf_decode["f32_kernel_ms"]
+    if bf_decode.get("kernel_device_ms") is not None:
+        entry["device_ms"] = rwkv6_layers * bf_decode["kernel_device_ms"]
+    entry["host_us_per_call"] = bf_decode["host_us_per_call"]
+    entry["loss_shape"] = {k: bf_loss[k] for k in (
+        "b", "s", "h", "p", "chunk", "kernel_ms", "f32_kernel_ms",
+        "kernel_device_ms", "kernel_device_ms_by_pass", "plain_ms",
+        "bound_ms", "f32_bound_ms", "bound_by")}
+    entry["loss_shape"]["launches_per_loss_call"] = wkv6_bf16_run[
+        "loss_launches"]["wkv6_bf16"]
     kernels.append(entry)
     ssd_loss_row = next(r for r in ssd_rows if r["case"] == "zamba2 loss")
     entry = recurrence_entry(

@@ -60,6 +60,22 @@
 // same bits, and a batch row's result does not depend on the other rows.
 // Accurate expf, no fast math.
 //
+// bf16 operands (wkv6_bf16_launch; the JAX package's cfg.ssm_bf16=True, its
+// wkv6_chunked(..., compute_dtype=bf16)): r, k and v are read as bf16 by
+// every kernel (each kernel is a template on their type; w, u and the state
+// stay f32) and widened on load, exactly.  The scan pass rounds where the
+// reference rounds, each value from an f32 sum or product:
+//   rr = bf16(r * bf16(exp(clip(lw_prev - m, +-60)))),
+//   kk = bf16(k * bf16(exp(clip(m - lw, +-60)))),
+//   A  = bf16(rr kk^T), on the bf16 tensor cores (mma.sync m16n8k16, f32
+//        accumulate), kept where s < t,
+//   y  = (bf16(A v) + (sum_p r u k) v) + (r * exp(clip(lw_prev, -60, 0))) S,
+//        A v on the bf16 tensor cores into an accumulator of its own, over
+//        every s tile of the chunk before it is rounded;
+// the state pass's S_c, the carry and r_state S_in stay f32 (3xTF32: their
+// operands are bf16-exact or f32).  At s = 1 A is all masked and the
+// one-token kernel's f32 arithmetic is the reference's.
+//
 // Bound on this card (NVIDIA H100 SXM), rwkv6's loss shape (b 2, s 2048, h
 // 32, p 64, chunk 64): r, k, v, w read once, y written once, u read once, the
 // state read and written once, 169.9 MB over 3.35 TB/s = 0.0507 ms; the four
@@ -69,8 +85,11 @@
 // read, rewritten and read again.  At decode (s = 1) the state's bytes: 16 KB
 // each way a head.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32_tiles.cuh"
 
@@ -106,11 +125,89 @@ __device__ __forceinline__ void stage(float* dst, int ld, At at, int rows,
   stage_tile<TILE, PMAX, THREADS>(dst, ld, at, rows, cols, vec);
 }
 
+template <class T>
+constexpr bool IS_BF16 = std::is_same<T, __nv_bfloat16>::value;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x rounded to the nearest bf16 (ties to even), as an f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a (TILE x PMAX) tile of r, k or v into shared f32: by cp.async for f32
+// operands; widened on load for bf16 ones (clamped address, zero past the
+// edge, as stage_tile)
+template <class T, class At>
+__device__ __forceinline__ void stage_in(float* dst, int ld, At at, int rows,
+                                         int cols, bool vec) {
+  if constexpr (!IS_BF16<T>) {
+    stage(dst, ld, at, rows, cols, vec);
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < TILE * PMAX; e += THREADS) {
+      const int i = e / PMAX, q = e % PMAX;
+      const float x = widen(*at(min(i, rows - 1), min(q, cols - 1)));
+      dst[i * ld + q] = (i < rows && q < cols) ? x : 0.f;
+    }
+  }
+}
+
+// two f32 values (bf16-exact where they come from a rounding above) as one
+// bf16x2 register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[strip][n8 tile] += A (m, k) B (k, j) on the bf16 tensor cores, both
+// strips over k < k_both, the lower strip alone up to k_last (multiples of
+// 16), as product_3xtf32; A and B read shared f32 holding bf16 values
+template <class FA, class FB>
+__device__ __forceinline__ void product_bf16(float (&acc)[2][2][4], FA A,
+                                             FB B, const WarpTile& w,
+                                             int k_both, int k_last) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+  for (int k0 = 0; k0 < k_last; k0 += 16) {
+    uint32_t b[2][2];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int n = w.j0 + 8 * jj + g;
+      b[jj][0] = pack_bf16(B(k0 + t2, n), B(k0 + t2 + 1, n));
+      b[jj][1] = pack_bf16(B(k0 + t2 + 8, n), B(k0 + t2 + 9, n));
+    }
+#pragma unroll
+    for (int si = 0; si < 2; ++si) {
+      if (si == 0 && k0 >= k_both) continue;
+      const int m = w.m[si];
+      const uint32_t a[4] = {
+          pack_bf16(A(m + g, k0 + t2), A(m + g, k0 + t2 + 1)),
+          pack_bf16(A(m + g + 8, k0 + t2), A(m + g + 8, k0 + t2 + 1)),
+          pack_bf16(A(m + g, k0 + t2 + 8), A(m + g, k0 + t2 + 9)),
+          pack_bf16(A(m + g + 8, k0 + t2 + 8), A(m + g + 8, k0 + t2 + 9))};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) mma_bf16(acc[si][jj], a, b[jj][0], b[jj][1]);
+    }
+  }
+}
+
 // Pass 1, grid (b * h, chunks): lw (b, s, h, p), S_c (b, h, chunk, p, p) and
 // dec (b, h, chunk, p).  lw is written and, in a chunk of more than one
 // tile, read back by this block (no restrict, no read-only path).
+template <class T>
 __global__ void __launch_bounds__(THREADS, 3)
-wkv6_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
+wkv6_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ w, Seq sk, Seq sv, Seq sw,
                   float* lw, float* __restrict__ states,
                   float* __restrict__ dec, int H, int S, int P, int ch,
@@ -125,18 +222,20 @@ wkv6_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int c = blockIdx.y, c0 = c * ch;
   const int n_tiles = (ch + TILE - 1) / TILE;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
   const float* wb = w + b * sw.b + h * sw.h;
   const long long lw_ss = (long long)H * P;          // lw's row stride
   float* lwb = lw + (long long)b * S * lw_ss + (long long)h * P;
   const WarpTile wt = warp_tile();
 
   auto stage_kv = [&](int r0, int rows) {
-    stage(Ks, LDB, [&](int i, int q) { return kb + (c0 + r0 + i) * sk.s + q; },
-          rows, P, vec & VEC_K);
-    stage(Vs, LDB, [&](int i, int q) { return vb + (c0 + r0 + i) * sv.s + q; },
-          rows, P, vec & VEC_V);
+    stage_in<T>(Ks, LDB,
+                [&](int i, int q) { return kb + (c0 + r0 + i) * sk.s + q; },
+                rows, P, vec & VEC_K);
+    stage_in<T>(Vs, LDB,
+                [&](int i, int q) { return vb + (c0 + r0 + i) * sv.s + q; },
+                rows, P, vec & VEC_V);
   };
 
   // 1. lw: one thread a channel, the chunk's rows in order
@@ -262,15 +361,17 @@ wkv6_carry_kernel(const float* __restrict__ dec, const float* s0,
 // The t tile's r, lw and k and the chunk's S_in are staged together; then
 // per s tile up to the row tile its v (and, but for the first s tile of the
 // first row tile, which the t tile already holds, its k and lw).
+template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
-wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                 const float* __restrict__ v, Seq sr, Seq sk, Seq sv,
+wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                 const T* __restrict__ v, Seq sr, Seq sk, Seq sv,
                  const float* __restrict__ u, const float* __restrict__ lw,
                  const float* __restrict__ S_in, float* __restrict__ y, int H,
                  int S, int P, int ch, int vec) {
   extern __shared__ __align__(16) float smem[];
+  constexpr bool BF = IS_BF16<T>;
   uint32_t* RrH = reinterpret_cast<uint32_t*>(smem);  // rr (hi)   [t][p]
-  float* RrL = smem + TILE * LDA;    // r, then rr (lo)              [t][p]
+  float* RrL = smem + TILE * LDA;    // r, then rr (lo; bf16: rr)    [t][p]
   float* As = RrL + TILE * LDA;      // r_state [t][p], then A       [t][s]
   float* Ks = As + TILE * LDA;       // k, then kk, of the s tile    [s][p]
   float* Vs = Ks + TILE * LDA;       // S_in [p][q], then v          [s][q]
@@ -285,31 +386,35 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int nt = min(TILE, ch - t0);
   const WarpTile wt = warp_tile();
   const int kp = (P + 7) & ~7;
-  const float* rb = r + b * sr.b + h * sr.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
+  const int kp16 = (P + 15) & ~15;   // the bf16 products' k-steps are 16
+  const T* rb = r + b * sr.b + h * sr.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
   const long long lw_ss = (long long)H * P;
   const float* lwb = lw + (long long)b * S * lw_ss + (long long)h * P;
   const bool vec_s = vec & VEC_SCRATCH;
 
   auto stage_kl = [&](int s0, int ns) {
-    stage(Ks, LDA, [&](int i, int q) { return kb + (c0 + s0 + i) * sk.s + q; },
-          ns, P, vec & VEC_K);
+    stage_in<T>(Ks, LDA,
+                [&](int i, int q) { return kb + (c0 + s0 + i) * sk.s + q; },
+                ns, P, vec & VEC_K);
     stage(Ls, LDB, [&](int i, int q) { return lwb + (c0 + s0 + i) * lw_ss + q; },
           ns, P, vec_s);
   };
   auto issue_s = [&](int sj, bool kl) {  // the s tile's v, and k and lw if kl
     const int s0 = sj * TILE, ns = min(TILE, ch - s0);
-    stage(Vs, LDB, [&](int i, int q) { return vb + (c0 + s0 + i) * sv.s + q; },
-          ns, P, vec & VEC_V);
+    stage_in<T>(Vs, LDB,
+                [&](int i, int q) { return vb + (c0 + s0 + i) * sv.s + q; },
+                ns, P, vec & VEC_V);
     if (kl) stage_kl(s0, ns);
     cp_async_commit();
   };
 
   // the t tile's r, lw and k; S_in; lw before the tile and at the chunk's
   // last row; u
-  stage(RrL, LDA, [&](int i, int q) { return rb + (c0 + t0 + i) * sr.s + q; },
-        nt, P, vec & VEC_R);
+  stage_in<T>(RrL, LDA,
+              [&](int i, int q) { return rb + (c0 + t0 + i) * sr.s + q; }, nt,
+              P, vec & VEC_R);
   stage_kl(t0, nt);
   const float* Sc = S_in + ((long long)bh * nc + c) * P * P;
   stage(Vs, LDB, [&](int i, int q) { return Sc + i * P + q; }, P, P, vec_s);
@@ -337,7 +442,8 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
   __syncthreads();
   // r_state = r * exp(clip(lw_prev, -60, 0)) into As; rr = r * exp(clip(
-  // lw_prev - m, +-60)), split once, into RrH / RrL
+  // lw_prev - m, +-60)), split once, into RrH / RrL (bf16: rounded as the
+  // reference rounds it, into RrL)
   for (int e = tid; e < TILE * PMAX; e += THREADS) {
     const int t = e / PMAX, p = e % PMAX;
     float rs = 0.f, rr = 0.f;
@@ -345,19 +451,26 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
       const float x = RrL[t * LDA + p];
       const float lp = t > 0 ? Ls[(t - 1) * LDB + p] : lw0[p];
       rs = __fmul_rn(x, expf(clip(lp, -EXP_CLAMP, 0.f)));
-      rr = __fmul_rn(x, expf(clip(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP,
-                                  EXP_CLAMP)));
+      const float f =
+          expf(clip(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP, EXP_CLAMP));
+      rr = BF ? round_bf16(__fmul_rn(x, round_bf16(f))) : __fmul_rn(x, f);
     }
-    uint32_t hi, lo;
-    split(rr, hi, lo);
     As[t * LDA + p] = rs;
-    RrH[t * LDA + p] = hi;
-    RrL[t * LDA + p] = __uint_as_float(lo);
+    if constexpr (BF) {
+      RrL[t * LDA + p] = rr;
+    } else {
+      uint32_t hi, lo;
+      split(rr, hi, lo);
+      RrH[t * LDA + p] = hi;
+      RrL[t * LDA + p] = __uint_as_float(lo);
+    }
   }
   __syncthreads();
 
-  // inter-chunk: r_state S_in, where the intra-chunk sum starts
+  // inter-chunk: r_state S_in, where the intra-chunk sum starts (bf16: the
+  // intra-chunk sum has an accumulator of its own, rounded once)
   float acc[2][2][4] = {};
+  float acc_in[2][2][4] = {};
   product_3xtf32(acc, splitting([&](int m, int kk) { return As[m * LDA + kk]; }),
                  splitting([&](int kk, int q) { return Vs[kk * LDB + q]; }),
                  wt, kp, kp);
@@ -372,39 +485,54 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const bool on_diag = sj == ti;
     cp_async_wait<0>();
     __syncthreads();
-    // kk = k * exp(clip(m - lw, +-60)) in place
+    // kk = k * exp(clip(m - lw, +-60)) in place (bf16: rounded as rr)
     for (int e = tid; e < TILE * PMAX; e += THREADS) {
       const int i = e / PMAX, p = e % PMAX;
-      if (i < ns && p < P)
-        Ks[i * LDA + p] = __fmul_rn(
-            Ks[i * LDA + p],
-            expf(clip(__fsub_rn(0.5f * lend[p], Ls[i * LDB + p]), -EXP_CLAMP,
-                      EXP_CLAMP)));
+      if (i < ns && p < P) {
+        const float f = expf(clip(__fsub_rn(0.5f * lend[p], Ls[i * LDB + p]),
+                                  -EXP_CLAMP, EXP_CLAMP));
+        const float x = Ks[i * LDA + p];
+        Ks[i * LDA + p] =
+            BF ? round_bf16(__fmul_rn(x, round_bf16(f))) : __fmul_rn(x, f);
+      }
     }
     __syncthreads();
     {                                // A = rr kk^T, strictly lower (s < t)
       float sc[2][2][4] = {};
-      product_3xtf32(sc, rr_split,
-                     splitting([&](int kk, int q) { return Ks[q * LDA + kk]; }),
-                     wt, kp, kp);
+      const auto kk_t = [&](int kk, int q) { return Ks[q * LDA + kk]; };
+      if constexpr (BF)
+        product_bf16(sc, [&](int m, int kk) { return RrL[m * LDA + kk]; },
+                     kk_t, wt, kp16, kp16);
+      else
+        product_3xtf32(sc, rr_split, splitting(kk_t), wt, kp, kp);
       for_each(wt, [&](int t, int q, int si, int jj, int i) {
-        As[t * LDA + q] =
-            (t < nt && q < ns && s0 + q < t0 + t) ? sc[si][jj][i] : 0.f;
+        const float a = BF ? round_bf16(sc[si][jj][i]) : sc[si][jj][i];
+        As[t * LDA + q] = (t < nt && q < ns && s0 + q < t0 + t) ? a : 0.f;
       });
     }
     __syncthreads();
     // acc += A v; on the diagonal tile a strip's rows need no s past its
     // last row
-    const int k_all = (ns + 7) & ~7;
-    product_3xtf32(
-        acc, splitting([&](int m, int kk) { return As[m * LDA + kk]; }),
-        splitting([&](int kk, int q) { return Vs[kk * LDB + q]; }), wt,
-        on_diag ? min(k_all, wt.m[0] + 16) : k_all,
-        on_diag ? min(k_all, wt.m[1] + 16) : k_all);
+    const auto a_of = [&](int m, int kk) { return As[m * LDA + kk]; };
+    const auto v_of = [&](int kk, int q) { return Vs[kk * LDB + q]; };
+    if constexpr (BF) {
+      const int k_all = (ns + 15) & ~15;
+      product_bf16(acc_in, a_of, v_of, wt,
+                   on_diag ? min(k_all, wt.m[0] + 16) : k_all,
+                   on_diag ? min(k_all, wt.m[1] + 16) : k_all);
+    } else {
+      const int k_all = (ns + 7) & ~7;
+      product_3xtf32(acc, splitting(a_of), splitting(v_of), wt,
+                     on_diag ? min(k_all, wt.m[0] + 16) : k_all,
+                     on_diag ? min(k_all, wt.m[1] + 16) : k_all);
+    }
     if (on_diag) {                   // + (sum_p r u k) v; Vs holds v of the t tile
       for_each(wt, [&](int t, int q, int si, int jj, int i) {
+        const float dv = __fmul_rn(diag[t], Vs[t * LDB + q]);
         acc[si][jj][i] =
-            __fadd_rn(acc[si][jj][i], __fmul_rn(diag[t], Vs[t * LDB + q]));
+            BF ? __fadd_rn(__fadd_rn(round_bf16(acc_in[si][jj][i]), dv),
+                           acc[si][jj][i])
+               : __fadd_rn(acc[si][jj][i], dv);
       });
       float* yb = y + (((long long)b * S + c0 + t0) * H + h) * P;
       store_tile(acc, wt, nt, P, [&](int t, int q) {
@@ -421,10 +549,10 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
 // tokens.  y's sum over p: shuffles over a warp's 8 rows, then the 8 warps'
 // partial sums in order, one thread a column.  VEC: the state rows load as
 // float4 (p a multiple of 4, s0 and s_out 16-byte aligned).
-template <bool VEC>
+template <bool VEC, class T>
 __global__ void __launch_bounds__(THREADS)
-wkv6_token_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ w,
+wkv6_token_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ w,
                   Seq sr, Seq sk, Seq sv, Seq sw, const float* __restrict__ u,
                   const float* s0, float* __restrict__ y, float* s_out, int H,
                   int S, int P) {
@@ -450,17 +578,17 @@ wkv6_token_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const float up = u[h * P + pc];
 
   for (int t = 0; t < S; ++t) {
-    const float* rt = r + b * sr.b + t * sr.s + h * sr.h;
-    const float* kt = k + b * sk.b + t * sk.s + h * sk.h;
-    const float* vt = v + b * sv.b + t * sv.s + h * sv.h;
+    const T* rt = r + b * sr.b + t * sr.s + h * sr.h;
+    const T* kt = k + b * sk.b + t * sk.s + h * sk.h;
+    const T* vt = v + b * sv.b + t * sv.s + h * sv.h;
     const float* wt = w + b * sw.b + t * sw.s + h * sw.h;
-    float rp = rt[pc], kp = kt[pc];
+    float rp = widen(rt[pc]), kp = widen(kt[pc]);
     const float wp = wt[pc];
     if (!live) rp = kp = 0.f;
     float vq[4], ys[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      vq[j] = q0 + j < P ? vt[min(q0 + j, P - 1)] : 0.f;
+      vq[j] = q0 + j < P ? widen(vt[min(q0 + j, P - 1)]) : 0.f;
       ys[j] = __fmul_rn(rp, st[j]);
     }
     float dg = __fmul_rn(__fmul_rn(rp, up), kp);
@@ -487,7 +615,7 @@ wkv6_token_kernel(const float* __restrict__ r, const float* __restrict__ k,
       }
       if (q < P)
         y[(((long long)b * S + t) * H + h) * P + q] =
-            __fadd_rn(acc, __fmul_rn(d, vt[q]));
+            __fadd_rn(acc, __fmul_rn(d, widen(vt[q])));
     }
     const float dec = expf(clip(wp, -EXP_CLAMP, 0.f));
 #pragma unroll
@@ -509,31 +637,23 @@ wkv6_token_kernel(const float* __restrict__ r, const float* __restrict__ k,
 
 inline long long round4(long long n) { return (n + 3) & ~3LL; }
 
-}  // namespace
-
-// r, k, v, w: (B, S, H, P) float32 with the P axis contiguous, any other
-// strides (in elements).  u: (H, P), s0 and s_out: (B, H, P, P), y: (B, S,
-// H, P), all float32 and contiguous; s_out may be s0.  chunk divides S.
-// ws: float32 workspace of ws_floats elements, 16-byte aligned, for chunk >
-// 1: the state scratch (B, H, S / chunk, P, P), then lw (B, S, H, P), then
-// the chunks' decays (B, H, S / chunk, P), each rounded up to 4 floats (null
-// and 0 for chunk 1).  Returns cudaGetLastError() after the launches (0 =
-// launched).
-extern "C" int wkv6_launch(
-    const void* r, const void* k, const void* v, const void* w,
-    long long r_sb, long long r_ss, long long r_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long w_sb, long long w_ss, long long w_sh,
-    const void* u, const void* s0, void* y, void* s_out, void* ws,
-    long long ws_floats, int B, int S, int H, int P, int chunk, void* stream) {
+// the launches of one call, r, k and v of type T (wkv6_launch's contract)
+template <class T>
+int launch(const void* r, const void* k, const void* v, const void* w,
+           long long r_sb, long long r_ss, long long r_sh, long long k_sb,
+           long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+           long long v_sh, long long w_sb, long long w_ss, long long w_sh,
+           const void* u, const void* s0, void* y, void* s_out, void* ws,
+           long long ws_floats, int B, int S, int H, int P, int chunk,
+           void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > PMAX || chunk <= 0 ||
       S % chunk != 0 || (long long)B * H > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   const Seq sr{r_sb, r_ss, r_sh}, sk{k_sb, k_ss, k_sh}, sv{v_sb, v_ss, v_sh},
       sw{w_sb, w_ss, w_sh};
-  const float* rf = static_cast<const float*>(r);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
+  const T* rf = static_cast<const T*>(r);
+  const T* kf = static_cast<const T*>(k);
+  const T* vf = static_cast<const T*>(v);
   const float* wf = static_cast<const float*>(w);
   const float* uf = static_cast<const float*>(u);
   const float* s0f = static_cast<const float*>(s0);
@@ -569,17 +689,18 @@ extern "C" int wkv6_launch(
   float* lw = states + n_states;
   float* dec = lw + n_lw;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv6_state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       STATE_SMEM_BYTES);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(wkv6_scan_kernel,
+    err = cudaFuncSetAttribute(wkv6_scan_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SCAN_SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte copies where every row of a tensor starts 16-byte aligned
+  // 16-byte copies where every row of a tensor starts 16-byte aligned (r,
+  // k and v in bf16 are widened on load, never copied)
   auto rows16 = [&](const void* ptr, const Seq& sq) {
     return aligned16(ptr) && sq.b % 4 == 0 && sq.s % 4 == 0 && sq.h % 4 == 0 &&
-           P % 4 == 0;
+           P % 4 == 0 && (ptr == w || !IS_BF16<T>);
   };
   const int vec = (rows16(r, sr) ? VEC_R : 0) | (rows16(k, sk) ? VEC_K : 0) |
                   (rows16(v, sv) ? VEC_V : 0) | (rows16(w, sw) ? VEC_W : 0) |
@@ -600,4 +721,42 @@ extern "C" int wkv6_launch(
                      SCAN_SMEM_BYTES, st>>>(
       rf, kf, vf, sr, sk, sv, uf, lw, states, yf, H, S, P, chunk, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// r, k, v, w: (B, S, H, P) float32 with the P axis contiguous, any other
+// strides (in elements).  u: (H, P), s0 and s_out: (B, H, P, P), y: (B, S,
+// H, P), all float32 and contiguous; s_out may be s0.  chunk divides S.
+// ws: float32 workspace of ws_floats elements, 16-byte aligned, for chunk >
+// 1: the state scratch (B, H, S / chunk, P, P), then lw (B, S, H, P), then
+// the chunks' decays (B, H, S / chunk, P), each rounded up to 4 floats (null
+// and 0 for chunk 1).  Returns cudaGetLastError() after the launches (0 =
+// launched).
+extern "C" int wkv6_launch(
+    const void* r, const void* k, const void* v, const void* w,
+    long long r_sb, long long r_ss, long long r_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long w_sb, long long w_ss, long long w_sh,
+    const void* u, const void* s0, void* y, void* s_out, void* ws,
+    long long ws_floats, int B, int S, int H, int P, int chunk, void* stream) {
+  return launch<float>(r, k, v, w, r_sb, r_ss, r_sh, k_sb, k_ss, k_sh, v_sb,
+                       v_ss, v_sh, w_sb, w_ss, w_sh, u, s0, y, s_out, ws,
+                       ws_floats, B, S, H, P, chunk, stream);
+}
+
+// wkv6_launch with r, k and v in bf16 (the P axis contiguous, any other
+// strides): the bf16 recurrence (the scan pass's roundings above); w, u,
+// the state, y and the workspace as wkv6_launch's.
+extern "C" int wkv6_bf16_launch(
+    const void* r, const void* k, const void* v, const void* w,
+    long long r_sb, long long r_ss, long long r_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long w_sb, long long w_ss, long long w_sh,
+    const void* u, const void* s0, void* y, void* s_out, void* ws,
+    long long ws_floats, int B, int S, int H, int P, int chunk, void* stream) {
+  return launch<__nv_bfloat16>(r, k, v, w, r_sb, r_ss, r_sh, k_sb, k_ss, k_sh,
+                               v_sb, v_ss, v_sh, w_sb, w_ss, w_sh, u, s0, y,
+                               s_out, ws, ws_floats, B, S, H, P, chunk,
+                               stream);
 }

@@ -190,6 +190,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,              # B, S, H, P, chunk
         p]                          # stream
     lib.wkv6_launch.restype = ctypes.c_int
+    lib.wkv6_bf16_launch.argtypes = lib.wkv6_launch.argtypes
+    lib.wkv6_bf16_launch.restype = ctypes.c_int
     lib.ssd_chunk_launch.argtypes = [
         p, p, p, p, p, p,           # x, dt, A_log, B, C, D
         p, p, p,                    # state, y, state_out

@@ -27,6 +27,15 @@ and written once, 169.9 MB over 3.35 TB/s = 0.0507 ms (the products at
 TF32's rate, times three, take 0.026 ms); at decode (s = 1) the state's
 bytes, 16 KB each way a head.
 
+bf16 r, k and v (the JAX package's ``cfg.ssm_bf16=True``: its
+``wkv6_chunked(..., compute_dtype=bfloat16)``) take the bf16 recurrence: the
+same kernels instantiated for bf16 operands (``wkv6_bf16_launch``), which
+read r, k and v as bf16, round ``rr``, ``kk``, the scores and the
+intra-chunk output to bf16 where the reference does, and take the two
+intra-chunk products on the bf16 tensor cores; the state, the decays, the
+carry and the output stay f32 (:func:`wkv6_plain` with ``compute_dtype``
+says where each rounding falls).  ``wkv6.bf16_launches`` counts its calls.
+
 :func:`wkv6` launches the kernels for CUDA tensors (or raises) and computes
 :func:`wkv6_plain` for CPU tensors; there is no other route between the two.
 """
@@ -131,26 +140,46 @@ def pass_plan(b: int, s: int, h: int, p: int, chunk: int) -> PassPlan:
 
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w_log: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
-               chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+               chunk: int, compute_dtype: Optional[torch.dtype] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, chunk by chunk as the Pallas
-    body computes it: (y (b, s, h, p) f32, final state (b, h, p, p) f32)."""
+    body computes it: (y (b, s, h, p) f32, final state (b, h, p, p) f32).
+
+    ``compute_dtype=torch.bfloat16`` is the reference's bf16 recurrence
+    (``wkv6_chunked(..., compute_dtype=bfloat16)``): r, k and v are taken in
+    bf16, and ``rr``, ``kk`` (each with its exponential factor first), the
+    scores ``A`` and the intra-chunk ``y`` are rounded to bf16, each from an
+    f32 product or sum; the u term, the carried state's terms, the decays
+    and the state stay f32.  ``None`` takes the operands' precision
+    (:func:`compute_dtype_of`), as :func:`wkv6` does."""
+    if compute_dtype is None:
+        compute_dtype = compute_dtype_of(r, k, v)
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"wkv6 computes in float32 or bfloat16; got "
+                         f"{compute_dtype}")
     b, s, h, p = r.shape
     assert_divides(chunk, s, "wkv6 sequence chunk")
     nc = s // chunk
-    rc, kc, vc, wc = (x.to(torch.float32).reshape(b, nc, chunk, h, p)
-                      for x in (r, k, v, w_log))
+    f32 = torch.float32
+
+    def rnd(x):
+        return x.to(compute_dtype).to(f32)
+
+    rc, kc, vc = (rnd(x).reshape(b, nc, chunk, h, p) for x in (r, k, v))
+    wc = w_log.to(f32).reshape(b, nc, chunk, h, p)
     lw = torch.cumsum(wc, dim=2)                            # inclusive
     lw_prev = torch.cat([torch.zeros_like(lw[:, :, :1]), lw[:, :, :-1]],
                         dim=2)
     m = 0.5 * lw[:, :, -1:]
-    rr = rc * torch.exp(torch.clamp(lw_prev - m, -EXP_CLAMP, EXP_CLAMP))
-    kk = kc * torch.exp(torch.clamp(m - lw, -EXP_CLAMP, EXP_CLAMP))
-    A = torch.einsum("bcthp,bcshp->bchts", rr, kk)
+    rr = rnd(rc * rnd(torch.exp(torch.clamp(lw_prev - m, -EXP_CLAMP,
+                                            EXP_CLAMP))))
+    kk = rnd(kc * rnd(torch.exp(torch.clamp(m - lw, -EXP_CLAMP, EXP_CLAMP))))
+    A = rnd(torch.einsum("bcthp,bcshp->bchts", rr, kk))
     lower = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                   device=r.device), diagonal=-1)
     A = torch.where(lower, A, torch.zeros((), device=r.device))
-    diag = (rc * u.to(torch.float32) * kc).sum(-1)          # (b,nc,ch,h)
-    y = torch.einsum("bchts,bcshp->bcthp", A, vc) + diag[..., None] * vc
+    diag = (rc * u.to(f32) * kc).sum(-1)                    # (b,nc,ch,h)
+    y = rnd(torch.einsum("bchts,bcshp->bcthp", A, vc)) + diag[..., None] * vc
 
     rs = rc * torch.exp(torch.clamp(lw_prev, -EXP_CLAMP, 0.0))
     tail = torch.exp(torch.clamp(lw[:, :, -1:] - lw, -EXP_CLAMP, EXP_CLAMP))
@@ -165,11 +194,24 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.reshape(b, s, h, p), S
 
 
-def _f32_rows(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as float32 with its last axis contiguous (itself when it is)."""
-    if x.dtype != torch.float32:
-        x = x.to(torch.float32)
+def _rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as ``dtype`` with its last axis contiguous (itself when it
+    is)."""
+    if x.dtype != dtype:
+        x = x.to(dtype)
     return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def compute_dtype_of(r: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.dtype:
+    """The recurrence's precision: bf16 where r, k and v are all bf16,
+    f32 where none is (other dtypes are widened); a mix raises."""
+    bf = [t.dtype == torch.bfloat16 for t in (r, k, v)]
+    if any(bf) and not all(bf):
+        raise ValueError(f"wkv6: r, k and v must all be bfloat16 for the "
+                         f"bf16 recurrence, or none; got "
+                         f"{[str(t.dtype) for t in (r, k, v)]}")
+    return torch.bfloat16 if all(bf) else torch.float32
 
 
 def _f32_dense(x: torch.Tensor) -> torch.Tensor:
@@ -219,15 +261,18 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     not divide it raises.  ``state_out``, when given, receives the final state
     and is returned; it may be ``state`` itself (an update in place).
 
+    bf16 r, k and v take the bf16 recurrence (:func:`compute_dtype_of`).
     CUDA tensors go to the kernels, CPU tensors to :func:`wkv6_plain`.
     """
     _check(r, k, v, w_log, u, state, state_out)
+    cdt = compute_dtype_of(r, k, v)
     b, s, h, p = r.shape
     chunk = select_chunk(s) if chunk is None else chunk
     assert_divides(chunk, s, "wkv6 sequence chunk")
     dev = r.device
     if dev.type == "cpu":
-        y, S = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk)
+        y, S = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk,
+                          compute_dtype=cdt)
         if state_out is None:
             return y, S
         return y, state_out.copy_(S)
@@ -245,14 +290,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.cuda.device(dev):
             return wkv6(r, k, v, w_log, u, state, chunk=chunk,
                         state_out=state_out)
-    r, k, v, w_log = (_f32_rows(t) for t in (r, k, v, w_log))
+    r, k, v = (_rows(t, cdt) for t in (r, k, v))
+    w_log = _rows(w_log, torch.float32)
     u, state = _f32_dense(u), _f32_dense(state)
     if state_out is None:
         state_out = torch.empty_like(state)
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
     n_ws = plan.workspace_floats
     ws = torch.empty((n_ws,), dtype=torch.float32, device=dev) if n_ws else None
-    err = lib.wkv6_launch(
+    bf16 = cdt == torch.bfloat16
+    err = (lib.wkv6_bf16_launch if bf16 else lib.wkv6_launch)(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w_log.stride()[:3],
         u.data_ptr(), state.data_ptr(), y.data_ptr(), state_out.data_ptr(),
@@ -262,11 +309,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {err} for "
-                           f"(b, s, h, p) = {(b, s, h, p)}, chunk {chunk}")
-    wkv6.launches += 1
+                           f"(b, s, h, p) = {(b, s, h, p)}, chunk {chunk}"
+                           f"{', bf16' if bf16 else ''}")
+    if bf16:
+        wkv6.bf16_launches += 1
+    else:
+        wkv6.launches += 1
     return y, state_out
 
 
-#: calls of :func:`wkv6` that launched its kernels (one a call, for all
+#: calls of :func:`wkv6` that launched its f32 kernels (one a call, for all
 #: three passes or the one-token kernel) in this process
 wkv6.launches = 0
+#: calls of :func:`wkv6` that launched its bf16 kernels (r, k, v in bf16)
+wkv6.bf16_launches = 0

@@ -632,10 +632,10 @@ def moe_dense(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
         gates = _gates(xt, p["router"], cfg)                  # (t, E)
     if routes_ideal() and not is_dtensor(xt):
         def up(key):
-            return torch.einsum("td,edf->etf", xt, p[key])
+            return torch.einsum("td,edf->etf", xt, p[key])  # lint: allow=RP001 ideal-only
 
         def down(h):
-            return torch.einsum("etf,efd->etd", h, p["w2"])
+            return torch.einsum("etf,efd->etd", h, p["w2"])  # lint: allow=RP001 ideal-only
     else:
         # per-expert GEMMs through the active backend (E dense matmuls; on
         # a mesh also on ideal: DTensor has no rule for the einsum's

@@ -48,10 +48,6 @@ Params = Dict[str, Any]
 
 EXP_CLAMP = 30.0
 
-#: what ``cfg.ssm_bf16=True`` asks for and where it stands
-_SSM_BF16 = ("cfg.ssm_bf16=True: the bf16 WKV recurrence has no kernel in "
-             "the port (ROADMAP.md queue A, A18: ssm_bf16)")
-
 
 def _chunk(chunk: int, s: int) -> int:
     """The model's chunk rule: ``min(chunk, s)``, or the whole sequence when
@@ -248,13 +244,13 @@ def wkv6_chunked(r, k, v, w_log, u, state, chunk: int,
 
       y_t = r_t . (S_{t-1} + (u (*) k_t) v_t^T) ; S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-    r,k,v: (b, s, h, p) f32; w_log: (b, s, h, p) = log decay (<= 0);
-    u: (h, p); state: (b, h, p, p).  Returns (y, final_state);
-    ``state_out`` (may be ``state``) receives the final state.  Only the f32
-    recurrence is ported: another ``compute_dtype`` raises.
+    r,k,v: (b, s, h, p), taken in ``compute_dtype`` (float32, or bfloat16:
+    the reference's ``cfg.ssm_bf16=True`` recurrence, the kernel's bf16
+    route); w_log: (b, s, h, p) = log decay (<= 0), f32; u: (h, p); state:
+    (b, h, p, p) f32.  Returns (y f32, final_state f32); ``state_out`` (may
+    be ``state``) receives the final state.
     """
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(_SSM_BF16)
+    r, k, v = (t.to(compute_dtype) for t in (r, k, v))
     ch = _chunk(chunk, r.shape[1])
     if any(is_dtensor(t) for t in (r, k, v, w_log, u, state)):
         return _wkv6_blocks(r, k, v, w_log, u, state, ch, state_out)
@@ -289,13 +285,13 @@ def _wkv6_blocks(r, k, v, w_log, u, state, ch, state_out):
 
 def rwkv6_timemix(x, lp, cfg, state=None, prev=None, return_state=False, *,
                   state_out: Optional[torch.Tensor] = None):
-    if cfg.ssm_bf16:
-        raise NotImplementedError(_SSM_BF16)
     dims = rwkv6_dims(cfg)
     b, s, d = x.shape
     hp = (b, s, dims["h"], dims["p"])
     xs = _token_shift(x, prev)
     f32 = torch.float32
+    # cfg.ssm_bf16: r, k, v and g in bf16, the recurrence on bf16 operands
+    act = torch.bfloat16 if cfg.ssm_bf16 else f32
     if cfg.fused_rwkv_proj:
         # y_i = x @ W_i + (mu_i*delta) @ W_i: read x and delta ONCE through a
         # stacked projection instead of 5 separate mixed-input matmuls
@@ -310,18 +306,18 @@ def rwkv6_timemix(x, lp, cfg, state=None, prev=None, return_state=False, *,
             base = torch.stack([bmm(x, W[i]) for i in range(4)])
             mixp = torch.stack([bmm(delta, W_mix[i]) for i in range(4)])
         rkvg = base + mixp
-        r, k, v, gg = (rkvg[i].to(f32) for i in range(4))
+        r, k, v, gg = (rkvg[i].to(act) for i in range(4))
         r, k, v = r.reshape(hp), k.reshape(hp), v.reshape(hp)
-        g = F.silu(gg)
+        g = F.silu(gg.to(f32)).to(act)
         xw = x + lp["tmix_mu"][4][None, None].to(x.dtype) * delta
     else:
         def mix(i):
             return x + lp["tmix_mu"][i][None, None].to(x.dtype) * (xs - x)
         xr, xk, xv, xw, xg = (mix(i) for i in range(5))
-        r = bmm(xr, lp["wr"]).to(f32).reshape(hp)
-        k = bmm(xk, lp["wk"]).to(f32).reshape(hp)
-        v = bmm(xv, lp["wv"]).to(f32).reshape(hp)
-        g = F.silu(bmm(xg, lp["wg"]).to(f32))
+        r = bmm(xr, lp["wr"]).to(act).reshape(hp)
+        k = bmm(xk, lp["wk"]).to(act).reshape(hp)
+        v = bmm(xv, lp["wv"]).to(act).reshape(hp)
+        g = F.silu(bmm(xg, lp["wg"]).to(f32)).to(act)
     w_log = -torch.exp(lp["w_base"][None, None]
                        + bmm(torch.tanh(bmm(xw, lp["w_lora_a"]).to(f32)),
                              lp["w_lora_b"].to(f32)))
@@ -329,10 +325,10 @@ def rwkv6_timemix(x, lp, cfg, state=None, prev=None, return_state=False, *,
     S0 = (torch.zeros((b, dims["h"], dims["p"], dims["p"]), dtype=f32,
                       device=x.device) if state is None else state)
     y, S = wkv6_chunked(r, k, v, w_log, lp["u"], S0, cfg.ssm_chunk or 64,
-                        state_out=state_out)
+                        compute_dtype=act, state_out=state_out)
     y = y.reshape(b, s, d)
     y = rmsnorm(y.to(torch.bfloat16), lp["ln_x"]).to(f32)
-    out = bmm((y * g).to(torch.bfloat16), lp["wo"])
+    out = bmm((y * g.to(f32)).to(torch.bfloat16), lp["wo"])
     if return_state:
         return out, S, x[:, -1]
     return out
