@@ -50,8 +50,13 @@ width and depth through ``repro_torch.train.train`` (4 steps of 2 x 256
 tokens under ``reference``, every forward GEMM on ``systolic_mac`` with
 straight-through gradients, then the same steps under ``ideal``, then 2
 steps with int8 moments), the JAX package's trainer tests at their smoke
-sizes (descent, resume), whether a repeated step gives the same bits, and
-the ssm / hybrid refusals.  Then the device mesh: a one-rank ``nccl`` group
+sizes (descent, resume), whether a repeated step gives the same bits, one
+step of the rwkv6 and zamba2 smoke configs, and ``ssm_bf16=True`` refused
+naming A20; then rwkv6-1.6b and zamba2-2.7b at published width and depth
+through the same trainer (4 steps of 2 x 256 tokens under ``reference``
+and ``ideal``): the recurrences' backward kernels (``wkv6_bwd``,
+``ssd_chunk_bwd``, held first against their plain versions) on the main
+path.  Then the device mesh: a one-rank ``nccl`` group
 and a (1, 1) mesh (``repro_torch.launch.mesh``), one phi4-mini train step
 at full width and four decode steps of the served model through
 ``build_cell``'s rules, each bit-equal to the unsharded step with
@@ -65,7 +70,8 @@ a non-zero exit code.
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
 (``systolic_mac`` at every model's GEMM shapes, phi4-mini's also at a train
 step's 512 rows, ``razor_matmul``,
-``precision_island``, ``wkv6``, ``ssd_chunk``), ``paper_flow``,
+``precision_island``, ``wkv6``, ``ssd_chunk``, and the backward kernels
+``wkv6_bwd`` and ``ssd_chunk_bwd``), ``paper_flow``,
 ``precision_islands``, ``hwloop_checks``, ``abft_checks``, ``serve`` (with a
 ``torch.profiler`` pass over a short run), ``serve_hwloop``, ``serve_guard``,
 ``autoscale``, ``serve_http``, ``serve_trace``, ``chaos``, per state-space
@@ -77,7 +83,10 @@ seconds), ``wkv6_bf16`` (its checks, the bf16 model run and seconds),
 ``train`` (per backend: losses, seconds a step, tokens/s, the
 optimizer's seconds on the stream (CUDA events; the timed steps add no host
 synchronisation to the trainer's), step 0's gradient norm, peak memory, B1 launches and
-device ms a step; the smoke trainer's checks), ``mesh_note``, ``mesh``
+device ms a step; the smoke trainer's checks), ``train_ssm`` (the same per
+state-space model and backend, with the recurrences' forward and backward
+launches a step and their device ms in a profiled step), ``mesh_note``,
+``mesh``
 (the one-rank mesh's train and decode steps beside the unsharded ones, the
 dry run's record and trace seconds), ``profile_misses`` (profiled
 measurements left null, with what each try saw), ``total`` (the script's
@@ -152,6 +161,13 @@ SSM_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
 #: TF32 tensor cores with a 3xTF32 split, which drops about 2^-21 of each
 #: term (a single TF32 pass, 2^-11, would not hold this)
 TOL_RECURRENCE = 1e-4
+#: the backward kernels' reduced gradients against their plain versions, as
+#: fractions of their largest magnitudes: du, dA_log and dD are sums over
+#: the batch and every row, dw_log a reverse cumsum over a chunk's rows of
+#: terms that cancel (d/dlw of the clamped exponentials, up to e^60 times
+#: e^-60): one f32 sum of up to 2 x 2048 x 64 terms in another order than
+#: the plain version's, each term with the products' 3xTF32 error
+TOL_REDUCED_GRAD = 1e-3
 #: one Mamba2 layer's token-by-token steps against its parallel forward, as
 #: a fraction of the largest output (tests/models/test_consistency.py);
 #: the whole model's last logits are held to TOL_LOGITS of max|logits|
@@ -3253,6 +3269,202 @@ def check_ssd(torch, ssd_chunk, ssd_chunk_plain):
     return out
 
 
+def wkv6_bwd_bound_ms(b, s, h, p, chunk, state_grad):
+    """Least time for one backward pass of wkv6: r, k, v, w, dy and each
+    chunk's incoming state S_in (the forward's) read once, u and the final
+    state's gradient (where nonzero) read once; dr, dk, dv, dw written once,
+    du and dstate written once.  Per chunk and head the products the
+    gradient needs: four of ch p p (the state term rs^T dy, dy S_in^T, v
+    dS_out^T, (k tail) dS_out) and five over the strictly lower triangle,
+    ch (ch - 1) / 2 entries of p multiply-adds (A, dA, dA kk, A^T dy, dA^T
+    rr), on the TF32 tensor cores, TF32_SPLIT_PASSES products each."""
+    nc = s // chunk
+    nbytes = 4 * (9 * b * s * h * p + b * h * nc * p * p + h * p
+                  + (2 if state_grad else 1) * b * h * p * p)
+    tri = chunk * (chunk - 1) // 2
+    flops = 2.0 * b * h * nc * (4 * chunk * p * p + 5 * tri * p)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = TF32_SPLIT_PASSES * flops / PEAK_FLOPS["tf32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ssd_bwd_bound_ms(b, s, h, p, n, chunk, state_grad):
+    """The same for ssd_chunk's backward pass: x, dt, B, C, dy and each
+    chunk's incoming state S_in read once, A_log, D and the final state's
+    gradient (where nonzero) read once; dx, ddt, dB, dC written once,
+    dA_log, dD and dstate written once.  Products: the scores C B^T over the
+    inclusive triangle once per (b, chunk), ch (ch + 1) / 2 entries of n
+    multiply-adds; per chunk and head four of ch n p (the state term (ec
+    C)^T dy, dy S_in^T, x dt dS_out^T, B dS_out) and four over the triangle
+    (dW and W^T dy, p each; dscores B and dscores^T C, n each), on the TF32
+    tensor cores, TF32_SPLIT_PASSES products each."""
+    nc = s // chunk
+    nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n
+                  + b * h * nc * n * p + 4 * h
+                  + (2 if state_grad else 1) * b * h * n * p)
+    tri = chunk * (chunk + 1) // 2
+    flops = (2.0 * b * nc * tri * n
+             + 2.0 * b * h * nc * (4 * chunk * n * p + tri * (2 * p + 2 * n)))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = TF32_SPLIT_PASSES * flops / PEAK_FLOPS["tf32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def grad_case(torch, fn, plain_bwd, args, chunk, state_grad, names,
+              reduced, what):
+    """One backward pass of a recurrence kernel through autograd (the
+    wrapper's forward under autograd, then its backward kernel) against its
+    plain backward version on the same inputs and output gradients: each
+    gradient within TOL_RECURRENCE of its largest magnitude, the reduced
+    ones (``reduced``) within TOL_REDUCED_GRAD; a repeated backward pass
+    gives the same bits.  Returns (row, the graph's outputs, leaves and
+    output gradients, for timing)."""
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    y, S = fn(*leaves, chunk=chunk)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 21)
+    dy = torch.randn(y.shape, generator=gen, device=DEVICE)
+    dS = (torch.randn(S.shape, generator=gen, device=DEVICE)
+          if state_grad else torch.zeros_like(S))
+    got = torch.autograd.grad((y, S), leaves, (dy, dS), retain_graph=True)
+    torch.cuda.synchronize()
+    want = plain_bwd(*args, dy, dS if state_grad else None, chunk=chunk)
+    row = {}
+    for name, g, w in zip(names, got, want):
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        lim = (TOL_REDUCED_GRAD if name in reduced else TOL_RECURRENCE
+               ) * scale
+        if not (math.isfinite(err) and err <= lim):
+            fail(f"{what}: {name} off by {err} (limit {lim}, max "
+                 f"{scale})")
+        row.update({f"max_err_{name}": err, f"max_err_{name}_limit": lim})
+    again = torch.autograd.grad((y, S), leaves, (dy, dS), retain_graph=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{what}: a repeated backward pass gives other bits")
+    row["repeat_bit_equal"] = True
+    worst = max(names, key=lambda n: row[f"max_err_{n}"]
+                / max(row[f"max_err_{n}_limit"], 1e-30))
+    row.update(worst_grad=worst, max_err=row[f"max_err_{worst}"],
+               max_err_limit=row[f"max_err_{worst}_limit"])
+    return row, (y, S, leaves, dy, dS)
+
+
+def time_grad(torch, row, graph, plain_bwd, args, chunk, name, bound):
+    """A timed backward row: the backward pass alone (``autograd.grad`` of
+    a kept graph: the backward kernel's launch and nothing else on the
+    device) by CUDA events, its plain version on the same inputs, the byte
+    and operation bound, and the device time by pass (torch.profiler)."""
+    y, S, leaves, dy, dS = graph
+    state_grad = bool(dS.abs().max() > 0)
+
+    def bwd():
+        return torch.autograd.grad((y, S), leaves, (dy, dS),
+                                   retain_graph=True)
+    iters = 5
+    t_kernel = time_ms(lambda i: bwd(), 1, iters)
+    t_plain = time_ms(lambda i: plain_bwd(
+        *args, dy, dS if state_grad else None, chunk=chunk), 1, iters)
+    t_bound, by = bound
+    row.update({"kernel_ms": t_kernel, "plain_ms": t_plain,
+                "library_ms": None, "bound_ms": t_bound, "bound_by": by})
+    prof = profile_calls(torch, {name: lambda: [bwd() for _ in range(iters)]},
+                         repeats=iters)[name]
+    passes = {r["kernel"]: r["ms"] / iters for r in prof or []
+              if "_bwd_" in r["kernel"]}
+    row["kernel_device_ms"] = sum(passes.values()) if passes else None
+    row["kernel_device_ms_by_pass"] = passes or None
+
+
+def check_wkv6_bwd(torch, wkv6, wkv6_backward_plain):
+    """wkv6's backward kernel (csrc/wkv6_bwd.cu, through ``wkv6`` under
+    autograd) against ``wkv6_backward_plain`` at rwkv6-1.6b's loss (b 2, s
+    2048) and train (2, 256) shapes, ragged chunks (100, 1000), the JAX
+    tests' shapes and p 47 in unaligned views (chunk 128, and chunk 1: the
+    forward's three passes at one row), each with the final state's
+    gradient zero and random, and repeated (the same bits); the loss and
+    train shapes timed, by CUDA events and by pass."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 19)
+    H, P = 32, 64
+    cases = [("rwkv6 loss", 2, 2048, H, P, 64),
+             ("rwkv6 train", 2, 256, H, P, 64),
+             ("ragged", 1, 100, H, P, 100),
+             ("ragged", 1, 1000, H, P, 1000),
+             ("jax-test", 2, 64, 2, 16, 16),
+             ("jax-test", 1, 128, 3, 32, 32),
+             ("jax-test", 2, 32, 1, 8, 32),
+             ("unaligned", 2, 256, 12, 47, 128),
+             ("unaligned", 2, 3, 12, 47, 1)]
+    names = ("dr", "dk", "dv", "dw_log", "du", "dstate")
+    out = []
+    for name, b, s, h, p, ch in cases:
+        for state_grad in (False, True):
+            args = wkv6_inputs(torch, gen, b, s, h, p, 0.5, True)
+            if name == "unaligned":
+                args = wkv6_unaligned(torch, args)
+            what = (f"wkv6 backward {name} (b, s, h, p) = {(b, s, h, p)} "
+                    f"chunk {ch}, state gradient "
+                    f"{'random' if state_grad else 'zero'}")
+            row, graph = grad_case(
+                torch, wkv6, wkv6_backward_plain, args, ch, state_grad,
+                names, ("du", "dw_log"), what)
+            row = {"case": name, "b": b, "s": s, "h": h, "p": p,
+                   "chunk": ch, "state_grad": state_grad, **row}
+            if name in ("rwkv6 loss", "rwkv6 train") and not state_grad:
+                time_grad(torch, row, graph, wkv6_backward_plain, args, ch,
+                          "wkv6_bwd",
+                          wkv6_bwd_bound_ms(b, s, h, p, ch, state_grad))
+            del graph
+            out.append(row)
+    return out
+
+
+def check_ssd_bwd(torch, ssd_chunk, ssd_chunk_backward_plain):
+    """ssd_chunk's backward kernel (csrc/ssd_chunk_bwd.cu, through
+    ``ssd_chunk`` under autograd) against ``ssd_chunk_backward_plain`` at
+    zamba2-2.7b's loss (b 2, s 2048, h 80, p 64, n 64) and train (2, 256)
+    shapes, ragged chunks (100, 1000), the JAX tests' shapes and odd widths
+    in unaligned views, each with the final state's gradient zero and
+    random, and repeated (the same bits); the loss and train shapes timed."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 20)
+    H, P, N = 80, 64, 64
+    cases = [("zamba2 loss", 2, 2048, H, P, N, 64),
+             ("zamba2 train", 2, 256, H, P, N, 64),
+             ("ragged", 1, 100, H, P, N, 100),
+             ("ragged", 1, 1000, H, P, N, 1000),
+             ("jax-test", 2, 64, 2, 16, 8, 16),
+             ("jax-test", 1, 96, 4, 32, 16, 32),
+             ("jax-test", 2, 32, 1, 8, 4, 8),
+             ("unaligned", 2, 256, 12, 47, 37, 128)]
+    names = ("dx", "ddt", "dA_log", "dB", "dC", "dD", "dstate")
+    out = []
+    for name, b, s, h, p, n, ch in cases:
+        for state_grad in (False, True):
+            args = ssd_inputs(torch, gen, b, s, h, p, n, True)
+            if name == "unaligned":
+                args = unaligned_views(torch, args)
+            what = (f"ssd_chunk backward {name} (b, s, h, p, n) = "
+                    f"{(b, s, h, p, n)} chunk {ch}, state gradient "
+                    f"{'random' if state_grad else 'zero'}")
+            row, graph = grad_case(
+                torch, ssd_chunk, ssd_chunk_backward_plain, args, ch,
+                state_grad, names, ("dA_log", "dD"), what)
+            row = {"case": name, "b": b, "s": s, "h": h, "p": p, "n": n,
+                   "chunk": ch, "state_grad": state_grad, **row}
+            if name in ("zamba2 loss", "zamba2 train") and not state_grad:
+                time_grad(torch, row, graph, ssd_chunk_backward_plain, args,
+                          ch, "ssd_chunk_bwd",
+                          ssd_bwd_bound_ms(b, s, h, p, n, ch, state_grad))
+            del graph
+            out.append(row)
+    return out
+
+
 @contextlib.contextmanager
 def plain_route(ssm_mod, wkv6_plain, ssd_chunk_plain):
     """The model's two recurrences on their plain versions (for a reference
@@ -3282,9 +3494,17 @@ class Counters:
     def zero(self):
         for fn in self.wrappers.values():
             fn.launches = 0
+            if hasattr(fn, "backward_launches"):
+                fn.backward_launches = 0
 
     def read(self):
         return {name: fn.launches for name, fn in self.wrappers.items()}
+
+    def read_backward(self):
+        """The backward kernels' launches (the recurrences' gradients)."""
+        return {name: fn.backward_launches
+                for name, fn in self.wrappers.items()
+                if hasattr(fn, "backward_launches")}
 
 
 def logits_alone(torch, api, params, prompt, fed, backend, use_backend,
@@ -4531,15 +4751,20 @@ def train_batch(torch, cfg, tmods, step):
     return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
 
 
-def train_run(torch, cfg, mods, tmods, counters, backend, opt_cfg, steps):
+def train_run(torch, cfg, mods, tmods, counters, backend, opt_cfg, steps,
+              gemms=None):
     """``repro_torch.train.train`` at full width for ``steps`` steps on
     ``backend``, from ``init_params(SEED)``: losses, seconds a step (the
     trainer's heartbeats), the optimizer's seconds a step on the stream,
     step 0's global gradient norm (both recorded without a host
     synchronisation: :func:`recording_optimizer`), peak memory, B1 launches and the backend's telemetry;
     then one more step under ``torch.profiler`` (device ms a step by
-    kernel, B1's part).  The launches are read before the profiled step."""
+    kernel, B1's part).  The launches are read before the profiled step.
+    ``gemms``: B1 launches a step under ``reference`` (a dense model's 13 L
+    + 1 by default); the recurrences' forward and backward launches are
+    recorded beside them."""
     shape = mods.ShapeConfig("train", TRAIN_BATCH[1], TRAIN_BATCH[0], "train")
+    gemms = 13 * cfg.n_layers + 1 if gemms is None else gemms
     be = mods.get_backend(backend)
     monitor = tmods.HeartbeatMonitor(num_hosts=1)
     norms, spans = [], []
@@ -4555,7 +4780,9 @@ def train_run(torch, cfg, mods, tmods, counters, backend, opt_cfg, steps):
             opt_cfg, monitor=monitor)
     norms, opt_s = read_recorded(torch, norms, spans)
     seconds = time.monotonic() - t0
-    launches = counters.read()["systolic_mac"]
+    kernel_launches = counters.read()
+    backward_launches = counters.read_backward()
+    launches = kernel_launches["systolic_mac"]
     summary = be.summary() if backend != "ideal" else None
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_s = list(monitor.hosts[0].durations)
@@ -4572,11 +4799,13 @@ def train_run(torch, cfg, mods, tmods, counters, backend, opt_cfg, steps):
            "device_memory_held_before_gb": held_gb,
            "seconds": seconds, "systolic_mac_launches": launches,
            "systolic_mac_launches_per_step": launches / steps,
+           "recurrence_launches": {k: v for k, v in kernel_launches.items()
+                                   if k != "systolic_mac"},
+           "recurrence_backward_launches": backward_launches,
            "backend_summary": summary}
     if not all(math.isfinite(x) for x in res.losses):
         fail(f"train {backend}: losses {res.losses}")
     if backend != "ideal":
-        gemms = 13 * cfg.n_layers + 1
         if launches != steps * gemms or summary["calls"] != launches:
             fail(f"train {backend}: {launches} systolic_mac launches and "
                  f"{summary['calls']} GEMM calls over {steps} steps; "
@@ -4603,10 +4832,14 @@ def train_run(torch, cfg, mods, tmods, counters, backend, opt_cfg, steps):
             kernels_per_step=sum(r["calls"] for r in rows),
             systolic_mac_device_ms_per_step=sum(r["ms"] for r in b1),
             systolic_mac_launches_profiled=sum(r["calls"] for r in b1),
+            recurrence_device_ms_per_step={
+                r["kernel"]: r["ms"] for r in rows
+                if r["kernel"].startswith(("wkv6_", "ssd_"))},
             top_kernels=rows[:8])
     else:
         row.update(device_ms_per_step=None,
-                   systolic_mac_device_ms_per_step=None)
+                   systolic_mac_device_ms_per_step=None,
+                   recurrence_device_ms_per_step=None)
     del res, step_fn, batch
     release(torch)
     return row
@@ -4696,18 +4929,43 @@ def smoke_trainer(torch, mods, tmods):
                             "bit_equal": not differ,
                             "leaves_that_differ": differ})
     out["repeat_step_bits"] = repeats
-    for arch in ("rwkv6-1.6b", "zamba2-2.7b"):
+    for arch in SSM_ARCHS:
+        cfg = mods.get_config(arch, smoke=True)
+        with mods.use_backend(mods.get_backend("reference")):
+            res = tmods.train(cfg, shape, tmods.TrainConfig(
+                steps=1, log_every=0, checkpoint_every=0))
+        if not (res.steps_done == 1 and all(math.isfinite(x)
+                                            for x in res.losses)):
+            fail(f"{arch} smoke training: {res.steps_done} steps, losses "
+                 f"{res.losses}")
+        out.setdefault("ssm_one_step", {})[arch] = res.losses
         try:
-            tmods.train(mods.get_config(arch, smoke=True), shape,
+            tmods.train(dataclasses.replace(cfg, ssm_bf16=True), shape,
                         tmods.TrainConfig(steps=1, log_every=0))
         except NotImplementedError as err:
-            if "A19" not in str(err):
-                fail(f"{arch} training refused without naming A19: {err}")
-            out.setdefault("refused", {})[arch] = str(err)
+            if "A20" not in str(err):
+                fail(f"{arch} ssm_bf16 training refused without naming A20: "
+                     f"{err}")
+            out.setdefault("bf16_refused", {})[arch] = str(err)
         else:
-            fail(f"{arch} smoke training ran: it needs backward passes of "
-                 f"its recurrences (A19)")
+            fail(f"{arch} ssm_bf16 smoke training ran: it needs a bf16 "
+                 f"backward kernel (A20)")
     return out
+
+
+def train_modules():
+    """The trainer's modules the train phases drive."""
+    from repro_torch import optim as optim_mod
+    from repro_torch.checkpoint.manager import _flatten_with_names
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import HeartbeatMonitor
+    from repro_torch.train import TrainConfig, make_train_step, train
+    return types.SimpleNamespace(
+        optim=optim_mod, adamw=adamw, DataConfig=DataConfig,
+        SyntheticDataset=SyntheticDataset, HeartbeatMonitor=HeartbeatMonitor,
+        TrainConfig=TrainConfig, make_train_step=make_train_step,
+        train=train, flatten=_flatten_with_names)
 
 
 def train_phase(torch, cfg, mods, counters):
@@ -4717,17 +4975,8 @@ def train_phase(torch, cfg, mods, counters):
     seeded state under ``ideal`` (step 0's loss within TOL_TRAIN_LOSS, its
     global gradient norm within TOL_GNORM), TRAIN_INT8_STEPS with int8
     moments; then :func:`smoke_trainer`."""
-    from repro_torch import optim as optim_mod
-    from repro_torch.checkpoint.manager import _flatten_with_names
-    from repro_torch.data import DataConfig, SyntheticDataset
-    from repro_torch.optim import adamw
-    from repro_torch.runtime import HeartbeatMonitor
-    from repro_torch.train import TrainConfig, make_train_step, train
-    tmods = types.SimpleNamespace(
-        optim=optim_mod, adamw=adamw, DataConfig=DataConfig,
-        SyntheticDataset=SyntheticDataset, HeartbeatMonitor=HeartbeatMonitor,
-        TrainConfig=TrainConfig, make_train_step=make_train_step,
-        train=train, flatten=_flatten_with_names)
+    tmods = train_modules()
+    optim_mod = tmods.optim
     specs = mods.model_api(cfg).param_specs()
     runs = [train_run(torch, cfg, mods, tmods, counters, backend,
                       optim_mod.AdamWConfig(), TRAIN_STEPS)
@@ -4756,6 +5005,90 @@ def train_phase(torch, cfg, mods, counters):
             "step0_grad_norm_gap_rel": norm_gap,
             "step0_grad_norm_gap_limit": TOL_GNORM,
             "smoke": smoke_trainer(torch, mods, tmods)}
+
+
+def ssm_train_gemms(cfg):
+    """B1 launches of one rwkv6 / zamba2 train step under ``reference``
+    (``remat="full"``): every forward GEMM, and again in the backward pass
+    all of rwkv6's (10 a layer) and all of zamba2's but each Mamba2
+    layer's ``out_proj`` and each shared-block application's MLP ``w2``
+    (``models/ssm.py``, as the reference's compiled step), plus the
+    logits once."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return 2 * 10 * L + 1
+    apps = L // cfg.shared_attn_period
+    block = 1 + 4 + (3 if cfg.act == "swiglu" else 2)   # down, attn, MLP
+    return 3 * L + apps * (2 * block - 1) + 1
+
+
+def train_ssm(torch, mods, counters):
+    """rwkv6-1.6b and zamba2-2.7b at published width and depth through
+    ``repro_torch.train.train``: TRAIN_STEPS steps of TRAIN_BATCH under
+    ``reference`` (B1 on every forward GEMM, :func:`ssm_train_gemms` a
+    step, 0 flags), the same seeded steps under ``ideal`` (step 0's loss
+    within TOL_TRAIN_LOSS, its global gradient norm within TOL_GNORM, as
+    :func:`train_phase` holds phi4).  Each run: seconds a step, tokens/s,
+    peak memory, the recurrence's forward launches a step (twice a layer:
+    the forward, and again in the backward pass under ``remat="full"``)
+    and backward launches (once a layer), and one profiled step's device
+    time by kernel."""
+    tmods = train_modules()
+    out = {}
+    for arch in SSM_ARCHS:
+        t0 = time.monotonic()
+        cfg = mods.get_config(arch)
+        gemms = ssm_train_gemms(cfg)
+        kernel = "wkv6" if cfg.family == "ssm" else "ssd_chunk"
+        runs = {}
+        for backend in ("reference", "ideal"):
+            row = train_run(torch, cfg, mods, tmods, counters, backend,
+                            tmods.optim.AdamWConfig(), TRAIN_STEPS,
+                            gemms=gemms)
+            fwd = row["recurrence_launches"]
+            bwd = row["recurrence_backward_launches"]
+            want_fwd = {k: (2 * cfg.n_layers * TRAIN_STEPS if k == kernel
+                            else 0) for k in fwd}
+            want_bwd = {k: (cfg.n_layers * TRAIN_STEPS if k == kernel
+                            else 0) for k in bwd}
+            if fwd != want_fwd or bwd != want_bwd:
+                fail(f"train_ssm {arch} {backend}: forward launches {fwd}, "
+                     f"backward {bwd}; expected {want_fwd}, {want_bwd}")
+            row.update({f"{kernel}_launches_per_step": fwd[kernel]
+                        / TRAIN_STEPS,
+                        f"{kernel}_backward_launches_per_step": bwd[kernel]
+                        / TRAIN_STEPS})
+            runs[backend] = row
+        ref, ideal = runs["reference"], runs["ideal"]
+        loss_gap = abs(ref["losses"][0] - ideal["losses"][0]) / abs(
+            ideal["losses"][0])
+        norm_gap = abs(ref["global_grad_norm"][0]
+                       - ideal["global_grad_norm"][0]
+                       ) / ideal["global_grad_norm"][0]
+        if not loss_gap <= TOL_TRAIN_LOSS:
+            fail(f"train_ssm {arch}: step 0's loss {ref['losses'][0]} on "
+                 f"reference, {ideal['losses'][0]} on ideal (limit "
+                 f"{TOL_TRAIN_LOSS})")
+        if not norm_gap <= TOL_GNORM:
+            fail(f"train_ssm {arch}: step 0's gradient norm "
+                 f"{ref['global_grad_norm'][0]} on reference, "
+                 f"{ideal['global_grad_norm'][0]} on ideal (limit "
+                 f"{TOL_GNORM})")
+        out[arch] = {
+            "arch": arch, "batch": list(TRAIN_BATCH), "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "cut": None, "remat": cfg.remat,
+            "parameters": mods.param_count(mods.model_api(cfg).param_specs()),
+            "gemms_per_step": gemms, "reference": ref, "ideal": ideal,
+            "step0_loss_gap_rel": loss_gap,
+            "step0_loss_gap_limit": TOL_TRAIN_LOSS,
+            "step0_grad_norm_gap_rel": norm_gap,
+            "step0_grad_norm_gap_limit": TOL_GNORM,
+            "seconds": time.monotonic() - t0}
+        print(f"train_ssm {arch}: {out[arch]['seconds']:.1f} s, step "
+              f"{ref['step_s_mean_after_first']:.3f} s on reference, peak "
+              f"{ref['peak_device_memory_gb']:.1f} GB", flush=True)
+        release(torch)
+    return out
 
 
 def tree_digest(torch, tree, flatten):
@@ -5140,8 +5473,11 @@ def main() -> int:
                                                   systolic_mac_plain)
     from repro_torch.kernels import abft as abft_mod
     from repro_torch.kernels.tuning import select_blocks
-    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk,
+                                               ssd_chunk_backward_plain,
+                                               ssd_chunk_plain)
+    from repro_torch.kernels.wkv6 import (wkv6, wkv6_backward_plain,
+                                          wkv6_plain)
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import layers as layers_mod
     from repro_torch.models import model_api, param_count
@@ -5226,6 +5562,11 @@ def main() -> int:
     ragged_rows = check_ragged(torch, systolic_mac, systolic_mac_plain)
     wkv6_rows = check_wkv6(torch, wkv6, wkv6_plain)
     ssd_rows = check_ssd(torch, ssd_chunk, ssd_chunk_plain)
+    t0 = time.monotonic()
+    wkv6_bwd_rows = check_wkv6_bwd(torch, wkv6, wkv6_backward_plain)
+    ssd_bwd_rows = check_ssd_bwd(torch, ssd_chunk, ssd_chunk_backward_plain)
+    print(f"backward kernel checks: {time.monotonic() - t0:.1f} s",
+          flush=True)
     razor_rows = check_razor(
         torch, cfg, (razor_matmul, razor_matmul_plain, quant_rows), ref,
         select_blocks)
@@ -5236,7 +5577,9 @@ def main() -> int:
                            "systolic_mac_ragged": ragged_rows,
                            "razor_matmul": razor_rows,
                            "precision_island": island_rows,
-                           "wkv6": wkv6_rows, "ssd_chunk": ssd_rows})
+                           "wkv6": wkv6_rows, "ssd_chunk": ssd_rows,
+                           "wkv6_bwd": wkv6_bwd_rows,
+                           "ssd_chunk_bwd": ssd_bwd_rows})
 
     host = host_cost(torch, systolic_mac, backend_mod, largest_common_block)
     emit("host_cost", host)
@@ -5393,6 +5736,14 @@ def main() -> int:
     emit("train", trained)
     release(torch)
 
+    # ---- training the state-space models at published width and depth:
+    # the recurrences' backward kernels on the main path
+    t0 = time.monotonic()
+    ssm_trained = train_ssm(torch, mods, counters)
+    ssm_trained["seconds"] = time.monotonic() - t0
+    emit("train_ssm", ssm_trained)
+    print(f"train_ssm: {ssm_trained['seconds']:.1f} s", flush=True)
+
     # ---- the device mesh: one rank, the train and decode steps on it
     # bit-equal to no mesh; the dry run on a fake group of 256
     t0 = time.monotonic()
@@ -5537,6 +5888,54 @@ def main() -> int:
                              "by torch.profiler (ms above: back to back by "
                              "CUDA events)")
     kernels.append(entry)
+    for name, source, fwd, rows, arch, shape_case in (
+            ("wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+             "src/repro/kernels/wkv6.py:28", wkv6_bwd_rows, "rwkv6-1.6b",
+             "rwkv6"),
+            ("ssd_chunk_bwd", "src/repro_torch/csrc/ssd_chunk_bwd.cu",
+             "src/repro/kernels/ssd_chunk.py:26", ssd_bwd_rows,
+             "zamba2-2.7b", "zamba2")):
+        kernel = name[:-4]
+        run = ssm_trained[arch]["reference"]
+        layers = ssm_trained[arch]["layers"]
+        train_row = next(r for r in rows if r["case"] == f"{shape_case} "
+                         f"train" and not r["state_grad"])
+        loss_row = next(r for r in rows if r["case"] == f"{shape_case} loss"
+                        and not r["state_grad"])
+        worst = max(rows, key=lambda r: r["max_err"] / r["max_err_limit"])
+        prof = run.get("recurrence_device_ms_per_step") or {}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"none: a kernel of the port, not a TPU kernel (the "
+                        f"gradient of {fwd}'s function; the JAX package "
+                        f"takes it by jax.grad of its jnp chunked form)",
+            "launches": run["recurrence_backward_launches"][kernel],
+            "launches_of": f"train_ssm: {TRAIN_STEPS} {arch} train steps "
+                           f"on reference",
+            "max_abs_err": worst["max_err"],
+            "max_err_limit": worst["max_err_limit"],
+            "max_err_of": f"{worst['worst_grad']}, "
+                          f"{worst['case']} (b, s) = "
+                          f"{(worst['b'], worst['s'])}, state gradient "
+                          f"{'random' if worst['state_grad'] else 'zero'}",
+            "timed": f"the {layers} launches of one {arch} train step at "
+                     f"(b, s) = {tuple(TRAIN_BATCH)}, each timed alone as "
+                     f"a backward pass of a kept graph",
+            "ms": layers * train_row["kernel_ms"],
+            "plain_ms": layers * train_row["plain_ms"],
+            "bound_ms": layers * train_row["bound_ms"],
+            "bound_by": train_row["bound_by"],
+            "library_ms": None,
+            "library": f"none: no single PyTorch call computes {name}",
+            "device_ms": (None if train_row["kernel_device_ms"] is None
+                          else layers * train_row["kernel_device_ms"]),
+            "device_ms_in_the_step": (
+                sum(v for k, v in prof.items() if "_bwd_" in k
+                    and k.startswith(kernel[:4])) or None),
+            "loss_shape": {k: loss_row[k] for k in (
+                "b", "s", "h", "p", "chunk", "kernel_ms", "kernel_device_ms",
+                "kernel_device_ms_by_pass", "plain_ms", "bound_ms",
+                "bound_by")}})
     step_sum = lambda key: sum(  # noqa: E731
         r[key] * r["launches_per_model_step"] for r in abft_timed)
     dev_rows = [r["device_ms"] for r in abft_timed]

@@ -645,7 +645,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
            long long v_sh, long long w_sb, long long w_ss, long long w_sh,
            const void* u, const void* s0, void* y, void* s_out, void* ws,
            long long ws_floats, int B, int S, int H, int P, int chunk,
-           void* stream) {
+           void* stream, bool passes = false) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > PMAX || chunk <= 0 ||
       S % chunk != 0 || (long long)B * H > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -665,7 +665,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   };
   const bool state_vec = aligned16(s0) && aligned16(s_out);
 
-  if (chunk == 1) {
+  if (chunk == 1 && !passes) {
     const dim3 grid(unsigned(B * H), unsigned((P + ONE_COLS - 1) / ONE_COLS));
     if (P % 4 == 0 && state_vec)
       wkv6_token_kernel<true><<<grid, THREADS, 0, st>>>(
@@ -759,4 +759,19 @@ extern "C" int wkv6_bf16_launch(
                                v_sb, v_ss, v_sh, w_sb, w_ss, w_sh, u, s0, y,
                                s_out, ws, ws_floats, B, S, H, P, chunk,
                                stream);
+}
+
+// wkv6_launch that takes the three passes at any chunk, chunk 1 too, with
+// the workspace of chunk > 1 (the forward under autograd: the backward pass,
+// wkv6_bwd.cu, reads each chunk's incoming state, lw and the decays there)
+extern "C" int wkv6_passes_launch(
+    const void* r, const void* k, const void* v, const void* w,
+    long long r_sb, long long r_ss, long long r_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long w_sb, long long w_ss, long long w_sh,
+    const void* u, const void* s0, void* y, void* s_out, void* ws,
+    long long ws_floats, int B, int S, int H, int P, int chunk, void* stream) {
+  return launch<float>(r, k, v, w, r_sb, r_ss, r_sh, k_sb, k_ss, k_sh, v_sb,
+                       v_ss, v_sh, w_sb, w_ss, w_sh, u, s0, y, s_out, ws,
+                       ws_floats, B, S, H, P, chunk, stream, true);
 }

@@ -1,0 +1,666 @@
+// The gradient of wkv6 (wkv6.cu) for NVIDIA Hopper (sm_90a): a kernel of
+// the port, not a TPU kernel (the JAX package differentiates its jnp chunked
+// form, src/repro/models/ssm.py::wkv6_chunked, with jax.grad).  Its plain
+// version is kernels/wkv6.py::wkv6_backward_plain, which repeats these passes.
+//
+// The forward (per chunk; t, s rows of the chunk, p key and q value
+// channels):
+//   lw = cumsum(w) over the chunk, lw_prev = lw shifted one row, L = lw[last],
+//   m = L / 2, er = exp(clip(lw_prev - m, +-60)), ek = exp(clip(m - lw, +-60)),
+//   ers = exp(clip(lw_prev, -60, 0)), tail = exp(clip(L - lw, +-60)),
+//   dec = exp(clip(L, -60, 0)), rr = r er, kk = k ek, rs = r ers, kt = k tail,
+//   A = tril_-1(rr kk^T), y = A v + (sum_p r u k) v + rs S_in,
+//   S_out = diag(dec) S_in + kt^T v.
+// Given dy and the final state's gradient:
+//   * state pass (wkv6_bwd_state_kernel), one block per (b * h, chunk): the
+//     chunk's local state gradient rs^T dy into a (b, h, chunk, p, p) scratch;
+//   * carry pass (wkv6_bwd_carry_kernel), one block per (b * h, slice of the
+//     p * p state): walks the chunks from the last, dS_out(c) = dS; dS =
+//     diag(dec_c) dS + rs_c^T dy_c, writes dS_out(c) over the local term and
+//     dS into dstate (dS_out of the last chunk: the final state's gradient,
+//     or zero);
+//   * row pass (wkv6_bwd_row_kernel), one block per (b * h, chunk, 64-row
+//     tile): drs = dy S_in^T, and over the s tiles up to the row tile dA =
+//     tril_-1(dy v^T), drr = dA kk; then dr = er drr + ers drs + (dy . v) u k,
+//     the gradient reaching lw_prev through er and ers, and the tile's sums
+//     over its rows of d/dm and of the u term (per-block partials);
+//   * column pass (wkv6_bwd_col_kernel), one block per (b * h, chunk, 64-row
+//     tile as the s rows): dkt = v dS_out^T, dv = kt dS_out, and over the t
+//     tiles from the row tile on dv += A^T dy, dkk = dA^T rr; then dv +=
+//     (sum_p r u k) dy, dk = ek dkk + tail dkt + (dy . v) u r, the gradient
+//     reaching lw through ek and tail (written into dw, read back by the next
+//     pass), and the tile's sums of d/dm and d/dL;
+//   * lw pass (wkv6_bwd_dw_kernel), one block per (b * h, chunk), a thread a
+//     key channel: d/dL from the decay (ddec = sum_q dS_out S_in), m and tail,
+//     the row tiles' partials added in tile order; d/dlw of every row; its
+//     reverse cumsum over the chunk's rows is dw (in place);
+//   * u pass (wkv6_bwd_du_kernel), one block per head: du, the row pass's
+//     partials added in (batch row, chunk, tile) order.
+// Each exp(clip(z)) passes its gradient where lo <= z <= hi (torch.clamp's
+// rule) and none where the clamp binds.  The products run on the TF32 tensor
+// cores with a 3xTF32 split (tf32_tiles.cuh), as the forward's do.  No float
+// atomics: every sum has one order, so a repeated call gives the same bits.
+//
+// S_in, lw and the decays are the forward's (wkv6_passes_launch keeps its
+// workspace for the backward pass): the forward runs inside the layer's
+// recomputation under torch.utils.checkpoint right before the backward pass,
+// so keeping them costs the scratch of one layer, and the backward pass runs
+// no cumsum and no forward carry of its own.
+//
+// A simple kernel: tiles are loaded with plain loads, one head a block, every
+// 64 x 64 tile in shared memory at one row stride.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_tiles.cuh"
+
+namespace {
+
+using namespace tf32_tiles;
+
+constexpr int PMAX = 64;          // largest head size
+constexpr int TILE = 64;          // rows of a chunk tile
+constexpr int THREADS = 256;      // 8 warps (warp_tile: a warp's share)
+constexpr int CARRY_ELEMS = 1024; // state elements of a carry block (4 a thread)
+constexpr int LD = PMAX + 4;      // row stride of every shared tile
+constexpr int TILE_FLOATS = TILE * LD;
+constexpr float EXP_CLAMP = 60.0f;
+constexpr int ROW_TILES = 7;      // shared tiles of the row pass
+constexpr int COL_TILES = 9;      // shared tiles of the column pass
+
+// strides, in elements, of a (b, s, h, p) tensor whose p axis is contiguous
+struct Seq {
+  long long b, s, h;
+};
+
+// a (TILE x PMAX) tile, rows >= rows and columns >= cols zero
+template <class At>
+__device__ __forceinline__ void load_tile(float* dst, At at, int rows,
+                                          int cols) {
+  for (int e = threadIdx.x; e < TILE * PMAX; e += THREADS) {
+    const int i = e / PMAX, q = e % PMAX;
+    dst[i * LD + q] = (i < rows && q < cols) ? *at(i, q) : 0.f;
+  }
+}
+
+// acc = A (m, k) B (k, j) over k < k_end (a multiple of 8), 3xTF32
+template <class FA, class FB>
+__device__ __forceinline__ void mm(float (&acc)[2][2][4], FA a, FB b,
+                                   int k_end) {
+  product_3xtf32(acc, splitting(a), splitting(b), warp_tile(), k_end, k_end);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][2][4]) {
+#pragma unroll
+  for (int si = 0; si < 2; ++si)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[si][jj][r] = 0.f;
+}
+
+// a warp's share of acc into a shared tile
+__device__ __forceinline__ void to_shared(const float (&acc)[2][2][4],
+                                          float* dst) {
+  for_each(warp_tile(), [&](int i, int j, int si, int jj, int r) {
+    dst[i * LD + j] = acc[si][jj][r];
+  });
+}
+
+__device__ __forceinline__ int round8(int n) { return (n + 7) & ~7; }
+
+// out[row] = sum over q < n of f(row, q), for the TILE rows, four threads a
+// row in one order
+template <class F>
+__device__ __forceinline__ void row_sums(float* out, int n, F f) {
+  const int row = threadIdx.x >> 2, part = threadIdx.x & 3;
+  float d = 0.f;
+  for (int q = part; q < n; q += 4) d = __fadd_rn(d, f(row, q));
+  d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, 1));
+  d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, 2));
+  if (part == 0) out[row] = d;
+}
+
+// the clamped factor exp(clip(z, lo, hi)) and whether its gradient passes
+__device__ __forceinline__ float cexp(float z, float lo, float hi,
+                                      bool& pass) {
+  pass = z >= lo && z <= hi;
+  return expf(clip(z, lo, hi));
+}
+
+// Pass 1, grid (b * h, chunks): G_c = rs^T dy into dS's slot
+__global__ void __launch_bounds__(THREADS)
+wkv6_bwd_state_kernel(const float* __restrict__ r, Seq sr,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ lw, float* __restrict__ dS,
+                      int H, int S, int P, int ch) {
+  __shared__ __align__(16) float Rs[TILE_FLOATS];   // rs   [t][p]
+  __shared__ __align__(16) float Dy[TILE_FLOATS];   // dy   [t][q]
+  const int nc = S / ch;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int c = blockIdx.y, c0 = c * ch;
+  const int n_tiles = (ch + TILE - 1) / TILE;
+  const float* rb = r + b * sr.b + h * sr.h;
+  const long long ss = (long long)H * P;             // dense row stride
+  const float* lwb = lw + (long long)b * S * ss + (long long)h * P;
+  const float* dyb = dy + (long long)b * S * ss + (long long)h * P;
+  float acc[2][2][4];
+  zero(acc);
+  for (int rt = 0; rt < n_tiles; ++rt) {
+    const int r0 = rt * TILE, rows = min(TILE, ch - r0);
+    if (rt > 0) __syncthreads();
+    for (int e = threadIdx.x; e < TILE * PMAX; e += THREADS) {
+      const int t = e / PMAX, p = e % PMAX;
+      float x = 0.f;
+      if (t < rows && p < P) {
+        const int row = r0 + t;                      // row of the chunk
+        const float lp =
+            row > 0 ? lwb[(long long)(c0 + row - 1) * ss + p] : 0.f;
+        x = __fmul_rn(rb[(c0 + row) * sr.s + p],
+                      expf(clip(lp, -EXP_CLAMP, 0.f)));
+      }
+      Rs[t * LD + p] = x;
+    }
+    load_tile(Dy, [&](int t, int q) {
+      return dyb + (long long)(c0 + r0 + t) * ss + q; }, rows, P);
+    __syncthreads();
+    mm(acc, [&](int p, int t) { return Rs[t * LD + p]; },
+       [&](int t, int q) { return Dy[t * LD + q]; }, round8(rows));
+  }
+  float* out = dS + ((long long)bh * nc + c) * P * P;
+  store_tile(acc, warp_tile(), P, P,
+             [&](int p, int q) { return out + p * P + q; });
+}
+
+// Pass 2, grid (b * h, slices of p * p): the reverse carry
+__global__ void __launch_bounds__(THREADS)
+wkv6_bwd_carry_kernel(const float* __restrict__ dec,
+                      const float* __restrict__ dS_final,
+                      float* __restrict__ dS, float* __restrict__ dstate,
+                      int P, int nc) {
+  constexpr int PER = CARRY_ELEMS / THREADS;
+  const int NP = P * P;
+  const long long bh = blockIdx.x, base = bh * NP;
+  float* slots = dS + base * nc;
+  const float* decb = dec + bh * nc * P;
+  const int e0 = blockIdx.y * CARRY_ELEMS + PER * threadIdx.x;
+  float st[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    st[k] = (dS_final != nullptr && e0 + k < NP) ? dS_final[base + e0 + k]
+                                                 : 0.f;
+  for (int c = nc - 1; c >= 0; --c) {
+    float* slot = slots + (long long)c * NP;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int e = e0 + k;
+      if (e >= NP) continue;
+      const float g = slot[e];
+      slot[e] = st[k];
+      st[k] = __fadd_rn(__fmul_rn(st[k], decb[(long long)c * P + e / P]), g);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    if (e0 + k < NP) dstate[base + e0 + k] = st[k];
+}
+
+// Pass 3, grid (b * h, chunks, row tiles): dr, d/dlw_prev, partials of d/dm
+// and of du
+__global__ void __launch_bounds__(THREADS)
+wkv6_bwd_row_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                    const float* __restrict__ v, Seq sr, Seq sk, Seq sv,
+                    const float* __restrict__ u, const float* __restrict__ dy,
+                    const float* __restrict__ lw,
+                    const float* __restrict__ S_in, float* __restrict__ dr,
+                    float* __restrict__ g, float* __restrict__ dm_part,
+                    float* __restrict__ du_part, int H, int S, int P,
+                    int ch) {
+  extern __shared__ __align__(16) float smem[];
+  float* Dy = smem;                       // dy of the t tile   [t][q]
+  float* Lt = Dy + TILE_FLOATS;           // lw of the t tile   [t][p]
+  float* X1 = Lt + TILE_FLOATS;           // drs, then dz_r     [t][p]
+  float* Sa = X1 + TILE_FLOATS;           // S_in [p][q], then dA [t][s]
+  float* Ks = Sa + TILE_FLOATS;           // k, then kk, of the s tile; drr
+  float* Vs = Ks + TILE_FLOATS;           // v of the s tile    [s][q]
+  float* Ls = Vs + TILE_FLOATS;           // lw of the s tile; the u term
+  __shared__ float lend[PMAX], lw0[PMAX], u_s[PMAX], ddiag[TILE];
+  const int tid = threadIdx.x;
+  const int nc = S / ch, n_tiles = (ch + TILE - 1) / TILE;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int c = blockIdx.y, c0 = c * ch;
+  const int ti = blockIdx.z, t0 = ti * TILE, nt = min(TILE, ch - t0);
+  const long long ss = (long long)H * P;
+  const long long dense = (long long)b * S * ss + (long long)h * P;
+  const float* rb = r + b * sr.b + h * sr.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* lwb = lw + dense;
+  const float* dyb = dy + dense;
+
+  load_tile(Dy, [&](int t, int q) {
+    return dyb + (long long)(c0 + t0 + t) * ss + q; }, nt, P);
+  load_tile(Lt, [&](int t, int p) {
+    return lwb + (long long)(c0 + t0 + t) * ss + p; }, nt, P);
+  const float* Sc = S_in + ((long long)bh * nc + c) * P * P;
+  load_tile(Sa, [&](int p, int q) { return Sc + p * P + q; }, P, P);
+  if (tid < PMAX) {
+    const int p = min(tid, P - 1);
+    lend[tid] = tid < P ? lwb[(long long)(c0 + ch - 1) * ss + p] : 0.f;
+    lw0[tid] = tid < P && t0 > 0
+                   ? lwb[(long long)(c0 + t0 - 1) * ss + p] : 0.f;
+    u_s[tid] = tid < P ? u[h * P + p] : 0.f;
+  }
+  __syncthreads();
+  {                                        // drs = dy S_in^T
+    float acc[2][2][4];
+    zero(acc);
+    mm(acc, [&](int t, int q) { return Dy[t * LD + q]; },
+       [&](int q, int p) { return Sa[p * LD + q]; }, round8(P));
+    to_shared(acc, X1);
+  }
+  float drr[2][2][4];
+  zero(drr);
+  for (int sj = 0; sj <= ti; ++sj) {
+    const int s0 = sj * TILE, ns = min(TILE, ch - s0);
+    __syncthreads();                       // Sa, Ks, Vs, Ls are free
+    load_tile(Ks, [&](int i, int p) { return kb + (c0 + s0 + i) * sk.s + p; },
+              ns, P);
+    load_tile(Vs, [&](int i, int q) { return vb + (c0 + s0 + i) * sv.s + q; },
+              ns, P);
+    load_tile(Ls, [&](int i, int p) {
+      return lwb + (long long)(c0 + s0 + i) * ss + p; }, ns, P);
+    __syncthreads();
+    if (sj == ti)                          // dy . v of the tile's rows
+      row_sums(ddiag, P, [&](int t, int q) {
+        return __fmul_rn(Dy[t * LD + q], Vs[t * LD + q]); });
+    for (int e = tid; e < TILE * PMAX; e += THREADS) {   // kk in place
+      const int i = e / PMAX, p = e % PMAX;
+      if (i < ns && p < P)
+        Ks[i * LD + p] = __fmul_rn(
+            Ks[i * LD + p],
+            expf(clip(__fsub_rn(0.5f * lend[p], Ls[i * LD + p]), -EXP_CLAMP,
+                      EXP_CLAMP)));
+    }
+    {                                      // dA = tril_-1(dy v^T)
+      float acc[2][2][4];
+      zero(acc);
+      mm(acc, [&](int t, int q) { return Dy[t * LD + q]; },
+         [&](int q, int s) { return Vs[s * LD + q]; }, round8(P));
+      for_each(warp_tile(), [&](int t, int s, int si, int jj, int i) {
+        Sa[t * LD + s] =
+            (t < nt && s < ns && s0 + s < t0 + t) ? acc[si][jj][i] : 0.f;
+      });
+    }
+    __syncthreads();
+    mm(drr, [&](int t, int s) { return Sa[t * LD + s]; },
+       [&](int s, int p) { return Ks[s * LD + p]; }, round8(ns));
+  }
+  __syncthreads();
+  to_shared(drr, Ks);
+  __syncthreads();
+  float* drb = dr + dense;
+  float* gb = g + dense;
+  for (int e = tid; e < TILE * PMAX; e += THREADS) {
+    const int t = e / PMAX, p = e % PMAX;
+    float zr = 0.f, ut = 0.f;
+    if (t < nt && p < P) {
+      const int row = c0 + t0 + t;
+      const float lp = t > 0 ? Lt[(t - 1) * LD + p] : lw0[p];
+      bool in_r, in_s;
+      const float er =
+          cexp(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP, EXP_CLAMP, in_r);
+      const float ers = cexp(lp, -EXP_CLAMP, 0.f, in_s);
+      const float rv = rb[row * sr.s + p], kv = kb[row * sk.s + p];
+      const float d_rr = Ks[t * LD + p], d_rs = X1[t * LD + p];
+      const float dd = __fmul_rn(ddiag[t], u_s[p]);
+      drb[(long long)row * ss + p] = __fadd_rn(
+          __fadd_rn(__fmul_rn(er, d_rr), __fmul_rn(ers, d_rs)),
+          __fmul_rn(dd, kv));
+      zr = in_r ? __fmul_rn(__fmul_rn(rv, d_rr), er) : 0.f;
+      const float zs = in_s ? __fmul_rn(__fmul_rn(rv, d_rs), ers) : 0.f;
+      gb[(long long)row * ss + p] = __fadd_rn(zr, zs);
+      ut = __fmul_rn(__fmul_rn(ddiag[t], rv), kv);
+    }
+    X1[t * LD + p] = zr;
+    Ls[t * LD + p] = ut;
+  }
+  __syncthreads();
+  if (tid < P) {                           // the tile's sums, rows in order
+    float zr = 0.f, ut = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      zr = __fadd_rn(zr, X1[t * LD + tid]);
+      ut = __fadd_rn(ut, Ls[t * LD + tid]);
+    }
+    const long long slot = (((long long)bh * nc + c) * n_tiles + ti) * P + tid;
+    dm_part[slot] = zr;
+    du_part[slot] = ut;
+  }
+}
+
+// Pass 4, grid (b * h, chunks, row tiles as the s rows): dv, dk, d/dlw
+// through ek and tail (into dw), partials of d/dm and d/dL
+__global__ void __launch_bounds__(THREADS)
+wkv6_bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                    const float* __restrict__ v, Seq sr, Seq sk, Seq sv,
+                    const float* __restrict__ u, const float* __restrict__ dy,
+                    const float* __restrict__ lw,
+                    const float* __restrict__ dS, float* __restrict__ dk,
+                    float* __restrict__ dv, float* __restrict__ dw,
+                    float* __restrict__ dmk_part, float* __restrict__ dL_part,
+                    int H, int S, int P, int ch) {
+  extern __shared__ __align__(16) float smem[];
+  float* Kk = smem;                       // k, then kk, of the s tile [s][p]
+  float* Vt = Kk + TILE_FLOATS;           // v of the s tile          [s][q]
+  float* Lt = Vt + TILE_FLOATS;           // lw of the s tile         [s][p]
+  float* Sa = Lt + TILE_FLOATS;           // dS_out [p][q], then A [t][s]; dkk
+  float* X2 = Sa + TILE_FLOATS;           // dkt, then dz_k           [s][p]
+  float* Rr = X2 + TILE_FLOATS;           // kt [s][p], then rr of a t tile
+  float* Dy = Rr + TILE_FLOATS;           // dy of the t tile         [t][q]
+  float* Lw = Dy + TILE_FLOATS;           // lw of the t tile         [t][p]
+  float* Sd = Lw + TILE_FLOATS;           // dA [t][s]; then dz_t     [s][p]
+  __shared__ float lend[PMAX], lw0[PMAX], u_s[PMAX], ddiag[TILE], diag[TILE];
+  const int tid = threadIdx.x;
+  const int nc = S / ch, n_tiles = (ch + TILE - 1) / TILE;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int c = blockIdx.y, c0 = c * ch;
+  const int ti = blockIdx.z, s0 = ti * TILE, ns = min(TILE, ch - s0);
+  const long long ss = (long long)H * P;
+  const long long dense = (long long)b * S * ss + (long long)h * P;
+  const float* rb = r + b * sr.b + h * sr.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* lwb = lw + dense;
+  const float* dyb = dy + dense;
+
+  load_tile(Kk, [&](int i, int p) { return kb + (c0 + s0 + i) * sk.s + p; },
+            ns, P);
+  load_tile(Vt, [&](int i, int q) { return vb + (c0 + s0 + i) * sv.s + q; },
+            ns, P);
+  load_tile(Lt, [&](int i, int p) {
+    return lwb + (long long)(c0 + s0 + i) * ss + p; }, ns, P);
+  const float* dSo = dS + ((long long)bh * nc + c) * P * P;
+  load_tile(Sa, [&](int p, int q) { return dSo + p * P + q; }, P, P);
+  if (tid < PMAX) {
+    const int p = min(tid, P - 1);
+    lend[tid] = tid < P ? lwb[(long long)(c0 + ch - 1) * ss + p] : 0.f;
+    u_s[tid] = tid < P ? u[h * P + p] : 0.f;
+  }
+  __syncthreads();
+  for (int e = tid; e < TILE * PMAX; e += THREADS) {     // kt = k tail
+    const int i = e / PMAX, p = e % PMAX;
+    Rr[i * LD + p] =
+        (i < ns && p < P)
+            ? __fmul_rn(Kk[i * LD + p],
+                        expf(clip(__fsub_rn(lend[p], Lt[i * LD + p]),
+                                  -EXP_CLAMP, EXP_CLAMP)))
+            : 0.f;
+  }
+  {                                        // dkt = v dS_out^T
+    float acc[2][2][4];
+    zero(acc);
+    mm(acc, [&](int s, int q) { return Vt[s * LD + q]; },
+       [&](int q, int p) { return Sa[p * LD + q]; }, round8(P));
+    to_shared(acc, X2);
+  }
+  __syncthreads();
+  float dva[2][2][4], dkk[2][2][4];        // dv = kt dS_out + ...
+  zero(dva);
+  zero(dkk);
+  mm(dva, [&](int s, int p) { return Rr[s * LD + p]; },
+     [&](int p, int q) { return Sa[p * LD + q]; }, round8(P));
+  for (int e = tid; e < TILE * PMAX; e += THREADS) {     // kk in place
+    const int i = e / PMAX, p = e % PMAX;
+    if (i < ns && p < P)
+      Kk[i * LD + p] = __fmul_rn(
+          Kk[i * LD + p],
+          expf(clip(__fsub_rn(0.5f * lend[p], Lt[i * LD + p]), -EXP_CLAMP,
+                    EXP_CLAMP)));
+  }
+  for (int tj = ti; tj < n_tiles; ++tj) {
+    const int t0 = tj * TILE, nt = min(TILE, ch - t0);
+    __syncthreads();                       // Rr, Dy, Lw, Sa, Sd are free
+    load_tile(Rr, [&](int t, int p) { return rb + (c0 + t0 + t) * sr.s + p; },
+              nt, P);
+    load_tile(Dy, [&](int t, int q) {
+      return dyb + (long long)(c0 + t0 + t) * ss + q; }, nt, P);
+    load_tile(Lw, [&](int t, int p) {
+      return lwb + (long long)(c0 + t0 + t) * ss + p; }, nt, P);
+    if (tid < PMAX)
+      lw0[tid] = tid < P && t0 > 0
+                     ? lwb[(long long)(c0 + t0 - 1) * ss + tid] : 0.f;
+    __syncthreads();
+    if (tj == ti) {                        // the s rows' dy . v and r u k
+      row_sums(ddiag, P, [&](int s, int q) {
+        return __fmul_rn(Dy[s * LD + q], Vt[s * LD + q]); });
+      row_sums(diag, P, [&](int s, int p) {
+        return s < ns ? __fmul_rn(__fmul_rn(Rr[s * LD + p], u_s[p]),
+                                  kb[(c0 + s0 + s) * sk.s + p])
+                      : 0.f; });
+      __syncthreads();
+    }
+    for (int e = tid; e < TILE * PMAX; e += THREADS) {   // rr in place
+      const int t = e / PMAX, p = e % PMAX;
+      if (t < nt && p < P) {
+        const float lp = t > 0 ? Lw[(t - 1) * LD + p] : lw0[p];
+        Rr[t * LD + p] = __fmul_rn(
+            Rr[t * LD + p],
+            expf(clip(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP, EXP_CLAMP)));
+      }
+    }
+    __syncthreads();
+    {                                      // A and dA of (t tile, s tile)
+      float a[2][2][4], da[2][2][4];
+      zero(a);
+      zero(da);
+      mm(a, [&](int t, int p) { return Rr[t * LD + p]; },
+         [&](int p, int s) { return Kk[s * LD + p]; }, round8(P));
+      mm(da, [&](int t, int q) { return Dy[t * LD + q]; },
+         [&](int q, int s) { return Vt[s * LD + q]; }, round8(P));
+      for_each(warp_tile(), [&](int t, int s, int si, int jj, int i) {
+        const bool keep = t < nt && s < ns && s0 + s < t0 + t;
+        Sa[t * LD + s] = keep ? a[si][jj][i] : 0.f;
+        Sd[t * LD + s] = keep ? da[si][jj][i] : 0.f;
+      });
+    }
+    __syncthreads();
+    mm(dva, [&](int s, int t) { return Sa[t * LD + s]; },
+       [&](int t, int q) { return Dy[t * LD + q]; }, round8(nt));
+    mm(dkk, [&](int s, int t) { return Sd[t * LD + s]; },
+       [&](int t, int p) { return Rr[t * LD + p]; }, round8(nt));
+  }
+  __syncthreads();
+  float* dvb = dv + dense;
+  for_each(warp_tile(), [&](int s, int q, int si, int jj, int i) {
+    if (s < ns && q < P) {
+      const long long row = c0 + s0 + s;
+      dvb[row * ss + q] =
+          __fadd_rn(dva[si][jj][i], __fmul_rn(diag[s], dyb[row * ss + q]));
+    }
+  });
+  to_shared(dkk, Sa);
+  __syncthreads();
+  float* dkb = dk + dense;
+  float* dwb = dw + dense;
+  for (int e = tid; e < TILE * PMAX; e += THREADS) {
+    const int s = e / PMAX, p = e % PMAX;
+    float zk = 0.f, zt = 0.f;
+    if (s < ns && p < P) {
+      const int row = c0 + s0 + s;
+      const float l = Lt[s * LD + p];
+      bool in_k, in_t;
+      const float ek =
+          cexp(__fsub_rn(0.5f * lend[p], l), -EXP_CLAMP, EXP_CLAMP, in_k);
+      const float tail = cexp(__fsub_rn(lend[p], l), -EXP_CLAMP, EXP_CLAMP,
+                              in_t);
+      const float kv = kb[row * sk.s + p], rv = rb[row * sr.s + p];
+      const float d_kk = Sa[s * LD + p], d_kt = X2[s * LD + p];
+      dkb[(long long)row * ss + p] = __fadd_rn(
+          __fadd_rn(__fmul_rn(ek, d_kk), __fmul_rn(tail, d_kt)),
+          __fmul_rn(__fmul_rn(ddiag[s], u_s[p]), rv));
+      zk = in_k ? __fmul_rn(__fmul_rn(kv, d_kk), ek) : 0.f;
+      zt = in_t ? __fmul_rn(__fmul_rn(kv, d_kt), tail) : 0.f;
+      dwb[(long long)row * ss + p] = __fsub_rn(-zk, zt);
+    }
+    X2[s * LD + p] = zk;
+    Sd[s * LD + p] = zt;
+  }
+  __syncthreads();
+  if (tid < P) {                           // the tile's sums, rows in order
+    float zk = 0.f, zt = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      zk = __fadd_rn(zk, X2[s * LD + tid]);
+      zt = __fadd_rn(zt, Sd[s * LD + tid]);
+    }
+    const long long slot = (((long long)bh * nc + c) * n_tiles + ti) * P + tid;
+    dmk_part[slot] = zk;
+    dL_part[slot] = zt;
+  }
+}
+
+// Pass 5, grid (b * h, chunks), a thread a key channel: d/dlw and its reverse
+// cumsum over the chunk's rows into dw (which holds the column pass's part)
+__global__ void __launch_bounds__(PMAX)
+wkv6_bwd_dw_kernel(const float* __restrict__ lw, const float* __restrict__ S_in,
+                   const float* __restrict__ dS, const float* __restrict__ g,
+                   const float* __restrict__ dmr_part,
+                   const float* __restrict__ dmk_part,
+                   const float* __restrict__ dL_part, float* __restrict__ dw,
+                   int H, int S, int P, int ch) {
+  const int p = threadIdx.x;
+  if (p >= P) return;
+  const int nc = S / ch, n_tiles = (ch + TILE - 1) / TILE;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int c = blockIdx.y, c0 = c * ch;
+  const long long ss = (long long)H * P;
+  const long long dense = (long long)b * S * ss + (long long)h * P + p;
+  const long long slot = (long long)bh * nc + c;
+  const float* si = S_in + slot * P * P + (long long)p * P;
+  const float* so = dS + slot * P * P + (long long)p * P;
+  float ddec = 0.f;
+  for (int q = 0; q < P; ++q) ddec = __fadd_rn(ddec, __fmul_rn(so[q], si[q]));
+  float mk = 0.f, mr = 0.f, lt = 0.f;
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const long long part = (slot * n_tiles + ti) * P + p;
+    mk = __fadd_rn(mk, dmk_part[part]);
+    mr = __fadd_rn(mr, dmr_part[part]);
+    lt = __fadd_rn(lt, dL_part[part]);
+  }
+  const float L = lw[dense + (long long)(c0 + ch - 1) * ss];
+  bool in_d;
+  const float dec = cexp(L, -EXP_CLAMP, 0.f, in_d);
+  const float dL = __fadd_rn(
+      __fadd_rn(in_d ? __fmul_rn(ddec, dec) : 0.f,
+                __fmul_rn(0.5f, __fsub_rn(mk, mr))), lt);
+  float run = 0.f;
+  for (int t = ch - 1; t >= 0; --t) {
+    const long long at = dense + (long long)(c0 + t) * ss;
+    const float up = t == ch - 1 ? dL : g[at + ss];
+    run = __fadd_rn(run, __fadd_rn(dw[at], up));
+    dw[at] = run;
+  }
+}
+
+// Pass 6, grid (h), a thread a channel: du, the partials in (batch row,
+// chunk, tile) order
+__global__ void __launch_bounds__(PMAX)
+wkv6_bwd_du_kernel(const float* __restrict__ du_part, float* __restrict__ du,
+                   int B, int H, int P, int nc, int n_tiles) {
+  const int p = threadIdx.x, h = blockIdx.x;
+  if (p >= P) return;
+  float acc = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const long long base = ((long long)b * H + h) * nc * n_tiles;
+    for (long long i = 0; i < (long long)nc * n_tiles; ++i)
+      acc = __fadd_rn(acc, du_part[(base + i) * P + p]);
+  }
+  du[h * P + p] = acc;
+}
+
+inline long long round4(long long n) { return (n + 3) & ~3LL; }
+
+}  // namespace
+
+// The gradient of one wkv6 call.  r, k, v: (B, S, H, P) float32 with the P
+// axis contiguous, any other strides (in elements); u: (H, P); dy: (B, S,
+// H, P) contiguous; dS_final: (B, H, P, P) contiguous, or null (zero).  fws:
+// the forward's workspace (wkv6_passes_launch: the chunks' incoming states,
+// lw, the decays).  bws: float32 scratch of bws_floats elements: the state
+// gradients (B, H, S / chunk, P, P), d/dlw_prev (B, S, H, P), then four
+// partials (B * H, S / chunk, row tiles, P), each rounded up to 4 floats.
+// dr, dk, dv, dw: (B, S, H, P), du: (H, P), dstate: (B, H, P, P), all
+// float32 and contiguous.  Returns cudaGetLastError() after the launches (0 =
+// launched).
+extern "C" int wkv6_bwd_launch(
+    const void* r, const void* k, const void* v, long long r_sb,
+    long long r_ss, long long r_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    const void* u, const void* dy, const void* dS_final, const void* fws,
+    void* bws, long long bws_floats, void* dr, void* dk, void* dv, void* dw,
+    void* du, void* dstate, int B, int S, int H, int P, int chunk,
+    void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > PMAX || chunk <= 0 ||
+      S % chunk != 0 || (long long)B * H > 2147483647LL || fws == nullptr ||
+      bws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nc = S / chunk;
+  const long long n_tiles = (chunk + TILE - 1) / TILE;
+  const long long slices = ((long long)P * P + CARRY_ELEMS - 1) / CARRY_ELEMS;
+  const long long n_states = round4((long long)B * H * nc * P * P);
+  const long long n_lw = round4((long long)B * S * H * P);
+  const long long n_part = round4((long long)B * H * nc * n_tiles * P);
+  if (nc > 65535 || n_tiles > 65535 ||
+      bws_floats < n_states + n_lw + 4 * n_part)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Seq sr{r_sb, r_ss, r_sh}, sk{k_sb, k_ss, k_sh}, sv{v_sb, v_ss, v_sh};
+  const float* rf = static_cast<const float*>(r);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* uf = static_cast<const float*>(u);
+  const float* dyf = static_cast<const float*>(dy);
+  const float* S_in = static_cast<const float*>(fws);
+  const float* lw = S_in + n_states;
+  const float* dec = lw + n_lw;
+  float* dS = static_cast<float*>(bws);
+  float* g = dS + n_states;
+  float* dmr = g + n_lw;
+  float* dup = dmr + n_part;
+  float* dmk = dup + n_part;
+  float* dLp = dmk + n_part;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int ROW_SMEM = ROW_TILES * TILE_FLOATS * 4;
+  constexpr int COL_SMEM = COL_TILES * TILE_FLOATS * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_bwd_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ROW_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wkv6_bwd_col_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               COL_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned bh = unsigned(B * H);
+  wkv6_bwd_state_kernel<<<dim3(bh, unsigned(nc)), THREADS, 0, st>>>(
+      rf, sr, dyf, lw, dS, H, S, P, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wkv6_bwd_carry_kernel<<<dim3(bh, unsigned(slices)), THREADS, 0, st>>>(
+      dec, static_cast<const float*>(dS_final), dS,
+      static_cast<float*>(dstate), P, int(nc));
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 tiles(bh, unsigned(nc), unsigned(n_tiles));
+  wkv6_bwd_row_kernel<<<tiles, THREADS, ROW_SMEM, st>>>(
+      rf, kf, vf, sr, sk, sv, uf, dyf, lw, S_in, static_cast<float*>(dr), g,
+      dmr, dup, H, S, P, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wkv6_bwd_col_kernel<<<tiles, THREADS, COL_SMEM, st>>>(
+      rf, kf, vf, sr, sk, sv, uf, dyf, lw, dS, static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(dw), dmk, dLp, H, S, P,
+      chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wkv6_bwd_dw_kernel<<<dim3(bh, unsigned(nc)), PMAX, 0, st>>>(
+      lw, S_in, dS, g, dmr, dmk, dLp, static_cast<float*>(dw), H, S, P, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wkv6_bwd_du_kernel<<<unsigned(H), PMAX, 0, st>>>(
+      dup, static_cast<float*>(du), B, H, P, int(nc), int(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}

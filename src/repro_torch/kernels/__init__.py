@@ -6,8 +6,10 @@ systolic_mac      voltage-island partitioned matmul + Razor flags (the paper)
 razor_matmul      int8 main path + f32 shadow, per-cell mismatch correction
 precision_island  per-cell int4/int8/f32 tiers (voltage ladder analogue)
 quant_rows        the per-row quantization prologue of the two above
-wkv6              chunked RWKV6 WKV recurrence (models/ssm.py, rwkv6)
-ssd_chunk         chunked Mamba2 SSD recurrence (models/ssm.py, zamba2)
+wkv6              chunked RWKV6 WKV recurrence (models/ssm.py, rwkv6), and
+                  its gradient (csrc/wkv6_bwd.cu)
+ssd_chunk         chunked Mamba2 SSD recurrence (models/ssm.py, zamba2),
+                  and its gradient (csrc/ssd_chunk_bwd.cu)
 ops               wrappers + the composed voltage_scaled_matmul flow
 """
 

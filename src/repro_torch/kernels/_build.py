@@ -192,6 +192,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wkv6_launch.restype = ctypes.c_int
     lib.wkv6_bf16_launch.argtypes = lib.wkv6_launch.argtypes
     lib.wkv6_bf16_launch.restype = ctypes.c_int
+    lib.wkv6_passes_launch.argtypes = lib.wkv6_launch.argtypes
+    lib.wkv6_passes_launch.restype = ctypes.c_int
+    lib.wkv6_bwd_launch.argtypes = [
+        p, p, p,                    # r, k, v
+        *[ll] * 9,                  # strides (b, s, h) of r, k, v
+        p, p, p,                    # u, dy, dS_final (or null)
+        p, p, ll,                   # forward's workspace, scratch, its floats
+        p, p, p, p, p, p,           # dr, dk, dv, dw, du, dstate
+        i, i, i, i, i,              # B, S, H, P, chunk
+        p]                          # stream
+    lib.wkv6_bwd_launch.restype = ctypes.c_int
     lib.ssd_chunk_launch.argtypes = [
         p, p, p, p, p, p,           # x, dt, A_log, B, C, D
         p, p, p,                    # state, y, state_out
@@ -202,6 +213,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         i,                          # heads_per_block
         p]                          # stream
     lib.ssd_chunk_launch.restype = ctypes.c_int
+    lib.ssd_chunk_bwd_launch.argtypes = [
+        p, p, p, p, p, p,           # x, dt, A_log, B, C, D
+        p, p,                       # dy, dS_final (or null)
+        p, p,                       # the forward's states and cum
+        p, ll,                      # scratch, its floats
+        p, p, p, p, p, p, p,        # dx, ddt, dA_log, dB, dC, dD, dstate
+        i, i, i, i, i, i,           # B, S, H, P, N, chunk
+        p]                          # stream
+    lib.ssd_chunk_bwd_launch.restype = ctypes.c_int
     lib.abft_checksums_launch.argtypes = [
         p, i, i,                    # x, R, C
         ll, ll, i,                  # strides of x (r, c), dtype

@@ -30,10 +30,21 @@ write and read a (b, h, chunks, n, p) scratch of states (84 MB there).
 :func:`ssd_chunk` launches the kernels for CUDA tensors (or raises) and
 computes :func:`ssd_chunk_plain` for CPU tensors; there is no other route
 between the two.
+
+Its gradient (where autograd records) is the port's own kernel,
+``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_chunk_backward`; the JAX package takes
+it by ``jax.grad`` of the SSD core of its jnp ``mamba2_forward``), on the
+CPU :func:`ssd_chunk_backward_plain`.  The forward's scratch (each chunk's
+incoming state, the cumsum) is kept for the backward pass: a state pass,
+a reverse carry, a row pass (dC) and a column pass (dx, dB) over 64-row
+tiles, one head a block, a cumsum pass (ddt) and two reduce passes (dB and
+dC over the heads, dA_log and dD over the batch and the chunks) in a fixed
+order: no float atomics.  ``ssd_chunk.backward_launches`` counts its calls.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -41,6 +52,7 @@ import torch
 
 from . import _build
 from .tuning import assert_divides, select_chunk
+from .wkv6 import _clamped_exp, _f32_dense
 
 EXP_CLAMP = 30.0
 #: largest head size p and state size n the kernel takes
@@ -103,6 +115,32 @@ class PassPlan:
         """Each head's cumsum of dt * a from its chunk's start."""
         return (self.b, self.s, self.h)
 
+    @property
+    def bwd_grid(self) -> Tuple[int, int, int]:
+        """The backward pass's row and column passes: one head a block."""
+        return (self.b * self.h, self.n_chunks, self.row_tiles)
+
+    @property
+    def partials_shape(self) -> Tuple[int, ...]:
+        """One block of the backward's column pass: a sum over its rows."""
+        return (self.b * self.h, self.n_chunks, self.row_tiles)
+
+    @property
+    def backward_workspace_floats(self) -> int:
+        """The backward pass's scratch, in this order, each rounded up to 4
+        floats (16 bytes): each chunk's local state gradient, then (after
+        the reverse carry) the gradient of the state leaving it; the row
+        and the column pass's parts of d/dcum (b, s, h each); dB's and dC's
+        terms of each head (b, s, h, n each), summed over the heads in
+        order by the last pass; the column pass's per-block sums of d/dcum
+        at the chunk's last row and of dD; each chunk's d/d(its decay) and
+        its sum of d(dt a) dt."""
+        chunks = (self.b * self.h, self.n_chunks)
+        bshn = (self.b, self.s, self.h, self.n)
+        return sum(-(-math.prod(shape) // 4) * 4 for shape in (
+            self.states_shape, self.cum_shape, self.cum_shape, bshn, bshn,
+            self.partials_shape, self.partials_shape, chunks, chunks))
+
 
 def pass_plan(b: int, s: int, h: int, p: int, n: int, chunk: int) -> PassPlan:
     """The launch of ssd_chunk at these extents.  A block of the state and
@@ -160,6 +198,105 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return y.reshape(b, s, h, p), S
 
 
+def ssd_chunk_backward_plain(x: torch.Tensor, dt: torch.Tensor,
+                             A_log: torch.Tensor, B: torch.Tensor,
+                             C: torch.Tensor, D: torch.Tensor,
+                             state: torch.Tensor, y_grad: torch.Tensor,
+                             state_grad: Optional[torch.Tensor] = None, *,
+                             chunk: int) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_chunk_plain` in plain PyTorch, chunk by
+    chunk as ``csrc/ssd_chunk_bwd.cu`` computes it: (dx, ddt, dA_log, dB,
+    dC, dD, dstate), all f32, from the gradients of y and of the final
+    state (``None``: zero).
+
+    Pass by pass: the forward's cumsum and each chunk's incoming state
+    S_in; each chunk's local state gradient ``(ec C)^T dy`` and the reverse
+    carry ``dS_in(c) = dec_c dS_out(c) + (ec_c C_c)^T dy_c``; per chunk and
+    head the row side (the carried state's ``dy S_in^T``, ``dW = dy
+    (x dt)^T`` under the inclusive mask, the scores' gradient ``dW decay``
+    into dC) and the column side (``W^T dy`` and the state term ``tail B
+    dS_out`` into d(x dt), the scores' gradient into dB); each clamped
+    exponential's gradient (zero where the clamp binds); a reverse cumsum of
+    d/dcum over the chunk's rows that gives d(dt a).  dB and dC sum over the
+    heads, dA_log and dD over the batch and the sequence."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    assert_divides(chunk, s, "ssd_chunk sequence chunk")
+    nc = s // chunk
+    f32 = torch.float32
+    E = EXP_CLAMP
+    xf = x.to(f32).reshape(b, nc, chunk, h, p)
+    dtf = dt.to(f32).reshape(b, nc, chunk, h)
+    Bf = B.to(f32).reshape(b, nc, chunk, n)
+    Cf = C.to(f32).reshape(b, nc, chunk, n)
+    dyc = y_grad.to(f32).reshape(b, nc, chunk, h, p)
+    a = -torch.exp(A_log.to(f32))                            # (h,)
+    zero = torch.zeros((), device=x.device)
+    # the forward's cumsum, factors and carry
+    cum = torch.cumsum(dtf * a, dim=2)                       # (b,nc,ch,h)
+    incl = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))[:, :, None]
+    decay, in_w = _clamped_exp(cum[:, :, :, None] - cum[:, :, None], -E, E)
+    scores = torch.einsum("bctn,bcsn->bcts", Cf, Bf)[..., None]
+    W = torch.where(incl, scores * decay, zero)              # (b,nc,t,s,h)
+    xdt = xf * dtf[..., None]
+    tail, in_t = _clamped_exp(cum[:, :, -1:] - cum, -E, E)   # (b,nc,ch,h)
+    dec, in_d = _clamped_exp(cum[:, :, -1], -E, 0.0)         # (b,nc,h)
+    ec, in_e = _clamped_exp(cum, -E, 0.0)                    # (b,nc,ch,h)
+    S_c = torch.einsum("bcsn,bcsh,bcshp->bchnp", Bf, tail, xdt)
+    S = state.to(f32)
+    S_in = []
+    for c in range(nc):
+        S_in.append(S)
+        S = S * dec[:, c, :, None, None] + S_c[:, c]
+    S_in = torch.stack(S_in, dim=1)                          # (b,nc,h,n,p)
+    # the state pass and the reverse carry
+    G = torch.einsum("bctn,bcth,bcthp->bchnp", Cf, ec, dyc)
+    dS = (torch.zeros_like(S) if state_grad is None
+          else state_grad.to(f32))
+    dS_out = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        dS_out[c] = dS
+        dS = dS * dec[:, c, :, None, None] + G[:, c]
+    dstate = dS
+    dS_out = torch.stack(dS_out, dim=1)
+    # the row side
+    Q = torch.einsum("bcthp,bchnp->bcthn", dyc, S_in)
+    dz_e = torch.where(in_e, torch.einsum("bctn,bcthn->bcth", Cf, Q) * ec,
+                       zero)
+    dW = torch.where(incl, torch.einsum("bcthp,bcshp->bctsh", dyc, xdt),
+                     zero)
+    dscores = dW * decay                                     # (b,nc,t,s,h)
+    dC = (torch.einsum("bcth,bcthn->bctn", ec, Q)
+          + torch.einsum("bctsh,bcsn->bctn", dscores, Bf))
+    # d/d(cum_t - cum_s); the diagonal's is zero (its two ends cancel)
+    off = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                device=x.device), diagonal=-1)[:, :, None]
+    dz_w = torch.where(off & in_w, dscores * scores, zero)
+    # the column side
+    dB = torch.einsum("bctsh,bctn->bcsn", dscores, Cf)
+    U = torch.einsum("bcshp,bchnp->bcshn", xdt, dS_out)
+    dB = dB + torch.einsum("bcsh,bcshn->bcsn", tail, U)
+    dz_t = torch.where(in_t, torch.einsum("bcsn,bcshn->bcsh", Bf, U) * tail,
+                       zero)
+    dxdt = (torch.einsum("bcsn,bchnp->bcshp", Bf, dS_out) * tail[..., None]
+            + torch.einsum("bctsh,bcthp->bcshp", W, dyc))
+    dx = dxdt * dtf[..., None] + D.to(f32)[:, None] * dyc
+    ddt = (xf * dxdt).sum(-1)
+    # d/dcum and its reverse cumsum
+    ddec = (dS_out * S_in).sum((-1, -2))                     # (b,nc,h)
+    dL = torch.where(in_d, ddec * dec, zero) + dz_t.sum(2)
+    dcum = dz_e + dz_w.sum(3) - dz_w.sum(2) - dz_t
+    dcum = dcum + torch.cat([torch.zeros_like(dcum[:, :, :-1]),
+                             dL[:, :, None]], dim=2)
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = ddt + dda * a
+    dA_log = (dda * dtf).sum((0, 1, 2)) * a
+    dD = (dyc * xf).sum((0, 1, 2, 4))
+    return (dx.reshape(b, s, h, p), ddt.reshape(b, s, h), dA_log,
+            dB.reshape(b, s, n), dC.reshape(b, s, n), dD, dstate)
+
+
 def _check(x, dt, A_log, B, C, D, state, state_out):
     if x.dim() != 4:
         raise ValueError(f"ssd_chunk expects x of shape (b, s, h, p); got "
@@ -205,17 +342,33 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     and is returned; it may be ``state`` itself (an update in place).
 
     CUDA tensors go to the kernel, CPU tensors to :func:`ssd_chunk_plain`.
+    Where autograd records and an input requires a gradient, the call is
+    differentiable (:class:`_SSDChunkFn`: the backward pass launches
+    ``csrc/ssd_chunk_bwd.cu`` for CUDA tensors and computes
+    :func:`ssd_chunk_backward_plain` for CPU ones); ``state_out`` (an
+    in-place write) raises there.
     """
     _check(x, dt, A_log, B, C, D, state, state_out)
-    b, s, h, p = x.shape
-    n = B.shape[-1]
+    s = x.shape[1]
     chunk = select_chunk(s) if chunk is None else chunk
     assert_divides(chunk, s, "ssd_chunk sequence chunk")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A_log, B, C, D, state)):
+        if state_out is not None:
+            raise ValueError("ssd_chunk: state_out= writes the final state "
+                             "in place, which autograd cannot record")
+        return _SSDChunkFn.apply(x, dt, A_log, B, C, D, state, chunk)
     if x.device.type == "cpu":
         y, S = ssd_chunk_plain(x, dt, A_log, B, C, D, state, chunk=chunk)
         if state_out is None:
             return y, S
         return y, state_out.copy_(S)
+    return _launch(x, dt, A_log, B, C, D, state, chunk, state_out)[:2]
+
+
+def _plan_for(x: torch.Tensor, n: int, chunk: int) -> PassPlan:
+    """:func:`pass_plan` of a call on CUDA tensors, its extents checked."""
+    b, s, h, p = x.shape
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk has no kernel for device {x.device}")
     if p > _MAX_DIM or n > _MAX_DIM or b * h > 2 ** 31 - 1:
@@ -226,6 +379,16 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
             or b * plan.n_chunks > 2 ** 31 - 1):
         raise ValueError(f"ssd_chunk: grid {plan.scan_grid} exceeds the "
                          f"card's limits")
+    return plan
+
+
+def _launch(x, dt, A_log, B, C, D, state, chunk, state_out):
+    """The forward kernels on CUDA tensors: (y, final state, each chunk's
+    incoming state, the cumsum), the last two the passes' scratch, which
+    the backward pass reads."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    plan = _plan_for(x, n, chunk)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         x = x.to(torch.float32)
@@ -254,9 +417,99 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise RuntimeError(f"ssd_chunk launch failed: CUDA error {err} for x "
                            f"{(b, s, h, p)}, n {n}, chunk {chunk}")
     ssd_chunk.launches += 1
-    return y, state_out
+    return y, state_out, states, cum
+
+
+def ssd_chunk_backward(x: torch.Tensor, dt: torch.Tensor,
+                       A_log: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                       D: torch.Tensor, states: torch.Tensor,
+                       cum: torch.Tensor, y_grad: torch.Tensor,
+                       state_grad: Optional[torch.Tensor], *, chunk: int
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels (``csrc/ssd_chunk_bwd.cu``) on CUDA tensors:
+    (dx, ddt, dA_log, dB, dC, dD, dstate), f32, as
+    :func:`ssd_chunk_backward_plain`.  ``states`` and ``cum`` are the
+    forward's scratch (:func:`_launch`): each chunk's incoming state and
+    the cumsum.  ``state_grad`` may be ``None`` (zero)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    plan = _plan_for(x, n, chunk)
+    if plan.n_chunks > 65535:
+        raise ValueError(f"ssd_chunk backward: grid {plan.bwd_grid} exceeds "
+                         f"the card's limits")
+    lib = _build.load_library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        x, dt, B, C, dy = (_f32_dense(t) for t in (x, dt, B, C, y_grad))
+        A_log, D = _f32_dense(A_log), _f32_dense(D)
+        dS = None if state_grad is None else _f32_dense(state_grad)
+        f32 = dict(dtype=torch.float32, device=dev)
+        dx = torch.empty((b, s, h, p), **f32)
+        ddt = torch.empty((b, s, h), **f32)
+        dB = torch.empty((b, s, n), **f32)
+        dC = torch.empty((b, s, n), **f32)
+        dA_log = torch.empty((h,), **f32)
+        dD = torch.empty((h,), **f32)
+        dstate = torch.empty((b, h, n, p), **f32)
+        n_bws = plan.backward_workspace_floats
+        bws = torch.empty((n_bws,), **f32)
+        err = lib.ssd_chunk_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), dy.data_ptr(),
+            None if dS is None else dS.data_ptr(), states.data_ptr(),
+            cum.data_ptr(), bws.data_ptr(), n_bws, dx.data_ptr(),
+            ddt.data_ptr(), dA_log.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dD.data_ptr(), dstate.data_ptr(), b, s, h, p, n, chunk,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk backward launch failed: CUDA error "
+                           f"{err} for x {(b, s, h, p)}, n {n}, chunk {chunk}")
+    ssd_chunk.backward_launches += 1
+    return dx, ddt, dA_log, dB, dC, dD, dstate
+
+
+class _SSDChunkFn(torch.autograd.Function):
+    """:func:`ssd_chunk` under autograd.  The forward is the kernels' (their
+    scratch kept for the backward pass) on CUDA, :func:`ssd_chunk_plain` on
+    the CPU; the backward pass is :func:`ssd_chunk_backward` on CUDA and
+    :func:`ssd_chunk_backward_plain` on the CPU.  Each gradient is computed
+    for every input (one launch gives them all) and handed back where
+    ``ctx.needs_input_grad`` asks for it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B, C, D, state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.dtypes = [t.dtype for t in (x, dt, A_log, B, C, D, state)]
+        if x.device.type == "cpu":
+            y, S = ssd_chunk_plain(x, dt, A_log, B, C, D, state, chunk=chunk)
+            ctx.save_for_backward(x, dt, A_log, B, C, D, state)
+        else:
+            y, S, states, cum = _launch(x, dt, A_log, B, C, D, state, chunk,
+                                        None)
+            ctx.save_for_backward(x, dt, A_log, B, C, D, states, cum)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, y_grad, state_grad):
+        saved = ctx.saved_tensors
+        x = saved[0]
+        if y_grad is None:
+            y_grad = torch.zeros(x.shape, dtype=torch.float32,
+                                 device=x.device)
+        if x.device.type == "cpu":
+            grads = ssd_chunk_backward_plain(*saved, y_grad, state_grad,
+                                             chunk=ctx.chunk)
+        else:
+            grads = ssd_chunk_backward(*saved, y_grad, state_grad,
+                                       chunk=ctx.chunk)
+        return (*(g.to(dt) if need else None for g, dt, need in zip(
+            grads, ctx.dtypes, ctx.needs_input_grad)), None)
 
 
 #: calls of :func:`ssd_chunk` that launched its kernels (one a call, for
 #: all three passes) in this process
 ssd_chunk.launches = 0
+#: backward passes of :func:`ssd_chunk` that launched
+#: ``csrc/ssd_chunk_bwd.cu`` (one a call, for all of its passes)
+ssd_chunk.backward_launches = 0

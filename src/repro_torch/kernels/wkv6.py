@@ -38,6 +38,19 @@ says where each rounding falls).  ``wkv6.bf16_launches`` counts its calls.
 
 :func:`wkv6` launches the kernels for CUDA tensors (or raises) and computes
 :func:`wkv6_plain` for CPU tensors; there is no other route between the two.
+
+Its gradient (f32 operands, where autograd records) is the port's own
+kernel, ``csrc/wkv6_bwd.cu`` (:func:`wkv6_backward`; the JAX package takes
+it by ``jax.grad`` of its jnp chunked form), on the CPU
+:func:`wkv6_backward_plain`.  The forward under autograd keeps its three
+passes' workspace (each chunk's incoming state, lw, the decays) for the
+backward pass, which runs a state pass (rs^T dy a chunk), a reverse carry,
+a row pass (dr), a column pass (dk, dv) over 64-row tiles, an lw pass (the
+reverse cumsum that gives dw_log) and a u pass, with per-block partials
+summed in a fixed order: no float atomics.  ``wkv6.backward_launches``
+counts its calls.  The bound of one backward call at rwkv6's loss shape is
+the bytes of r, k, v, w, dy and S_in read and dr, dk, dv, dw written once:
+335.5 MB over 3.35 TB/s = 0.100 ms.
 """
 
 from __future__ import annotations
@@ -126,8 +139,37 @@ class PassPlan:
         floats (16 bytes); none for the one-token kernel."""
         if self.one_token:
             return 0
-        return sum(-(-math.prod(shape) // 4) * 4 for shape in (
-            self.states_shape, self.lw_shape, self.dec_shape))
+        return self.passes_workspace_floats
+
+    @property
+    def passes_workspace_floats(self) -> int:
+        """:attr:`workspace_floats` of the three passes at any chunk (a
+        forward under autograd takes them at chunk 1 too, and keeps the
+        scratch for the backward pass)."""
+        return _floats(self.states_shape, self.lw_shape, self.dec_shape)
+
+    @property
+    def partials_shape(self) -> Tuple[int, ...]:
+        """One row tile's sums over its rows, per key channel (the backward
+        pass's per-block partials)."""
+        return (self.b * self.h, self.n_chunks, self.row_tiles, self.p)
+
+    @property
+    def backward_workspace_floats(self) -> int:
+        """The backward pass's scratch, in this order, each rounded up to 4
+        floats: each chunk's local state gradient, then (after the reverse
+        carry) the gradient of the state leaving it; the gradient of lw
+        reaching each row through lw_prev; four per-block partials (the
+        row pass's sums of d/dm and of the u term, the column pass's of
+        d/dm and d/dL)."""
+        return _floats(self.states_shape, self.lw_shape,
+                       *[self.partials_shape] * 4)
+
+
+def _floats(*shapes: Tuple[int, ...]) -> int:
+    """Floats of scratch tensors laid one after another, each rounded up
+    to 4 (16 bytes)."""
+    return sum(-(-math.prod(shape) // 4) * 4 for shape in shapes)
 
 
 @functools.lru_cache(maxsize=256)
@@ -192,6 +234,105 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         S = S * dec[:, c, :, :, None] + S_c[:, c]
     y = y + torch.stack(y_in, dim=1)
     return y.reshape(b, s, h, p), S
+
+
+def _clamped_exp(z: torch.Tensor, lo: float, hi: float):
+    """(exp(clamp(z, lo, hi)), where the clamp passes a gradient): the
+    factor and its mask, as ``torch.clamp``'s gradient has it (the bounds
+    themselves pass)."""
+    return torch.exp(torch.clamp(z, lo, hi)), (z >= lo) & (z <= hi)
+
+
+def wkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w_log: torch.Tensor, u: torch.Tensor,
+                        state: torch.Tensor, y_grad: torch.Tensor,
+                        state_grad: Optional[torch.Tensor] = None, *,
+                        chunk: int) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6_plain` (f32) in plain PyTorch, chunk by
+    chunk as ``csrc/wkv6_bwd.cu`` computes it: (dr, dk, dv, dw_log, du,
+    dstate), all f32, from the gradients of y and of the final state
+    (``None``: zero).
+
+    Pass by pass: the forward's lw and each chunk's incoming state S_in;
+    each chunk's local state gradient rs^T dy and the reverse carry
+    ``dS_in(c) = diag(dec_c) dS_out(c) + rs_c^T dy_c`` (``dS_out`` of the
+    last chunk is ``state_grad``, ``dS_in`` of the first is ``dstate``);
+    per chunk the row side (``dA = tril_-1(dy v^T)``, ``drr = dA kk``, the
+    carried state's ``drs = dy S_in^T``, the u term) and the column side
+    (``A^T dy``, ``dkk = dA^T rr``, the chunk's state term through
+    ``dS_out``); then each clamped exponential's gradient (zero where the
+    clamp binds), the centring ``m = lw[last] / 2``, and a reverse cumsum
+    of d/dlw over the chunk's rows that gives dw_log."""
+    b, s, h, p = r.shape
+    assert_divides(chunk, s, "wkv6 sequence chunk")
+    nc = s // chunk
+    f32 = torch.float32
+    C = EXP_CLAMP
+    rc, kc, vc, wc, dyc = (x.to(f32).reshape(b, nc, chunk, h, p)
+                           for x in (r, k, v, w_log, y_grad))
+    uf = u.to(f32)
+    # the forward's state and carry passes: lw, the factors, S_in
+    lw = torch.cumsum(wc, dim=2)
+    lw_prev = torch.cat([torch.zeros_like(lw[:, :, :1]), lw[:, :, :-1]],
+                        dim=2)
+    L = lw[:, :, -1]                                        # (b,nc,h,p)
+    m = 0.5 * L[:, :, None]
+    er, in_r = _clamped_exp(lw_prev - m, -C, C)
+    ek, in_k = _clamped_exp(m - lw, -C, C)
+    ers, in_s = _clamped_exp(lw_prev, -C, 0.0)
+    tail, in_t = _clamped_exp(L[:, :, None] - lw, -C, C)
+    dec, in_d = _clamped_exp(L, -C, 0.0)
+    rr, kk, rs, kt = rc * er, kc * ek, rc * ers, kc * tail
+    S_c = torch.einsum("bcshp,bcshq->bchpq", kt, vc)
+    S = state.to(f32)
+    S_in = []
+    for c in range(nc):
+        S_in.append(S)
+        S = S * dec[:, c, :, :, None] + S_c[:, c]
+    S_in = torch.stack(S_in, dim=1)                         # (b,nc,h,p,p)
+    # the state pass and the reverse carry
+    G = torch.einsum("bcthp,bcthq->bchpq", rs, dyc)
+    dS = (torch.zeros_like(S) if state_grad is None
+          else state_grad.to(f32))
+    dS_out = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        dS_out[c] = dS
+        dS = dS * dec[:, c, :, :, None] + G[:, c]
+    dstate = dS
+    dS_out = torch.stack(dS_out, dim=1)
+    # the row side
+    lower = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                  device=r.device), diagonal=-1)
+    zero = torch.zeros((), device=r.device)
+    dA = torch.where(lower, torch.einsum("bcthq,bcshq->bchts", dyc, vc),
+                     zero)
+    drr = torch.einsum("bchts,bcshp->bcthp", dA, kk)
+    drs = torch.einsum("bcthq,bchpq->bcthp", dyc, S_in)
+    ddiag = (dyc * vc).sum(-1)[..., None]                   # (b,nc,t,h,1)
+    dr = er * drr + ers * drs + ddiag * uf * kc
+    dz_r = torch.where(in_r, rc * drr * er, zero)
+    dz_s = torch.where(in_s, rc * drs * ers, zero)
+    du = (ddiag * rc * kc).sum((0, 1, 2))
+    # the column side
+    A = torch.where(lower, torch.einsum("bcthp,bcshp->bchts", rr, kk), zero)
+    diag = (rc * uf * kc).sum(-1)[..., None]
+    dv = (torch.einsum("bchts,bcthq->bcshq", A, dyc) + diag * dyc
+          + torch.einsum("bcshp,bchpq->bcshq", kt, dS_out))
+    dkk = torch.einsum("bchts,bcthp->bcshp", dA, rr)
+    dkt = torch.einsum("bcshq,bchpq->bcshp", vc, dS_out)
+    dk = ek * dkk + tail * dkt + ddiag * uf * rc
+    dz_k = torch.where(in_k, kc * dkk * ek, zero)
+    dz_t = torch.where(in_t, kc * dkt * tail, zero)
+    # d/dlw and its reverse cumsum
+    ddec = (dS_out * S_in).sum(-1)                          # (b,nc,h,p)
+    dL = (torch.where(in_d, ddec * dec, zero)
+          + 0.5 * (dz_k - dz_r).sum(2) + dz_t.sum(2))
+    dlw = -dz_k - dz_t
+    dlw = dlw + torch.cat([(dz_r + dz_s)[:, :, 1:],
+                           dL[:, :, None]], dim=2)
+    dw = torch.flip(torch.cumsum(torch.flip(dlw, (2,)), dim=2), (2,))
+    return (dr.reshape(b, s, h, p), dk.reshape(b, s, h, p),
+            dv.reshape(b, s, h, p), dw.reshape(b, s, h, p), du, dstate)
 
 
 def _rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -263,12 +404,29 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     bf16 r, k and v take the bf16 recurrence (:func:`compute_dtype_of`).
     CUDA tensors go to the kernels, CPU tensors to :func:`wkv6_plain`.
+
+    Where autograd records and an input requires a gradient, the call is
+    differentiable (:class:`_WKV6Fn`: the backward pass launches
+    ``csrc/wkv6_bwd.cu`` for CUDA tensors and computes
+    :func:`wkv6_backward_plain` for CPU ones).  ``state_out`` (an in-place
+    write) and bf16 operands (ROADMAP A20) raise there.
     """
     _check(r, k, v, w_log, u, state, state_out)
     cdt = compute_dtype_of(r, k, v)
     b, s, h, p = r.shape
     chunk = select_chunk(s) if chunk is None else chunk
     assert_divides(chunk, s, "wkv6 sequence chunk")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w_log, u, state)):
+        if state_out is not None:
+            raise ValueError("wkv6: state_out= writes the final state in "
+                             "place, which autograd cannot record")
+        if cdt == torch.bfloat16:
+            raise NotImplementedError(
+                "wkv6: the gradient of the bf16 recurrence (bf16 r, k, v; "
+                "cfg.ssm_bf16=True) needs a backward kernel of its own "
+                "(ROADMAP.md queue A, A20)")
+        return _WKV6Fn.apply(r, k, v, w_log, u, state, chunk)
     dev = r.device
     if dev.type == "cpu":
         y, S = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk,
@@ -276,8 +434,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if state_out is None:
             return y, S
         return y, state_out.copy_(S)
-    if dev.type != "cuda":
-        raise ValueError(f"wkv6 has no kernel for device {dev}")
+    y, S, _ = _launch(r, k, v, w_log, u, state, chunk, state_out, cdt,
+                      keep=False)
+    return y, S
+
+
+def _plan_for(r: torch.Tensor, chunk: int) -> PassPlan:
+    """:func:`pass_plan` of a call on CUDA tensors, its extents checked."""
+    b, s, h, p = r.shape
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 has no kernel for device {r.device}")
     plan = pass_plan(b, s, h, p, chunk)
     if (p > _MAX_P or b * h > 2 ** 31 - 1 or (
             not plan.one_token
@@ -285,21 +451,34 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"wkv6: (b, s, h, p) = {tuple(r.shape)}, chunk "
                          f"{chunk} exceeds the kernels' extents (p <= "
                          f"{_MAX_P}, at most {_MAX_GRID_YZ} chunks)")
+    return plan
+
+
+def _launch(r, k, v, w_log, u, state, chunk, state_out, cdt, *, keep):
+    """The forward kernels on CUDA tensors: (y, final state, workspace).
+    ``keep`` takes the three passes at any chunk (chunk 1 too) and returns
+    their workspace (each chunk's incoming state, lw, the chunks' decays),
+    which the backward pass reads; else the workspace is ``None``."""
+    b, s, h, p = r.shape
+    dev = r.device
+    plan = _plan_for(r, chunk)
     lib = _build.load_library()
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return wkv6(r, k, v, w_log, u, state, chunk=chunk,
-                        state_out=state_out)
+            return _launch(r, k, v, w_log, u, state, chunk, state_out, cdt,
+                           keep=keep)
     r, k, v = (_rows(t, cdt) for t in (r, k, v))
     w_log = _rows(w_log, torch.float32)
     u, state = _f32_dense(u), _f32_dense(state)
     if state_out is None:
         state_out = torch.empty_like(state)
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
-    n_ws = plan.workspace_floats
+    n_ws = plan.passes_workspace_floats if keep else plan.workspace_floats
     ws = torch.empty((n_ws,), dtype=torch.float32, device=dev) if n_ws else None
     bf16 = cdt == torch.bfloat16
-    err = (lib.wkv6_bf16_launch if bf16 else lib.wkv6_launch)(
+    launcher = (lib.wkv6_bf16_launch if bf16 else
+                lib.wkv6_passes_launch if keep else lib.wkv6_launch)
+    err = launcher(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w_log.stride()[:3],
         u.data_ptr(), state.data_ptr(), y.data_ptr(), state_out.data_ptr(),
@@ -315,7 +494,94 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         wkv6.bf16_launches += 1
     else:
         wkv6.launches += 1
-    return y, state_out
+    return y, state_out, ws
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  u: torch.Tensor, ws: torch.Tensor, y_grad: torch.Tensor,
+                  state_grad: Optional[torch.Tensor], *, chunk: int
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels (``csrc/wkv6_bwd.cu``) on CUDA tensors: (dr,
+    dk, dv, dw_log, du, dstate), f32, as :func:`wkv6_backward_plain`.
+    ``ws`` is the forward's kept workspace (:func:`_launch` with ``keep``):
+    each chunk's incoming state, lw and the chunks' decays.  r, k and v are
+    the forward's f32 operands (the last axis contiguous, any other
+    strides); ``state_grad`` may be ``None`` (zero)."""
+    b, s, h, p = r.shape
+    dev = r.device
+    plan = _plan_for(r, chunk)
+    if max(plan.n_chunks, plan.row_tiles) > _MAX_GRID_YZ:
+        raise ValueError(f"wkv6 backward: {plan.n_chunks} chunks of "
+                         f"{plan.row_tiles} row tiles exceed the grid")
+    lib = _build.load_library()
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return wkv6_backward(r, k, v, u, ws, y_grad, state_grad,
+                                 chunk=chunk)
+    r, k, v = (_rows(t, torch.float32) for t in (r, k, v))
+    u, dy = _f32_dense(u), _f32_dense(y_grad)
+    dS = None if state_grad is None else _f32_dense(state_grad)
+    if ws is None or ws.numel() < plan.passes_workspace_floats:
+        raise ValueError("wkv6 backward: the forward's workspace is missing")
+    grads = [torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
+             for _ in range(4)]
+    du = torch.empty((h, p), dtype=torch.float32, device=dev)
+    dstate = torch.empty((b, h, p, p), dtype=torch.float32, device=dev)
+    n_bws = plan.backward_workspace_floats
+    bws = torch.empty((n_bws,), dtype=torch.float32, device=dev)
+    err = lib.wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        u.data_ptr(), dy.data_ptr(), None if dS is None else dS.data_ptr(),
+        ws.data_ptr(), bws.data_ptr(), n_bws,
+        *(g.data_ptr() for g in grads), du.data_ptr(), dstate.data_ptr(),
+        b, s, h, p, chunk, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"wkv6 backward launch failed: CUDA error {err} "
+                           f"for (b, s, h, p) = {(b, s, h, p)}, chunk "
+                           f"{chunk}")
+    wkv6.backward_launches += 1
+    return (*grads, du, dstate)
+
+
+class _WKV6Fn(torch.autograd.Function):
+    """:func:`wkv6` (f32) under autograd.  The forward is the kernels' (the
+    three passes, their workspace kept for the backward pass) on CUDA,
+    :func:`wkv6_plain` on the CPU; the backward pass is
+    :func:`wkv6_backward` on CUDA and :func:`wkv6_backward_plain` on the
+    CPU.  Each gradient is computed for every input (one launch gives them
+    all) and handed back where ``ctx.needs_input_grad`` asks for it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.dtypes = [t.dtype for t in (r, k, v, w_log, u, state)]
+        if r.device.type == "cpu":
+            y, S = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk,
+                              compute_dtype=torch.float32)
+            ctx.save_for_backward(r, k, v, w_log, u, state)
+        else:
+            y, S, ws = _launch(r, k, v, w_log, u, state, chunk, None,
+                               torch.float32, keep=True)
+            ctx.save_for_backward(r, k, v, u, ws)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, y_grad, state_grad):
+        saved = ctx.saved_tensors
+        r = saved[0]
+        if y_grad is None:
+            y_grad = torch.zeros(r.shape, dtype=torch.float32,
+                                 device=r.device)
+        if r.device.type == "cpu":
+            grads = wkv6_backward_plain(*saved, y_grad, state_grad,
+                                        chunk=ctx.chunk)
+        else:
+            grads = wkv6_backward(*saved, y_grad, state_grad,
+                                  chunk=ctx.chunk)
+        return (*(g.to(dt) if need else None for g, dt, need in zip(
+            grads, ctx.dtypes, ctx.needs_input_grad)), None)
 
 
 #: calls of :func:`wkv6` that launched its f32 kernels (one a call, for all
@@ -323,3 +589,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 wkv6.launches = 0
 #: calls of :func:`wkv6` that launched its bf16 kernels (r, k, v in bf16)
 wkv6.bf16_launches = 0
+#: backward passes of :func:`wkv6` that launched ``csrc/wkv6_bwd.cu`` (one
+#: a call, for all of its passes)
+wkv6.backward_launches = 0

@@ -22,8 +22,9 @@ Serving steps, ``loss`` and state surgery run under
 ``torch.inference_mode()`` (``torch.no_grad()`` under mesh rules); a decode
 state is made by ``make_decode_state`` / ``prefill`` and only ever handed
 back to these methods.  ``train_loss`` runs
-with autograd recording (the trainer's loss): every family but ssm and
-hybrid, whose recurrence kernels have no backward pass yet (ROADMAP A19).
+with autograd recording (the trainer's loss): every family, ssm and hybrid
+through the backward kernels of their recurrences (``wkv6`` and
+``ssd_chunk``); ``cfg.ssm_bf16=True`` does not train yet (ROADMAP A20).
 """
 
 from __future__ import annotations
@@ -57,12 +58,14 @@ class BatchSpec:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise where the port cannot train ``cfg``'s family yet."""
-    if cfg.family in ("ssm", "hybrid"):
+    """Raise where the port cannot train ``cfg`` yet: the bf16 recurrence
+    (``ssm_bf16=True``) of the ssm and hybrid families, whose gradient needs
+    a backward kernel of its own."""
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_bf16:
         raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family needs backward "
-            "passes of the wkv6 / ssd_chunk recurrences, which are not "
-            "ported yet (ROADMAP.md queue A, A19)")
+            f"{cfg.name}: training with ssm_bf16=True needs a bf16 variant "
+            "of the wkv6 backward kernel, which is not ported yet (ROADMAP.md "
+            "queue A, A20); the f32 recurrence trains")
 
 
 def _no_grad():
@@ -155,11 +158,17 @@ class ModelAPI:
         """:meth:`loss` with autograd recording: the same family dispatch in
         the same backend scope, each block under ``cfg.remat``.  A routed
         GEMM's gradient is the straight-through one (exact products; the
-        backend's ``traced_matmul``).  The ssm and hybrid families raise:
-        their recurrence kernels have no backward pass (ROADMAP A19)."""
+        backend's ``traced_matmul``); the recurrences' gradients are their
+        backward kernels' (``wkv6``, ``ssd_chunk``).  ``ssm_bf16=True``
+        raises (ROADMAP A20)."""
         check_trainable(self.cfg)
+        f = self.cfg.family
         with self._scope():
-            if self.cfg.family == "encdec":
+            if f == "ssm":
+                return ssm.rwkv6_loss(params, batch, self.cfg)
+            if f == "hybrid":
+                return ssm.zamba2_loss(params, batch, self.cfg)
+            if f == "encdec":
                 return encdec.loss_fn(params, batch, self.cfg)
             return lm.loss_fn(params, batch, self.cfg)
 

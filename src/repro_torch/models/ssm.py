@@ -15,7 +15,10 @@ one difference in the numbers: the reference's ``wkv6_chunked`` clamps the
 decay to the chunk's end, the chunk decay and the carried state's factor at
 +-30, the kernel (as the Pallas kernel it replaces) at +-60; the two differ
 only where a factor lies below exp(-30).  Decode uses the O(1) recurrent
-updates.
+updates.  The loss path is differentiable (``ModelAPI.train_loss``): the
+two kernels' backward passes give the recurrences' gradients, the layers
+are unbound once from their stacks, and each block runs under
+``lm.remat`` as the reference's ``_remat``.
 
 Layers are stacked on a leading axis (the JAX package's layout) and driven
 by Python loops over layer views.  The decode states are **updated in
@@ -40,8 +43,8 @@ from ..kernels.wkv6 import wkv6
 from .layers import (_batch_head_split, _replicated, attention,
                      attention_param_specs, chunked_softmax_xent,
                      decode_attention, embed, embed_param_specs, logits_last,
-                     mlp, mlp_param_specs, rmsnorm, rmsnorm_spec)
-from .lm import _layer, _residual
+                     mlp, mlp_hidden, mlp_param_specs, rmsnorm, rmsnorm_spec)
+from .lm import _layer, _residual, _unbound, remat
 from .shardlib import ParamSpec, is_dtensor
 
 Params = Dict[str, Any]
@@ -123,6 +126,29 @@ def mamba2_forward(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     ``kernels.ssd_chunk`` at the model's chunk: ``min(ssm_chunk, s)``, or
     ``s`` when that does not divide it.
     """
+    gated, R_final, zxbcdt = _mamba2_head(x, lp, cfg, ssm_state, conv_state)
+    out = bmm(gated, lp["out_proj"])
+    if return_state:
+        dims = mamba2_dims(cfg)
+        b = x.shape[0]
+        # pre-activation conv input tail: a slice of the projection already
+        # computed above (a second GEMM would count its MACs twice)
+        prev = (conv_state.to(zxbcdt.dtype) if conv_state is not None else
+                torch.zeros((b, 3, dims["conv_dim"]), dtype=zxbcdt.dtype,
+                            device=x.device))
+        conv_out = torch.cat(
+            [prev, zxbcdt[:, :, dims["d_inner"]:dims["d_inner"]
+                          + dims["conv_dim"]]], dim=1)[:, -3:]
+        return out, R_final, conv_out
+    return out
+
+
+def _mamba2_head(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+                 ssm_state: Optional[torch.Tensor] = None,
+                 conv_state: Optional[torch.Tensor] = None):
+    """:func:`mamba2_forward` up to its output projection: (the gated,
+    normed activations ``out_proj`` multiplies, the final SSD state, the
+    input projection)."""
     dims = mamba2_dims(cfg)
     b, s, _ = x.shape
     zxbcdt = bmm(x, lp["in_proj"])
@@ -135,24 +161,56 @@ def mamba2_forward(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     dt = F.softplus(dt.to(torch.float32) + lp["dt_bias"])         # (b, s, h)
     R0 = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
           if ssm_state is None else ssm_state.to(torch.float32))
-    y, R_final = ssd_chunk(xh, dt, lp["A_log"], B, C, lp["D"], R0,
-                           chunk=_chunk(cfg.ssm_chunk, s))
+    args = (xh, dt, lp["A_log"], B, C, lp["D"], R0)
+    ch = _chunk(cfg.ssm_chunk, s)
+    if any(is_dtensor(t) for t in args):
+        y, R_final = _ssd_blocks(*args, ch)
+    else:
+        y, R_final = ssd_chunk(*args, chunk=ch)
     y = y.reshape(b, s, dims["d_inner"])
 
     gated = y * F.silu(z.to(torch.float32))
-    gated = rmsnorm(gated.to(torch.bfloat16), lp["gate_norm"])
-    out = bmm(gated, lp["out_proj"])
-    if return_state:
-        # pre-activation conv input tail: a slice of the projection already
-        # computed above (a second GEMM would count its MACs twice)
-        prev = (conv_state.to(xbc.dtype) if conv_state is not None else
-                torch.zeros((b, 3, dims["conv_dim"]), dtype=xbc.dtype,
-                            device=x.device))
-        conv_out = torch.cat(
-            [prev, zxbcdt[:, :, dims["d_inner"]:dims["d_inner"]
-                          + dims["conv_dim"]]], dim=1)[:, -3:]
-        return out, R_final, conv_out
-    return out
+    return rmsnorm(gated.to(torch.bfloat16), lp["gate_norm"]), R_final, zxbcdt
+
+
+def _grad_placements(pl, whole_over):
+    """Placements of the gradient of an operand a rank holds whole over the
+    mesh axes where the recurrence's blocks split ``whole_over`` (``Shard(0)``
+    of the batch, ``Shard(2)`` of the heads): there each rank's gradient is
+    its part of a sum over the blocks (``Partial``); along a head split an
+    (h, ...) operand's gradient is split with it, and along a batch split a
+    (b, ...) one's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return [Partial() if p == whole_over
+            else Shard(0) if p in (Shard(0), Shard(2)) else Replicate()
+            for p in pl]
+
+
+def _ssd_blocks(x, dt, A_log, B, C, D, state, ch):
+    """``ssd_chunk`` on ``DTensor`` operands: each rank runs the recurrence
+    on its (batch, head) block (``local_map``); the sequence and the head
+    width stay whole, B and C whole over the heads.  The gradients of the
+    operands a rank holds whole over a split (A_log and D over the batch, B
+    and C over the heads) are its part of their sums (``Partial``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    args = (x, dt, A_log, B, C, D, state)
+    mesh = next(t for t in args if is_dtensor(t)).device_mesh
+    x, dt, A_log, B, C, D, state = (_replicated(t, mesh) for t in args)
+    pl = _batch_head_split(x, lambda parts: x.shape[2] % parts == 0)
+    heads = [Shard(0) if p == Shard(2) else Replicate() for p in pl]
+    rows = [p if p == Shard(0) else Replicate() for p in pl]
+    s_pl = [Shard(1) if p == Shard(2) else p for p in pl]
+    in_pl = (pl, pl, heads, rows, rows, heads, s_pl)
+    g_heads = _grad_placements(pl, Shard(0))
+    g_rows = _grad_placements(pl, Shard(2))
+    fn = local_map(lambda *a: ssd_chunk(*a, chunk=ch),
+                   out_placements=(pl, s_pl), in_placements=in_pl,
+                   in_grad_placements=(pl, pl, g_heads, g_rows, g_rows,
+                                       g_heads, s_pl),
+                   device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, q) for t, q in zip(
+        (x, dt, A_log, B, C, D, state), in_pl)))
 
 
 def mamba2_step(x: torch.Tensor, lp: Params, cfg: ModelConfig,
@@ -260,7 +318,9 @@ def wkv6_chunked(r, k, v, w_log, u, state, chunk: int,
 def _wkv6_blocks(r, k, v, w_log, u, state, ch, state_out):
     """:func:`wkv6_chunked` on ``DTensor`` operands: each rank runs the
     recurrence on its (batch, head) block (``local_map``); the sequence and
-    the head width stay whole.  The batch and head splits must divide."""
+    the head width stay whole.  The batch and head splits must divide.  The
+    gradient of u, which a rank holds whole over a batch split, is its part
+    of the sum over the batch blocks (``Partial``)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = next(t for t in (r, k, v, w_log, u, state)
@@ -272,6 +332,8 @@ def _wkv6_blocks(r, k, v, w_log, u, state, ch, state_out):
     s_pl = [Shard(1) if p == Shard(2) else p for p in pl]
     fn = local_map(lambda *a: wkv6(*a, chunk=ch), out_placements=(pl, s_pl),
                    in_placements=(pl, pl, pl, pl, u_pl, s_pl),
+                   in_grad_placements=(pl, pl, pl, pl,
+                                       _grad_placements(pl, Shard(0)), s_pl),
                    device_mesh=mesh)
     y, final = fn(*(t.redistribute(mesh, q) for t, q in zip(
         (r, k, v, w_log, u, state), (pl, pl, pl, pl, u_pl, s_pl))))
@@ -363,9 +425,15 @@ def rwkv6_backbone(params: Params, x: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """Embedding-space input -> final-norm output: the parallel (chunked)
     forward of the loss path, every layer on ``wkv6`` at the model's
-    chunk."""
-    for i in range(cfg.n_layers):
-        x = rwkv6_block(x, _layer(params["blocks"], i), cfg)
+    chunk.  The layers are unbound once from the stack (:func:`lm._unbound`:
+    under autograd a select a layer would give back a gradient the size of
+    the whole stack for every layer).  Under autograd each block runs under
+    ``cfg.remat`` (:func:`lm.remat`, the reference's ``_remat`` of
+    ``rwkv6_block``): with "full" its GEMMs and its ``wkv6`` run again in
+    the backward pass."""
+    block = remat(rwkv6_block, cfg)
+    for lp in _unbound(params["blocks"], cfg.n_layers):
+        x = block(x, lp, cfg)
     return rmsnorm(x, params["final_norm"])
 
 
@@ -438,13 +506,28 @@ def zamba2_param_tree(cfg: ModelConfig) -> Params:
 def _zamba_shared_block(x, emb0, sp, cfg):
     """Shared attention block: concat(hidden, first-layer embedding) ->
     down-projection -> attn -> mlp (zamba2 concat re-use trick)."""
+    h, hid = remat(_zamba_shared_head, cfg)(x, emb0, sp, cfg)
+    return _residual(x + (h + bmm(hid, sp["mlp"]["w2"])))
+
+
+def _zamba_shared_head(x, emb0, sp, cfg):
+    """The shared block up to its MLP's down projection: (h after the
+    attention, the MLP's hidden).  Only the head runs under ``remat``: the
+    down projection feeds the residual sum alone, so the reference's
+    compiled backward drops its second run as dead code."""
     cat = torch.cat([x, emb0], dim=-1)
     h = bmm(cat, sp["down"])
     a = rmsnorm(h, sp["norm_attn"])
     h = h + attention(a, sp["attn"], cfg, causal=True)
     a = rmsnorm(h, sp["norm_mlp"])
-    h = h + mlp(a, sp["mlp"], cfg)
-    return _residual(x + h)
+    return h, mlp_hidden(a, sp["mlp"], cfg)
+
+
+def _mamba2_layer_head(x, lp, cfg):
+    """A Mamba2 layer of the loss path up to its output projection (which
+    feeds the residual sum alone, so it stays out of ``remat``, as in the
+    shared block)."""
+    return _mamba2_head(rmsnorm(x, lp["norm"]), lp, cfg)[0]
 
 
 def _groups(cfg: ModelConfig):
@@ -459,13 +542,19 @@ def zamba2_backbone(params: Params, x: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """Embedding-space input -> final-norm output: the parallel (chunked)
     forward of the loss path, every Mamba2 layer on ``ssd_chunk`` at the
-    model's chunk."""
+    model's chunk.  Under autograd each Mamba2 layer and each application
+    of the shared block run under ``cfg.remat`` (the reference's two
+    ``_remat`` s in ``zamba2_loss``), each but its last projection: with
+    "full" a step runs every GEMM but the Mamba2 ``out_proj`` and the
+    shared MLP's ``w2`` twice, as the reference's compiled step does, and
+    every ``ssd_chunk`` twice."""
     emb0 = x
+    head = remat(_mamba2_layer_head, cfg)
+    mamba = _unbound(params["mamba"], cfg.n_layers)
     for _, layers in _groups(cfg):
         for i in layers:
-            lp = _layer(params["mamba"], i)
-            x = _residual(x + mamba2_forward(rmsnorm(x, lp["norm"]), lp,
-                                             cfg))
+            lp = mamba[i]
+            x = _residual(x + bmm(head(x, lp, cfg), lp["out_proj"]))
         x = _zamba_shared_block(x, emb0, params["shared"], cfg)
     return rmsnorm(x, params["final_norm"])
 

@@ -12,8 +12,9 @@ with straight-through gradients), ``torch.autograd.grad`` over the
 parameter leaves, and :func:`repro_torch.optim.apply_updates` in place.  The
 gradients are dropped when the step returns, so the device holds the
 parameters, the optimizer state and one step's activations and gradients
-at a time.  The ssm and hybrid families do not train yet: their recurrence
-kernels have no backward pass (ROADMAP A19).
+at a time.  Every family trains; the ssm and hybrid families' recurrences
+take their gradients from the backward kernels of ``wkv6`` and
+``ssd_chunk``, and ``cfg.ssm_bf16=True`` does not train yet (ROADMAP A20).
 
 With mesh ``rules`` (``repro_torch.launch.mesh``) parameters and optimizer
 state are ``DTensor`` s laid out by their logical axes, each rank updates

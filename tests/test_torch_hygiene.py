@@ -151,7 +151,8 @@ def test_build_is_keyed_by_its_sources():
     assert [s.name for s in srcs] == ["abft_checksums.cu",
                                       "precision_island.cu", "quant_rows.cu",
                                       "razor_matmul.cu", "ssd_chunk.cu",
-                                      "systolic_mac.cu", "wkv6.cu"]
+                                      "ssd_chunk_bwd.cu", "systolic_mac.cu",
+                                      "wkv6.cu", "wkv6_bwd.cu"]
     assert _build._digest(srcs) == _build._digest(srcs)
     texts = {s.name: s.read_text() for s in srcs}
     texts.update((h.name, h.read_text())
@@ -215,7 +216,9 @@ def test_build_is_keyed_by_its_sources():
     assert "hi = to_tf32(x);" in tf32
     assert "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));" in tf32
     assert tf32.count("mma_tf32(acc[si][jj], ") == 3
-    for name, clamp in (("wkv6.cu", "60.0f"), ("ssd_chunk.cu", "30.0f")):
+    for name, clamp in (("wkv6.cu", "60.0f"), ("ssd_chunk.cu", "30.0f"),
+                        ("wkv6_bwd.cu", "60.0f"),
+                        ("ssd_chunk_bwd.cu", "30.0f")):
         src = texts[name]
         assert "expf" in src
         assert "__expf" not in src + tf32
@@ -229,6 +232,11 @@ def test_build_is_keyed_by_its_sources():
                    "wkv6_scan_kernel", "wkv6_token_kernel"):
         assert kernel in texts["wkv6.cu"]
     assert "fmaf" not in texts["wkv6.cu"]
+    # their gradients: one C launcher each, no atomics of any kind (the
+    # sums over rows, batch and heads are per-block partials added in order)
+    for name in ("wkv6_bwd", "ssd_chunk_bwd"):
+        assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]
+        assert not re.findall(r"atomic\w*\(", texts[f"{name}.cu"])
     # true IEEE division and round-half-even in the quantizer
     assert "__fdiv_rn" in texts["quant_rows.cu"]
     assert "rintf" in texts["quant_rows.cu"]

@@ -2,17 +2,25 @@
 
 * Each shipped arch's train, prefill and decode steps (smoke config) lower
   on a ``fake`` (2, 2) mesh with every collective a rank would issue, as
-  ``launch.dryrun`` lowers them; training rwkv6 and zamba2 stops naming
-  ROADMAP A19, on a mesh as without one.
+  ``launch.dryrun`` lowers them; rwkv6's and zamba2's train cells take
+  their recurrences' gradients on (batch, head) blocks.
+* On a 4-rank ``gloo`` (2, 2) mesh (one process a rank), rwkv6's and
+  zamba2's step-0 gradients on ``reference`` equal the unsharded ones
+  within the train tests' ``GRAD_TOL``: the recurrences run on (batch,
+  head) blocks, and the gradients of the operands a rank holds whole over a
+  split (u; A_log, D, B, C) are that rank's part of a sum.
 * On a one-rank ``gloo`` mesh, which shards nothing, the steps of the paths
   that take each family's own mesh code are bit-equal to the unsharded
   ones: rwkv6's recurrence on (batch, head) blocks, zamba2's, seamless's
-  prefill (its cache and memory filled shard by shard), grok's and
-  llava's train steps (the MoE router row by row, the patch prefix).
+  prefill (its cache and memory filled shard by shard), grok's, llava's,
+  rwkv6's and zamba2's train steps (the MoE router row by row, the patch
+  prefix, the recurrences' backward passes on their blocks).
 """
 
 import contextlib
+import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,9 +33,10 @@ from repro_torch.launch import steps
 from repro_torch.models import model_api
 from repro_torch.models.shardlib import distribute_tree, tree_leaves
 from repro_torch.train import make_train_step
+from test_torch_mesh import _GRADS0, _finish, _spawn
+from test_torch_train import GRAD_TOL
 
 KINDS = ("train", "prefill", "decode")
-NOT_TRAINABLE = ("rwkv6-1.6b", "zamba2-2.7b")     # ROADMAP A19
 
 
 @contextlib.contextmanager
@@ -44,10 +53,6 @@ def _mesh(shape, backend):
 def test_every_family_lowers_on_a_2x2_mesh(arch, kind):
     shape = ShapeConfig(kind, 64, 4, kind)
     with _mesh((2, 2), "fake") as mesh:
-        if kind == "train" and arch in NOT_TRAINABLE:
-            with pytest.raises(NotImplementedError, match="A19"):
-                steps.build_cell(arch, shape, mesh, smoke=True)
-            return
         lowered = steps.build_cell(arch, shape, mesh, smoke=True).lower()
     assert lowered.cost["flops"] > 0
     assert lowered.memory["argument_bytes"] > 0
@@ -66,7 +71,8 @@ def _batch(cfg, b, s, seed=3):
     return out
 
 
-@pytest.mark.parametrize("arch", ["grok-1-314b", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llava-next-mistral-7b",
+                                  "rwkv6-1.6b", "zamba2-2.7b"])
 def test_one_rank_mesh_train_step_of_the_other_families(arch):
     cfg = get_config(arch, smoke=True)
     api = model_api(cfg, device="cpu")
@@ -91,6 +97,69 @@ def test_one_rank_mesh_train_step_of_the_other_families(arch):
     assert torch.equal(l0, l1)
     assert all(torch.equal(a.detach(), b.to_local())
                for a, b in zip(tree_leaves(p0), tree_leaves(p1)))
+
+
+SSM_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+_SSM_RANK = textwrap.dedent(_GRADS0) + textwrap.dedent("""
+    import sys
+    import torch
+    torch.set_num_threads(1)            # four ranks share the host's cores
+    rank, tmp = int(sys.argv[1]), sys.argv[2]
+    from repro_torch.backend import use_backend
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import rules_for_mesh, start_mesh, stop_mesh
+    from repro_torch.models import model_api
+    from repro_torch.models.shardlib import distribute_tree
+    inputs = torch.load(f"{tmp}/inputs.pt", weights_only=True)
+    mesh = start_mesh((2, 2), ("data", "model"), backend="gloo", rank=rank,
+                      store_path=f"{tmp}/store")
+    rules = rules_for_mesh(mesh)
+    out = {}
+    for arch, (params, batch) in inputs.items():
+        api = model_api(get_config(arch, smoke=True), device="cpu")
+        params = distribute_tree(params, api.param_specs(), rules)
+        with use_backend("reference", device="cpu"):
+            out[arch] = grads0(api, params, batch, rules)[0]
+    if rank == 0:
+        torch.save(out, f"{tmp}/grads.pt")
+    stop_mesh()
+""")
+
+
+@pytest.fixture(scope="module")
+def ssm_mesh_grads(tmp_path_factory):
+    """Step 0's gradients of rwkv6 and zamba2 smoke on ``reference``: on a
+    4-rank gloo (2, 2) mesh (gathered whole), and without a mesh."""
+    tmp = tmp_path_factory.mktemp("ssm_mesh")
+    inputs = {}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        inputs[arch] = (model_api(cfg, device="cpu").init_params(0),
+                        _batch(cfg, 4, 32))
+    torch.save(inputs, tmp / "inputs.pt")
+    procs = [_spawn(_SSM_RANK, (rank, tmp)) for rank in range(4)]
+    alone = {}
+    for arch, (params, batch) in inputs.items():
+        api = model_api(get_config(arch, smoke=True), device="cpu")
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with use_backend("reference", device="cpu"):
+            alone[arch] = torch.autograd.grad(api.train_loss(params, batch),
+                                              leaves)
+    _finish(procs)
+    return torch.load(tmp / "grads.pt", weights_only=True), alone
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_gradients_on_a_4_rank_mesh_match_no_mesh(ssm_mesh_grads, arch):
+    meshed, alone = ssm_mesh_grads
+    got, want = tree_leaves(meshed[arch]), alone[arch]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = (t.detach().to(torch.float64).numpy() for t in (g, w))
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= GRAD_TOL * np.abs(w).max()
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b",

@@ -416,8 +416,11 @@ def test_train_under_reference_counts_every_gemm_and_no_flag():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
-def test_ssm_and_hybrid_training_is_refused_naming_a19(arch):
-    cfg = get_config(arch, smoke=True)
+def test_ssm_bf16_training_is_refused_naming_a20(arch):
+    """The f32 recurrences train (tests/test_torch_train_ssm.py); the bf16
+    one (``ssm_bf16=True``) needs a backward kernel of its own, and every
+    entry point stops naming ROADMAP A20."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), ssm_bf16=True)
     api = model_api(cfg, device="cpu")
     for call in (
             lambda: train(cfg, ShapeConfig("t", 32, 4, "train"),
@@ -426,7 +429,7 @@ def test_ssm_and_hybrid_training_is_refused_naming_a19(arch):
             lambda: steps.build_train_step(cfg, ShapeConfig(
                 "t", 32, 4, "train"), device="cpu"),
             lambda: api.train_loss(api.init_params(0), {})):
-        with pytest.raises(NotImplementedError, match="A19"):
+        with pytest.raises(NotImplementedError, match="A20"):
             call()
 
 

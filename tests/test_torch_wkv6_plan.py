@@ -87,7 +87,10 @@ def test_plan_constants_are_the_cuda_sources():
                  "const dim3 carry_grid(bh, unsigned(slices));",
                  "wkv6_scan_kernel<<<dim3(bh, unsigned(nc), unsigned(t_tiles)),"
                  " THREADS, SCAN_SMEM_BYTES, st>>>",
-                 "if (chunk == 1) {"):
+                 # the one-token kernel at chunk 1, but where the forward
+                 # under autograd asks for the passes (wkv6_passes_launch)
+                 "if (chunk == 1 && !passes) {",
+                 "ws_floats, B, S, H, P, chunk, stream, true);"):
         assert text in FLAT, text
     # a block reads its own chunk only; the scan's last row tile first
     assert SRC.count("c0 = c * ch") == 2
