@@ -51,12 +51,13 @@ tokens under ``reference``, every forward GEMM on ``systolic_mac`` with
 straight-through gradients, then the same steps under ``ideal``, then 2
 steps with int8 moments), the JAX package's trainer tests at their smoke
 sizes (descent, resume), whether a repeated step gives the same bits, one
-step of the rwkv6 and zamba2 smoke configs, and ``ssm_bf16=True`` refused
-naming A20; then rwkv6-1.6b and zamba2-2.7b at published width and depth
-through the same trainer (4 steps of 2 x 256 tokens under ``reference``
-and ``ideal``): the recurrences' backward kernels (``wkv6_bwd``,
-``ssd_chunk_bwd``, held first against their plain versions) on the main
-path.  Then the device mesh: a one-rank ``nccl`` group
+step of the rwkv6 and zamba2 smoke configs, each also with
+``ssm_bf16=True``; then rwkv6-1.6b and zamba2-2.7b at published width and
+depth through the same trainer (4 steps of 2 x 256 tokens under
+``reference`` and ``ideal``), and rwkv6-1.6b again with ``ssm_bf16=True``:
+the recurrences' backward kernels (``wkv6_bwd``, its bf16 variant
+``wkv6_bwd_bf16`` and ``ssd_chunk_bwd``, held first against their plain
+versions) on the main path.  Then the device mesh: a one-rank ``nccl`` group
 and a (1, 1) mesh (``repro_torch.launch.mesh``), one phi4-mini train step
 at full width and four decode steps of the served model through
 ``build_cell``'s rules, each bit-equal to the unsharded step with
@@ -71,7 +72,7 @@ Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
 (``systolic_mac`` at every model's GEMM shapes, phi4-mini's also at a train
 step's 512 rows, ``razor_matmul``,
 ``precision_island``, ``wkv6``, ``ssd_chunk``, and the backward kernels
-``wkv6_bwd`` and ``ssd_chunk_bwd``), ``paper_flow``,
+``wkv6_bwd``, ``wkv6_bwd_bf16`` and ``ssd_chunk_bwd``), ``paper_flow``,
 ``precision_islands``, ``hwloop_checks``, ``abft_checks``, ``serve`` (with a
 ``torch.profiler`` pass over a short run), ``serve_hwloop``, ``serve_guard``,
 ``autoscale``, ``serve_http``, ``serve_trace``, ``chaos``, per state-space
@@ -84,8 +85,9 @@ seconds), ``wkv6_bf16`` (its checks, the bf16 model run and seconds),
 optimizer's seconds on the stream (CUDA events; the timed steps add no host
 synchronisation to the trainer's), step 0's gradient norm, peak memory, B1 launches and
 device ms a step; the smoke trainer's checks), ``train_ssm`` (the same per
-state-space model and backend, with the recurrences' forward and backward
-launches a step and their device ms in a profiled step), ``mesh_note``,
+state-space model, rwkv6 also with ``ssm_bf16``, and backend, with the
+recurrences' forward and backward launches a step and their device ms in a
+profiled step), ``mesh_note``,
 ``mesh``
 (the one-rank mesh's train and decode steps beside the unsharded ones, the
 dry run's record and trace seconds), ``profile_misses`` (profiled
@@ -3313,14 +3315,17 @@ def ssd_bwd_bound_ms(b, s, h, p, n, chunk, state_grad):
 
 
 def grad_case(torch, fn, plain_bwd, args, chunk, state_grad, names,
-              reduced, what):
+              reduced, what, tols=None, kept=None):
     """One backward pass of a recurrence kernel through autograd (the
     wrapper's forward under autograd, then its backward kernel) against its
     plain backward version on the same inputs and output gradients: each
     gradient within TOL_RECURRENCE of its largest magnitude, the reduced
-    ones (``reduced``) within TOL_REDUCED_GRAD; a repeated backward pass
-    gives the same bits.  Returns (row, the graph's outputs, leaves and
-    output gradients, for timing)."""
+    ones (``reduced``) within TOL_REDUCED_GRAD, or within ``tols[name]``
+    where given; a repeated backward pass gives the same bits.  Returns
+    (row, the graph's outputs, leaves and output gradients, for timing);
+    ``kept``, where given, receives the kernel's and the plain version's
+    gradients and the output gradients (``got``, ``want``, ``dy``,
+    ``dS``)."""
     leaves = [a.detach().requires_grad_(True) for a in args]
     y, S = fn(*leaves, chunk=chunk)
     gen = torch.Generator(device=DEVICE)
@@ -3333,10 +3338,10 @@ def grad_case(torch, fn, plain_bwd, args, chunk, state_grad, names,
     want = plain_bwd(*args, dy, dS if state_grad else None, chunk=chunk)
     row = {}
     for name, g, w in zip(names, got, want):
-        scale = float(w.abs().max())
-        err = float((g - w).abs().max())
-        lim = (TOL_REDUCED_GRAD if name in reduced else TOL_RECURRENCE
-               ) * scale
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        lim = ((tols or {}).get(name) or (
+            TOL_REDUCED_GRAD if name in reduced else TOL_RECURRENCE)) * scale
         if not (math.isfinite(err) and err <= lim):
             fail(f"{what}: {name} off by {err} (limit {lim}, max "
                  f"{scale})")
@@ -3346,6 +3351,9 @@ def grad_case(torch, fn, plain_bwd, args, chunk, state_grad, names,
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"{what}: a repeated backward pass gives other bits")
     row["repeat_bit_equal"] = True
+    if kept is not None:
+        kept.update(got=got, want=want, dy=dy,
+                    dS=dS if state_grad else None)
     worst = max(names, key=lambda n: row[f"max_err_{n}"]
                 / max(row[f"max_err_{n}_limit"], 1e-30))
     row.update(worst_grad=worst, max_err=row[f"max_err_{worst}"],
@@ -3423,6 +3431,105 @@ def check_wkv6_bwd(torch, wkv6, wkv6_backward_plain):
     return out
 
 
+def wkv6_bwd_bf16_bound_ms(b, s, h, p, chunk, state_grad):
+    """:func:`wkv6_bwd_bound_ms` for the bf16 recurrence: r, k, v read and
+    dr, dk, dv written at 2 bytes an element, w, dy and dw at 4, S_in, u and
+    the state's gradients as there; the five products over the strictly
+    lower triangle on the bf16 tensor cores, the four ch p p on the TF32
+    ones (TF32_SPLIT_PASSES products each)."""
+    nc = s // chunk
+    n = b * s * h * p
+    nbytes = (2 * 6 * n + 4 * 3 * n
+              + 4 * (b * h * nc * p * p + h * p
+                     + (2 if state_grad else 1) * b * h * p * p))
+    tri = chunk * (chunk - 1) // 2
+    bf16_ops = 2.0 * b * h * nc * 5 * tri * p
+    f32_ops = 2.0 * b * h * nc * 4 * chunk * p * p
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (bf16_ops / PEAK_FLOPS["bfloat16"]
+             + TF32_SPLIT_PASSES * f32_ops / PEAK_FLOPS["tf32"])
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_wkv6_bwd_bf16(torch, wkv6, wkv6_backward_plain):
+    """wkv6's bf16 backward (``wkv6_bwd_bf16_launch``, through ``wkv6`` on
+    bf16 r/k/v under autograd, the forward ``wkv6_bf16_passes_launch``)
+    against ``wkv6_backward_plain`` in bf16 at rwkv6-1.6b's train (b 2, s
+    256) and loss (2, 2048) shapes, a ragged chunk (1000), chunk 1 (the
+    forward's three passes at one row) and p 47 in strided bf16 views, each
+    with the final state's gradient zero and random: dr, dk, dv (bf16) and
+    dw_log within TOL_WKV6_BF16 of their largest magnitudes, du within
+    TOL_REDUCED_GRAD, dstate within TOL_RECURRENCE; where a chunk holds more
+    than one row dr, dk and dv at least WKV6_BF16_SEPARATION times closer
+    (relative Frobenius) to the plain bf16 backward than the plain f32
+    backward on the same values is (dw_log's separation recorded); a
+    repeated backward pass the same bits; each pass counted by
+    ``wkv6.bf16_backward_launches`` and its forward by
+    ``wkv6.bf16_launches``, none by the f32 counts.  The train and loss
+    shapes timed as the f32 rows are."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 24)
+    H, P = 32, 64
+    cases = [("rwkv6 train", 2, 256, H, P, 64, False),
+             ("rwkv6 loss", 2, 2048, H, P, 64, False),
+             ("ragged", 1, 1000, H, P, 1000, False),
+             ("chunk 1", 2, 16, H, P, 1, False),
+             ("strided", 2, 256, 12, 47, 128, True)]
+    names = ("dr", "dk", "dv", "dw_log", "du", "dstate")
+    tols = {"dr": TOL_WKV6_BF16, "dk": TOL_WKV6_BF16, "dv": TOL_WKV6_BF16,
+            "dw_log": TOL_WKV6_BF16, "du": TOL_REDUCED_GRAD,
+            "dstate": TOL_RECURRENCE}
+    counts = ("bf16_launches", "bf16_backward_launches", "launches",
+              "backward_launches")
+    out = []
+    for name, b, s, h, p, ch, strided in cases:
+        for state_grad in (False, True):
+            args = wkv6_bf16_inputs(torch, gen, b, s, h, p, strided)
+            what = (f"wkv6 bf16 backward {name} (b, s, h, p) = "
+                    f"{(b, s, h, p)} chunk {ch}, state gradient "
+                    f"{'random' if state_grad else 'zero'}")
+            before = [getattr(wkv6, c) for c in counts]
+            kept = {}
+            row, graph = grad_case(
+                torch, wkv6, wkv6_backward_plain, args, ch, state_grad,
+                names, (), what, tols=tols, kept=kept)
+            torch.cuda.synchronize()
+            moved = [getattr(wkv6, c) - n for c, n in zip(counts, before)]
+            if moved != [1, 2, 0, 0]:
+                fail(f"{what}: launches {dict(zip(counts, moved))} for one "
+                     f"forward and two backward passes")
+            got, want = kept["got"], kept["want"]
+            if [g.dtype for g in got[:3]] != [torch.bfloat16] * 3:
+                fail(f"{what}: dr, dk, dv in {[g.dtype for g in got[:3]]}")
+            f32 = wkv6_backward_plain(*args, kept["dy"], kept["dS"],
+                                      chunk=ch, compute_dtype=torch.float32)
+            row = {"case": name, "b": b, "s": s, "h": h, "p": p,
+                   "chunk": ch, "state_grad": state_grad,
+                   "strided": strided, **row}
+            for i, g_name in enumerate(names[:4]):
+                k_fro = fro_rel(got[i], want[i])
+                f_fro = fro_rel(f32[i], want[i])
+                sep = f_fro / k_fro if k_fro else math.inf
+                row.update({f"fro_{g_name}_rel": k_fro,
+                            f"f32_route_fro_{g_name}_rel": f_fro,
+                            f"separation_{g_name}": sep})
+                if ch > 1 and g_name != "dw_log" and not (
+                        sep >= WKV6_BF16_SEPARATION):
+                    fail(f"{what}: {g_name} is {k_fro} from the plain bf16 "
+                         f"backward (relative Frobenius), the f32 backward "
+                         f"{f_fro}: less than {WKV6_BF16_SEPARATION} times "
+                         f"closer, the bf16 roundings are not shown")
+            del got, want, f32, kept
+            if name in ("rwkv6 loss", "rwkv6 train") and not state_grad:
+                time_grad(torch, row, graph, wkv6_backward_plain, args, ch,
+                          "wkv6_bwd_bf16",
+                          wkv6_bwd_bf16_bound_ms(b, s, h, p, ch, state_grad))
+            del graph
+            out.append(row)
+    return out
+
+
 def check_ssd_bwd(torch, ssd_chunk, ssd_chunk_backward_plain):
     """ssd_chunk's backward kernel (csrc/ssd_chunk_bwd.cu, through
     ``ssd_chunk`` under autograd) against ``ssd_chunk_backward_plain`` at
@@ -3488,23 +3595,35 @@ def plain_route(ssm_mod, wkv6_plain, ssd_chunk_plain):
 class Counters:
     """The launch counts of the kernels a path may run."""
 
+    #: a wrapper's counts, where it has them: its kernels' launches, its
+    #: backward kernels', and (wkv6) its bf16 variants' of both
+    COUNTS = ("launches", "backward_launches", "bf16_launches",
+              "bf16_backward_launches")
+
     def __init__(self, **wrappers):
         self.wrappers = wrappers
 
     def zero(self):
         for fn in self.wrappers.values():
-            fn.launches = 0
-            if hasattr(fn, "backward_launches"):
-                fn.backward_launches = 0
+            for count in self.COUNTS:
+                if hasattr(fn, count):
+                    setattr(fn, count, 0)
+
+    def _read(self, count):
+        return {name: getattr(fn, count)
+                for name, fn in self.wrappers.items() if hasattr(fn, count)}
 
     def read(self):
-        return {name: fn.launches for name, fn in self.wrappers.items()}
+        return self._read("launches")
 
     def read_backward(self):
         """The backward kernels' launches (the recurrences' gradients)."""
-        return {name: fn.backward_launches
-                for name, fn in self.wrappers.items()
-                if hasattr(fn, "backward_launches")}
+        return self._read("backward_launches")
+
+    def read_bf16(self):
+        """The bf16 variants' launches: (forward, backward)."""
+        return (self._read("bf16_launches"),
+                self._read("bf16_backward_launches"))
 
 
 def logits_alone(torch, api, params, prompt, fed, backend, use_backend,
@@ -4782,6 +4901,7 @@ def train_run(torch, cfg, mods, tmods, counters, backend, opt_cfg, steps,
     seconds = time.monotonic() - t0
     kernel_launches = counters.read()
     backward_launches = counters.read_backward()
+    bf16_launches, bf16_backward_launches = counters.read_bf16()
     launches = kernel_launches["systolic_mac"]
     summary = be.summary() if backend != "ideal" else None
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -4802,6 +4922,8 @@ def train_run(torch, cfg, mods, tmods, counters, backend, opt_cfg, steps,
            "recurrence_launches": {k: v for k, v in kernel_launches.items()
                                    if k != "systolic_mac"},
            "recurrence_backward_launches": backward_launches,
+           "recurrence_bf16_launches": bf16_launches,
+           "recurrence_bf16_backward_launches": bf16_backward_launches,
            "backend_summary": summary}
     if not all(math.isfinite(x) for x in res.losses):
         fail(f"train {backend}: losses {res.losses}")
@@ -4855,6 +4977,8 @@ def smoke_trainer(torch, mods, tmods):
     differ, if any."""
     import shutil
     import tempfile
+
+    from repro_torch.kernels.wkv6 import wkv6
     seq, batch = SMOKE_TRAIN_SHAPE
     shape = mods.ShapeConfig("t", seq, batch, "train")
     (ROOT / "build").mkdir(exist_ok=True)
@@ -4939,17 +5063,25 @@ def smoke_trainer(torch, mods, tmods):
             fail(f"{arch} smoke training: {res.steps_done} steps, losses "
                  f"{res.losses}")
         out.setdefault("ssm_one_step", {})[arch] = res.losses
-        try:
-            tmods.train(dataclasses.replace(cfg, ssm_bf16=True), shape,
-                        tmods.TrainConfig(steps=1, log_every=0))
-        except NotImplementedError as err:
-            if "A20" not in str(err):
-                fail(f"{arch} ssm_bf16 training refused without naming A20: "
-                     f"{err}")
-            out.setdefault("bf16_refused", {})[arch] = str(err)
-        else:
-            fail(f"{arch} ssm_bf16 smoke training ran: it needs a bf16 "
-                 f"backward kernel (A20)")
+        # the bf16 recurrence (rwkv6 on wkv6's bf16 kernels; zamba2 reads
+        # no ssm_bf16, and its step is the f32 config's)
+        n0 = wkv6.bf16_backward_launches
+        with mods.use_backend(mods.get_backend("reference")):
+            res_bf = tmods.train(dataclasses.replace(cfg, ssm_bf16=True),
+                                 shape, tmods.TrainConfig(
+                                     steps=1, log_every=0,
+                                     checkpoint_every=0))
+        n_bwd = wkv6.bf16_backward_launches - n0
+        if not (res_bf.steps_done == 1
+                and all(math.isfinite(x) for x in res_bf.losses)):
+            fail(f"{arch} ssm_bf16 smoke training: {res_bf.steps_done} "
+                 f"steps, losses {res_bf.losses}")
+        if n_bwd != (cfg.n_layers if cfg.family == "ssm" else 0):
+            fail(f"{arch} ssm_bf16 smoke training: {n_bwd} bf16 wkv6 "
+                 f"backward launches")
+        out.setdefault("ssm_bf16_one_step", {})[arch] = {
+            "losses": res_bf.losses, "wkv6_bf16_backward_launches": n_bwd,
+            "bit_equal_to_f32": res_bf.losses == res.losses}
     return out
 
 
@@ -5022,41 +5154,57 @@ def ssm_train_gemms(cfg):
     return 3 * L + apps * (2 * block - 1) + 1
 
 
+#: the train_ssm runs: (arch, cfg.ssm_bf16), each on reference and ideal
+SSM_TRAIN_RUNS = (("rwkv6-1.6b", False), ("zamba2-2.7b", False),
+                  ("rwkv6-1.6b", True))
+
+
 def train_ssm(torch, mods, counters):
     """rwkv6-1.6b and zamba2-2.7b at published width and depth through
-    ``repro_torch.train.train``: TRAIN_STEPS steps of TRAIN_BATCH under
+    ``repro_torch.train.train``, and rwkv6-1.6b again with
+    ``ssm_bf16=True`` (the bf16 recurrence: wkv6's bf16 forward and
+    backward kernels): TRAIN_STEPS steps of TRAIN_BATCH under
     ``reference`` (B1 on every forward GEMM, :func:`ssm_train_gemms` a
     step, 0 flags), the same seeded steps under ``ideal`` (step 0's loss
     within TOL_TRAIN_LOSS, its global gradient norm within TOL_GNORM, as
     :func:`train_phase` holds phi4).  Each run: seconds a step, tokens/s,
     peak memory, the recurrence's forward launches a step (twice a layer:
     the forward, and again in the backward pass under ``remat="full"``)
-    and backward launches (once a layer), and one profiled step's device
-    time by kernel."""
+    and backward launches (once a layer), all of the run's precision (the
+    other's 0), and one profiled step's device time by kernel."""
     tmods = train_modules()
     out = {}
-    for arch in SSM_ARCHS:
+    for arch, bf16 in SSM_TRAIN_RUNS:
         t0 = time.monotonic()
-        cfg = mods.get_config(arch)
+        key = f"{arch} ssm_bf16" if bf16 else arch
+        cfg = dataclasses.replace(mods.get_config(arch), ssm_bf16=bf16)
         gemms = ssm_train_gemms(cfg)
         kernel = "wkv6" if cfg.family == "ssm" else "ssd_chunk"
+        tag = f"{kernel}_bf16" if bf16 else kernel
         runs = {}
         for backend in ("reference", "ideal"):
             row = train_run(torch, cfg, mods, tmods, counters, backend,
                             tmods.optim.AdamWConfig(), TRAIN_STEPS,
                             gemms=gemms)
-            fwd = row["recurrence_launches"]
-            bwd = row["recurrence_backward_launches"]
-            want_fwd = {k: (2 * cfg.n_layers * TRAIN_STEPS if k == kernel
-                            else 0) for k in fwd}
-            want_bwd = {k: (cfg.n_layers * TRAIN_STEPS if k == kernel
-                            else 0) for k in bwd}
-            if fwd != want_fwd or bwd != want_bwd:
-                fail(f"train_ssm {arch} {backend}: forward launches {fwd}, "
-                     f"backward {bwd}; expected {want_fwd}, {want_bwd}")
-            row.update({f"{kernel}_launches_per_step": fwd[kernel]
+            routes = {False: (row["recurrence_launches"],
+                              row["recurrence_backward_launches"]),
+                      True: (row["recurrence_bf16_launches"],
+                             row["recurrence_bf16_backward_launches"])}
+            for route, (fwd, bwd) in routes.items():
+                on = route == bf16
+                want_fwd = {k: (2 * cfg.n_layers * TRAIN_STEPS
+                                if on and k == kernel else 0) for k in fwd}
+                want_bwd = {k: (cfg.n_layers * TRAIN_STEPS
+                                if on and k == kernel else 0) for k in bwd}
+                if fwd != want_fwd or bwd != want_bwd:
+                    fail(f"train_ssm {key} {backend}: "
+                         f"{'bf16' if route else 'f32'} forward launches "
+                         f"{fwd}, backward {bwd}; expected {want_fwd}, "
+                         f"{want_bwd}")
+            fwd, bwd = routes[bf16]
+            row.update({f"{tag}_launches_per_step": fwd[kernel]
                         / TRAIN_STEPS,
-                        f"{kernel}_backward_launches_per_step": bwd[kernel]
+                        f"{tag}_backward_launches_per_step": bwd[kernel]
                         / TRAIN_STEPS})
             runs[backend] = row
         ref, ideal = runs["reference"], runs["ideal"]
@@ -5066,16 +5214,17 @@ def train_ssm(torch, mods, counters):
                        - ideal["global_grad_norm"][0]
                        ) / ideal["global_grad_norm"][0]
         if not loss_gap <= TOL_TRAIN_LOSS:
-            fail(f"train_ssm {arch}: step 0's loss {ref['losses'][0]} on "
+            fail(f"train_ssm {key}: step 0's loss {ref['losses'][0]} on "
                  f"reference, {ideal['losses'][0]} on ideal (limit "
                  f"{TOL_TRAIN_LOSS})")
         if not norm_gap <= TOL_GNORM:
-            fail(f"train_ssm {arch}: step 0's gradient norm "
+            fail(f"train_ssm {key}: step 0's gradient norm "
                  f"{ref['global_grad_norm'][0]} on reference, "
                  f"{ideal['global_grad_norm'][0]} on ideal (limit "
                  f"{TOL_GNORM})")
-        out[arch] = {
-            "arch": arch, "batch": list(TRAIN_BATCH), "layers": cfg.n_layers,
+        out[key] = {
+            "arch": arch, "ssm_bf16": bf16, "batch": list(TRAIN_BATCH),
+            "layers": cfg.n_layers,
             "d_model": cfg.d_model, "cut": None, "remat": cfg.remat,
             "parameters": mods.param_count(mods.model_api(cfg).param_specs()),
             "gemms_per_step": gemms, "reference": ref, "ideal": ideal,
@@ -5084,7 +5233,7 @@ def train_ssm(torch, mods, counters):
             "step0_grad_norm_gap_rel": norm_gap,
             "step0_grad_norm_gap_limit": TOL_GNORM,
             "seconds": time.monotonic() - t0}
-        print(f"train_ssm {arch}: {out[arch]['seconds']:.1f} s, step "
+        print(f"train_ssm {key}: {out[key]['seconds']:.1f} s, step "
               f"{ref['step_s_mean_after_first']:.3f} s on reference, peak "
               f"{ref['peak_device_memory_gb']:.1f} GB", flush=True)
         release(torch)
@@ -5564,6 +5713,8 @@ def main() -> int:
     ssd_rows = check_ssd(torch, ssd_chunk, ssd_chunk_plain)
     t0 = time.monotonic()
     wkv6_bwd_rows = check_wkv6_bwd(torch, wkv6, wkv6_backward_plain)
+    wkv6_bwd_bf16_rows = check_wkv6_bwd_bf16(torch, wkv6,
+                                             wkv6_backward_plain)
     ssd_bwd_rows = check_ssd_bwd(torch, ssd_chunk, ssd_chunk_backward_plain)
     print(f"backward kernel checks: {time.monotonic() - t0:.1f} s",
           flush=True)
@@ -5579,6 +5730,7 @@ def main() -> int:
                            "precision_island": island_rows,
                            "wkv6": wkv6_rows, "ssd_chunk": ssd_rows,
                            "wkv6_bwd": wkv6_bwd_rows,
+                           "wkv6_bwd_bf16": wkv6_bwd_bf16_rows,
                            "ssd_chunk_bwd": ssd_bwd_rows})
 
     host = host_cost(torch, systolic_mac, backend_mod, largest_common_block)
@@ -5888,14 +6040,20 @@ def main() -> int:
                              "by torch.profiler (ms above: back to back by "
                              "CUDA events)")
     kernels.append(entry)
-    for name, source, fwd, rows, arch, shape_case in (
+    for name, source, fwd, rows, arch, shape_case, counted in (
             ("wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
              "src/repro/kernels/wkv6.py:28", wkv6_bwd_rows, "rwkv6-1.6b",
-             "rwkv6"),
+             "rwkv6", "recurrence_backward_launches"),
+            ("wkv6_bwd_bf16",
+             "src/repro_torch/csrc/wkv6_bwd.cu (wkv6_bwd_bf16_launch)",
+             "src/repro/kernels/wkv6.py:28 with bf16 operands (the JAX "
+             "package's ssm_bf16, src/repro/models/ssm.py:257)",
+             wkv6_bwd_bf16_rows, "rwkv6-1.6b ssm_bf16", "rwkv6",
+             "recurrence_bf16_backward_launches"),
             ("ssd_chunk_bwd", "src/repro_torch/csrc/ssd_chunk_bwd.cu",
              "src/repro/kernels/ssd_chunk.py:26", ssd_bwd_rows,
-             "zamba2-2.7b", "zamba2")):
-        kernel = name[:-4]
+             "zamba2-2.7b", "zamba2", "recurrence_backward_launches")):
+        kernel = name.split("_bwd")[0]
         run = ssm_trained[arch]["reference"]
         layers = ssm_trained[arch]["layers"]
         train_row = next(r for r in rows if r["case"] == f"{shape_case} "
@@ -5909,7 +6067,7 @@ def main() -> int:
             "replaces": f"none: a kernel of the port, not a TPU kernel (the "
                         f"gradient of {fwd}'s function; the JAX package "
                         f"takes it by jax.grad of its jnp chunked form)",
-            "launches": run["recurrence_backward_launches"][kernel],
+            "launches": run[counted][kernel],
             "launches_of": f"train_ssm: {TRAIN_STEPS} {arch} train steps "
                            f"on reference",
             "max_abs_err": worst["max_err"],

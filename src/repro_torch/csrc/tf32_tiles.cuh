@@ -8,12 +8,22 @@
 // TF32 pass keeps 2^-11 of a term).  The tensor cores add inside an mma
 // without rounding to nearest, so a sum leans toward zero by about f32's last
 // place, and no result repeats an f32 sum taken on the CUDA cores bit for
-// bit.  Every function here is used by both kernels' sources.
+// bit.  Every function here but the bf16 pieces is used by both kernels'
+// sources.
+//
+// The bf16 pieces (wkv6's bf16 recurrence, wkv6.cu and its gradient
+// wkv6_bf16 in wkv6_bwd.cu): bf16 operands widened to f32 exactly, f32
+// values rounded to bf16 (to nearest, ties to even), and products on the
+// bf16 tensor cores (mma.sync m16n8k16, f32 accumulate) over the same warp
+// tiles.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tf32_tiles {
 
@@ -113,6 +123,75 @@ __device__ __forceinline__ void product_3xtf32(float (&acc)[2][2][4], SA A,
   int k0 = 0;
   for (; k0 < k_both; k0 += 8) k_step<0>(acc, A, B, w, k0);
   for (; k0 < k_last; k0 += 8) k_step<1>(acc, A, B, w, k0);
+}
+
+template <class T>
+constexpr bool IS_BF16 = std::is_same<T, __nv_bfloat16>::value;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x rounded to the nearest bf16 (ties to even), as an f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x as a T (for bf16: rounded, exact where x is a rounding above)
+template <class T>
+__device__ __forceinline__ T narrow(float x) {
+  if constexpr (IS_BF16<T>)
+    return __float2bfloat16_rn(x);
+  else
+    return x;
+}
+
+// two f32 values as one bf16x2 register, lo in the low half, each rounded
+// to the nearest bf16 (exact where it comes from a rounding above)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[strip][n8 tile] += A (m, k) B (k, j) on the bf16 tensor cores, both
+// strips over k < k_both, the lower strip alone up to k_last (multiples of
+// 16), as product_3xtf32; A and B read shared f32, each value rounded to
+// bf16 as it is packed
+template <class FA, class FB>
+__device__ __forceinline__ void product_bf16(float (&acc)[2][2][4], FA A,
+                                             FB B, const WarpTile& w,
+                                             int k_both, int k_last) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+  for (int k0 = 0; k0 < k_last; k0 += 16) {
+    uint32_t b[2][2];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int n = w.j0 + 8 * jj + g;
+      b[jj][0] = pack_bf16(B(k0 + t2, n), B(k0 + t2 + 1, n));
+      b[jj][1] = pack_bf16(B(k0 + t2 + 8, n), B(k0 + t2 + 9, n));
+    }
+#pragma unroll
+    for (int si = 0; si < 2; ++si) {
+      if (si == 0 && k0 >= k_both) continue;
+      const int m = w.m[si];
+      const uint32_t a[4] = {
+          pack_bf16(A(m + g, k0 + t2), A(m + g, k0 + t2 + 1)),
+          pack_bf16(A(m + g + 8, k0 + t2), A(m + g + 8, k0 + t2 + 1)),
+          pack_bf16(A(m + g, k0 + t2 + 8), A(m + g, k0 + t2 + 9)),
+          pack_bf16(A(m + g + 8, k0 + t2 + 8), A(m + g + 8, k0 + t2 + 9))};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) mma_bf16(acc[si][jj], a, b[jj][0], b[jj][1]);
+    }
+  }
 }
 
 // f(row, col, si, jj, r) for every element acc[si][jj][r] of a warp's share

@@ -74,7 +74,11 @@
 //        every s tile of the chunk before it is rounded;
 // the state pass's S_c, the carry and r_state S_in stay f32 (3xTF32: their
 // operands are bf16-exact or f32).  At s = 1 A is all masked and the
-// one-token kernel's f32 arithmetic is the reference's.
+// one-token kernel's f32 arithmetic is the reference's.  The bf16 helpers
+// (widen, round_bf16, pack_bf16, product_bf16) are tf32_tiles.cuh's, shared
+// with the gradient (wkv6_bwd.cu).  Under autograd wkv6_bf16_passes_launch
+// takes the three passes at any chunk and keeps their workspace, as
+// wkv6_passes_launch does for f32 operands.
 //
 // Bound on this card (NVIDIA H100 SXM), rwkv6's loss shape (b 2, s 2048, h
 // 32, p 64, chunk 64): r, k, v, w read once, y written once, u read once, the
@@ -88,8 +92,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "tf32_tiles.cuh"
 
@@ -125,19 +127,6 @@ __device__ __forceinline__ void stage(float* dst, int ld, At at, int rows,
   stage_tile<TILE, PMAX, THREADS>(dst, ld, at, rows, cols, vec);
 }
 
-template <class T>
-constexpr bool IS_BF16 = std::is_same<T, __nv_bfloat16>::value;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// x rounded to the nearest bf16 (ties to even), as an f32
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // a (TILE x PMAX) tile of r, k or v into shared f32: by cp.async for f32
 // operands; widened on load for bf16 ones (clamped address, zero past the
 // edge, as stage_tile)
@@ -152,52 +141,6 @@ __device__ __forceinline__ void stage_in(float* dst, int ld, At at, int rows,
       const int i = e / PMAX, q = e % PMAX;
       const float x = widen(*at(min(i, rows - 1), min(q, cols - 1)));
       dst[i * ld + q] = (i < rows && q < cols) ? x : 0.f;
-    }
-  }
-}
-
-// two f32 values (bf16-exact where they come from a rounding above) as one
-// bf16x2 register, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[strip][n8 tile] += A (m, k) B (k, j) on the bf16 tensor cores, both
-// strips over k < k_both, the lower strip alone up to k_last (multiples of
-// 16), as product_3xtf32; A and B read shared f32 holding bf16 values
-template <class FA, class FB>
-__device__ __forceinline__ void product_bf16(float (&acc)[2][2][4], FA A,
-                                             FB B, const WarpTile& w,
-                                             int k_both, int k_last) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-  for (int k0 = 0; k0 < k_last; k0 += 16) {
-    uint32_t b[2][2];
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int n = w.j0 + 8 * jj + g;
-      b[jj][0] = pack_bf16(B(k0 + t2, n), B(k0 + t2 + 1, n));
-      b[jj][1] = pack_bf16(B(k0 + t2 + 8, n), B(k0 + t2 + 9, n));
-    }
-#pragma unroll
-    for (int si = 0; si < 2; ++si) {
-      if (si == 0 && k0 >= k_both) continue;
-      const int m = w.m[si];
-      const uint32_t a[4] = {
-          pack_bf16(A(m + g, k0 + t2), A(m + g, k0 + t2 + 1)),
-          pack_bf16(A(m + g + 8, k0 + t2), A(m + g + 8, k0 + t2 + 1)),
-          pack_bf16(A(m + g, k0 + t2 + 8), A(m + g, k0 + t2 + 9)),
-          pack_bf16(A(m + g + 8, k0 + t2 + 8), A(m + g + 8, k0 + t2 + 9))};
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) mma_bf16(acc[si][jj], a, b[jj][0], b[jj][1]);
     }
   }
 }
@@ -774,4 +717,20 @@ extern "C" int wkv6_passes_launch(
   return launch<float>(r, k, v, w, r_sb, r_ss, r_sh, k_sb, k_ss, k_sh, v_sb,
                        v_ss, v_sh, w_sb, w_ss, w_sh, u, s0, y, s_out, ws,
                        ws_floats, B, S, H, P, chunk, stream, true);
+}
+
+// wkv6_passes_launch with r, k and v in bf16 (wkv6_bf16_launch's
+// arithmetic): the forward of the bf16 recurrence under autograd, its
+// workspace kept for wkv6_bwd_bf16_launch (wkv6_bwd.cu)
+extern "C" int wkv6_bf16_passes_launch(
+    const void* r, const void* k, const void* v, const void* w,
+    long long r_sb, long long r_ss, long long r_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long w_sb, long long w_ss, long long w_sh,
+    const void* u, const void* s0, void* y, void* s_out, void* ws,
+    long long ws_floats, int B, int S, int H, int P, int chunk, void* stream) {
+  return launch<__nv_bfloat16>(r, k, v, w, r_sb, r_ss, r_sh, k_sb, k_ss, k_sh,
+                               v_sb, v_ss, v_sh, w_sb, w_ss, w_sh, u, s0, y,
+                               s_out, ws, ws_floats, B, S, H, P, chunk,
+                               stream, true);
 }

@@ -49,7 +49,32 @@
 //
 // A simple kernel: tiles are loaded with plain loads, one head a block, every
 // 64 x 64 tile in shared memory at one row stride.
+//
+// The bf16 recurrence (wkv6_bwd_bf16_launch: r, k and v in bf16, the
+// forward wkv6_bf16_passes_launch's) is jax.grad of the reference's
+// wkv6_chunked(..., compute_dtype=bf16) rounding for rounding, as
+// kernels/wkv6.py::wkv6_backward_plain(..., compute_dtype=bf16) repeats it.
+// The state, row and column passes are templates on r/k/v's type and widen
+// them exactly on load.  The row and column passes round where the
+// reference rounds, each value from an f32 sum or product:
+//   dy1 = bf16(dy) (the intra-chunk output's gradient; packing rounds it),
+//   rr = bf16(r * bf16(er)), kk = bf16(k * bf16(ek)), A = bf16(rr kk^T),
+//   dA = bf16(tril_-1(dy1 v^T)), drr = bf16(dA kk), dkk = bf16(dA^T rr),
+//   A^T dy1 rounded once (each over every tile of the chunk before its
+//   rounding), these five products on the bf16 tensor cores (mma.sync
+//   m16n8k16, f32 accumulate);
+//   dr = bf16(bf16(bf16(ers drs) + bf16(dy.v k u)) + bf16(bf16(er) drr)),
+//   dk = bf16(bf16(bf16(tail dkt) + bf16(dy.v (r u))) + bf16(bf16(ek) dkk)),
+//   dv = bf16(bf16(bf16(kt dS_out) + bf16((r u . k) dy)) + bf16(A^T dy1)),
+//   each f32 term rounded, then added in bf16 in the order of the
+//   reference's VJP (state + u, then the intra-chunk term);
+//   the factors' gradients bf16(r drr) er and bf16(k dkk) ek (f32 after the
+//   rounding) into d/dlw.
+// The carried-state and state products stay 3xTF32 (dy and S_in, dS_out
+// are f32); the carry, lw and u passes, dw, du and dstate stay f32.  dr, dk
+// and dv are written in bf16.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,12 +100,13 @@ struct Seq {
 };
 
 // a (TILE x PMAX) tile, rows >= rows and columns >= cols zero
+// (r, k and v in bf16 widened exactly)
 template <class At>
 __device__ __forceinline__ void load_tile(float* dst, At at, int rows,
                                           int cols) {
   for (int e = threadIdx.x; e < TILE * PMAX; e += THREADS) {
     const int i = e / PMAX, q = e % PMAX;
-    dst[i * LD + q] = (i < rows && q < cols) ? *at(i, q) : 0.f;
+    dst[i * LD + q] = (i < rows && q < cols) ? widen(*at(i, q)) : 0.f;
   }
 }
 
@@ -100,15 +126,35 @@ __device__ __forceinline__ void zero(float (&acc)[2][2][4]) {
       for (int r = 0; r < 4; ++r) acc[si][jj][r] = 0.f;
 }
 
-// a warp's share of acc into a shared tile
+// acc = A (m, k) B (k, j) over k < k_end, 3xTF32 for f32 operands (k_end
+// a multiple of 8) and on the bf16 tensor cores for bf16 ones (rounded up
+// to 16: the tiles are zero past k_end)
+template <bool BF, class FA, class FB>
+__device__ __forceinline__ void mm_in(float (&acc)[2][2][4], FA a, FB b,
+                                      int k_end) {
+  if constexpr (BF)
+    product_bf16(acc, a, b, warp_tile(), (k_end + 15) & ~15,
+                 (k_end + 15) & ~15);
+  else
+    mm(acc, a, b, k_end);
+}
+
+// a warp's share of acc into a shared tile (bf16: rounded)
+template <bool BF = false>
 __device__ __forceinline__ void to_shared(const float (&acc)[2][2][4],
                                           float* dst) {
   for_each(warp_tile(), [&](int i, int j, int si, int jj, int r) {
-    dst[i * LD + j] = acc[si][jj][r];
+    dst[i * LD + j] = BF ? round_bf16(acc[si][jj][r]) : acc[si][jj][r];
   });
 }
 
 __device__ __forceinline__ int round8(int n) { return (n + 7) & ~7; }
+
+// a term of a bf16 gradient: x rounded to bf16 where BF
+template <bool BF>
+__device__ __forceinline__ float rnd(float x) {
+  return BF ? round_bf16(x) : x;
+}
 
 // out[row] = sum over q < n of f(row, q), for the TILE rows, four threads a
 // row in one order
@@ -130,8 +176,9 @@ __device__ __forceinline__ float cexp(float z, float lo, float hi,
 }
 
 // Pass 1, grid (b * h, chunks): G_c = rs^T dy into dS's slot
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-wkv6_bwd_state_kernel(const float* __restrict__ r, Seq sr,
+wkv6_bwd_state_kernel(const T* __restrict__ r, Seq sr,
                       const float* __restrict__ dy,
                       const float* __restrict__ lw, float* __restrict__ dS,
                       int H, int S, int P, int ch) {
@@ -141,7 +188,7 @@ wkv6_bwd_state_kernel(const float* __restrict__ r, Seq sr,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int c = blockIdx.y, c0 = c * ch;
   const int n_tiles = (ch + TILE - 1) / TILE;
-  const float* rb = r + b * sr.b + h * sr.h;
+  const T* rb = r + b * sr.b + h * sr.h;
   const long long ss = (long long)H * P;             // dense row stride
   const float* lwb = lw + (long long)b * S * ss + (long long)h * P;
   const float* dyb = dy + (long long)b * S * ss + (long long)h * P;
@@ -157,7 +204,7 @@ wkv6_bwd_state_kernel(const float* __restrict__ r, Seq sr,
         const int row = r0 + t;                      // row of the chunk
         const float lp =
             row > 0 ? lwb[(long long)(c0 + row - 1) * ss + p] : 0.f;
-        x = __fmul_rn(rb[(c0 + row) * sr.s + p],
+        x = __fmul_rn(widen(rb[(c0 + row) * sr.s + p]),
                       expf(clip(lp, -EXP_CLAMP, 0.f)));
       }
       Rs[t * LD + p] = x;
@@ -208,16 +255,18 @@ wkv6_bwd_carry_kernel(const float* __restrict__ dec,
 
 // Pass 3, grid (b * h, chunks, row tiles): dr, d/dlw_prev, partials of d/dm
 // and of du
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-wkv6_bwd_row_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                    const float* __restrict__ v, Seq sr, Seq sk, Seq sv,
+wkv6_bwd_row_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                    const T* __restrict__ v, Seq sr, Seq sk, Seq sv,
                     const float* __restrict__ u, const float* __restrict__ dy,
                     const float* __restrict__ lw,
-                    const float* __restrict__ S_in, float* __restrict__ dr,
+                    const float* __restrict__ S_in, T* __restrict__ dr,
                     float* __restrict__ g, float* __restrict__ dm_part,
                     float* __restrict__ du_part, int H, int S, int P,
                     int ch) {
   extern __shared__ __align__(16) float smem[];
+  constexpr bool BF = IS_BF16<T>;
   float* Dy = smem;                       // dy of the t tile   [t][q]
   float* Lt = Dy + TILE_FLOATS;           // lw of the t tile   [t][p]
   float* X1 = Lt + TILE_FLOATS;           // drs, then dz_r     [t][p]
@@ -233,9 +282,9 @@ wkv6_bwd_row_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int ti = blockIdx.z, t0 = ti * TILE, nt = min(TILE, ch - t0);
   const long long ss = (long long)H * P;
   const long long dense = (long long)b * S * ss + (long long)h * P;
-  const float* rb = r + b * sr.b + h * sr.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
+  const T* rb = r + b * sr.b + h * sr.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
   const float* lwb = lw + dense;
   const float* dyb = dy + dense;
 
@@ -277,30 +326,32 @@ wkv6_bwd_row_kernel(const float* __restrict__ r, const float* __restrict__ k,
         return __fmul_rn(Dy[t * LD + q], Vs[t * LD + q]); });
     for (int e = tid; e < TILE * PMAX; e += THREADS) {   // kk in place
       const int i = e / PMAX, p = e % PMAX;
-      if (i < ns && p < P)
-        Ks[i * LD + p] = __fmul_rn(
-            Ks[i * LD + p],
-            expf(clip(__fsub_rn(0.5f * lend[p], Ls[i * LD + p]), -EXP_CLAMP,
-                      EXP_CLAMP)));
+      if (i < ns && p < P) {
+        const float f = expf(clip(__fsub_rn(0.5f * lend[p], Ls[i * LD + p]),
+                                  -EXP_CLAMP, EXP_CLAMP));
+        const float x = Ks[i * LD + p];
+        Ks[i * LD + p] =
+            BF ? round_bf16(__fmul_rn(x, round_bf16(f))) : __fmul_rn(x, f);
+      }
     }
-    {                                      // dA = tril_-1(dy v^T)
+    {                                      // dA = tril_-1(dy v^T) (bf16: dy1)
       float acc[2][2][4];
       zero(acc);
-      mm(acc, [&](int t, int q) { return Dy[t * LD + q]; },
-         [&](int q, int s) { return Vs[s * LD + q]; }, round8(P));
+      mm_in<BF>(acc, [&](int t, int q) { return Dy[t * LD + q]; },
+                [&](int q, int s) { return Vs[s * LD + q]; }, round8(P));
       for_each(warp_tile(), [&](int t, int s, int si, int jj, int i) {
-        Sa[t * LD + s] =
-            (t < nt && s < ns && s0 + s < t0 + t) ? acc[si][jj][i] : 0.f;
+        Sa[t * LD + s] = (t < nt && s < ns && s0 + s < t0 + t)
+                             ? rnd<BF>(acc[si][jj][i]) : 0.f;
       });
     }
     __syncthreads();
-    mm(drr, [&](int t, int s) { return Sa[t * LD + s]; },
-       [&](int s, int p) { return Ks[s * LD + p]; }, round8(ns));
+    mm_in<BF>(drr, [&](int t, int s) { return Sa[t * LD + s]; },
+              [&](int s, int p) { return Ks[s * LD + p]; }, round8(ns));
   }
   __syncthreads();
-  to_shared(drr, Ks);
+  to_shared<BF>(drr, Ks);
   __syncthreads();
-  float* drb = dr + dense;
+  T* drb = dr + dense;
   float* gb = g + dense;
   for (int e = tid; e < TILE * PMAX; e += THREADS) {
     const int t = e / PMAX, p = e % PMAX;
@@ -312,13 +363,22 @@ wkv6_bwd_row_kernel(const float* __restrict__ r, const float* __restrict__ k,
       const float er =
           cexp(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP, EXP_CLAMP, in_r);
       const float ers = cexp(lp, -EXP_CLAMP, 0.f, in_s);
-      const float rv = rb[row * sr.s + p], kv = kb[row * sk.s + p];
+      const float rv = widen(rb[row * sr.s + p]), kv = widen(kb[row * sk.s + p]);
       const float d_rr = Ks[t * LD + p], d_rs = X1[t * LD + p];
-      const float dd = __fmul_rn(ddiag[t], u_s[p]);
-      drb[(long long)row * ss + p] = __fadd_rn(
-          __fadd_rn(__fmul_rn(er, d_rr), __fmul_rn(ers, d_rs)),
-          __fmul_rn(dd, kv));
-      zr = in_r ? __fmul_rn(__fmul_rn(rv, d_rr), er) : 0.f;
+      float out;
+      if constexpr (BF) {
+        out = round_bf16(__fadd_rn(
+            round_bf16(__fadd_rn(
+                round_bf16(__fmul_rn(ers, d_rs)),
+                round_bf16(__fmul_rn(__fmul_rn(ddiag[t], kv), u_s[p])))),
+            round_bf16(__fmul_rn(round_bf16(er), d_rr))));
+      } else {
+        const float dd = __fmul_rn(ddiag[t], u_s[p]);
+        out = __fadd_rn(__fadd_rn(__fmul_rn(er, d_rr), __fmul_rn(ers, d_rs)),
+                        __fmul_rn(dd, kv));
+      }
+      drb[(long long)row * ss + p] = narrow<T>(out);
+      zr = in_r ? __fmul_rn(rnd<BF>(__fmul_rn(rv, d_rr)), er) : 0.f;
       const float zs = in_s ? __fmul_rn(__fmul_rn(rv, d_rs), ers) : 0.f;
       gb[(long long)row * ss + p] = __fadd_rn(zr, zs);
       ut = __fmul_rn(__fmul_rn(ddiag[t], rv), kv);
@@ -341,16 +401,18 @@ wkv6_bwd_row_kernel(const float* __restrict__ r, const float* __restrict__ k,
 
 // Pass 4, grid (b * h, chunks, row tiles as the s rows): dv, dk, d/dlw
 // through ek and tail (into dw), partials of d/dm and d/dL
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-wkv6_bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                    const float* __restrict__ v, Seq sr, Seq sk, Seq sv,
+wkv6_bwd_col_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                    const T* __restrict__ v, Seq sr, Seq sk, Seq sv,
                     const float* __restrict__ u, const float* __restrict__ dy,
                     const float* __restrict__ lw,
-                    const float* __restrict__ dS, float* __restrict__ dk,
-                    float* __restrict__ dv, float* __restrict__ dw,
+                    const float* __restrict__ dS, T* __restrict__ dk,
+                    T* __restrict__ dv, float* __restrict__ dw,
                     float* __restrict__ dmk_part, float* __restrict__ dL_part,
                     int H, int S, int P, int ch) {
   extern __shared__ __align__(16) float smem[];
+  constexpr bool BF = IS_BF16<T>;
   float* Kk = smem;                       // k, then kk, of the s tile [s][p]
   float* Vt = Kk + TILE_FLOATS;           // v of the s tile          [s][q]
   float* Lt = Vt + TILE_FLOATS;           // lw of the s tile         [s][p]
@@ -368,9 +430,9 @@ wkv6_bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int ti = blockIdx.z, s0 = ti * TILE, ns = min(TILE, ch - s0);
   const long long ss = (long long)H * P;
   const long long dense = (long long)b * S * ss + (long long)h * P;
-  const float* rb = r + b * sr.b + h * sr.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
+  const T* rb = r + b * sr.b + h * sr.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
   const float* lwb = lw + dense;
   const float* dyb = dy + dense;
 
@@ -405,18 +467,23 @@ wkv6_bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ k,
     to_shared(acc, X2);
   }
   __syncthreads();
-  float dva[2][2][4], dkk[2][2][4];        // dv = kt dS_out + ...
+  // dv = kt dS_out + A^T dy (bf16: A^T dy1 in an accumulator of its own,
+  // rounded once) + (sum_p r u k) dy
+  float dva[2][2][4], dvi[2][2][4], dkk[2][2][4];
   zero(dva);
+  zero(dvi);
   zero(dkk);
   mm(dva, [&](int s, int p) { return Rr[s * LD + p]; },
      [&](int p, int q) { return Sa[p * LD + q]; }, round8(P));
   for (int e = tid; e < TILE * PMAX; e += THREADS) {     // kk in place
     const int i = e / PMAX, p = e % PMAX;
-    if (i < ns && p < P)
-      Kk[i * LD + p] = __fmul_rn(
-          Kk[i * LD + p],
-          expf(clip(__fsub_rn(0.5f * lend[p], Lt[i * LD + p]), -EXP_CLAMP,
-                    EXP_CLAMP)));
+    if (i < ns && p < P) {
+      const float f = expf(clip(__fsub_rn(0.5f * lend[p], Lt[i * LD + p]),
+                                -EXP_CLAMP, EXP_CLAMP));
+      const float x = Kk[i * LD + p];
+      Kk[i * LD + p] =
+          BF ? round_bf16(__fmul_rn(x, round_bf16(f))) : __fmul_rn(x, f);
+    }
   }
   for (int tj = ti; tj < n_tiles; ++tj) {
     const int t0 = tj * TILE, nt = min(TILE, ch - t0);
@@ -436,7 +503,7 @@ wkv6_bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ k,
         return __fmul_rn(Dy[s * LD + q], Vt[s * LD + q]); });
       row_sums(diag, P, [&](int s, int p) {
         return s < ns ? __fmul_rn(__fmul_rn(Rr[s * LD + p], u_s[p]),
-                                  kb[(c0 + s0 + s) * sk.s + p])
+                                  widen(kb[(c0 + s0 + s) * sk.s + p]))
                       : 0.f; });
       __syncthreads();
     }
@@ -444,9 +511,11 @@ wkv6_bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ k,
       const int t = e / PMAX, p = e % PMAX;
       if (t < nt && p < P) {
         const float lp = t > 0 ? Lw[(t - 1) * LD + p] : lw0[p];
-        Rr[t * LD + p] = __fmul_rn(
-            Rr[t * LD + p],
-            expf(clip(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP, EXP_CLAMP)));
+        const float f =
+            expf(clip(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP, EXP_CLAMP));
+        const float x = Rr[t * LD + p];
+        Rr[t * LD + p] =
+            BF ? round_bf16(__fmul_rn(x, round_bf16(f))) : __fmul_rn(x, f);
       }
     }
     __syncthreads();
@@ -454,34 +523,43 @@ wkv6_bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ k,
       float a[2][2][4], da[2][2][4];
       zero(a);
       zero(da);
-      mm(a, [&](int t, int p) { return Rr[t * LD + p]; },
-         [&](int p, int s) { return Kk[s * LD + p]; }, round8(P));
-      mm(da, [&](int t, int q) { return Dy[t * LD + q]; },
-         [&](int q, int s) { return Vt[s * LD + q]; }, round8(P));
+      mm_in<BF>(a, [&](int t, int p) { return Rr[t * LD + p]; },
+                [&](int p, int s) { return Kk[s * LD + p]; }, round8(P));
+      mm_in<BF>(da, [&](int t, int q) { return Dy[t * LD + q]; },
+                [&](int q, int s) { return Vt[s * LD + q]; }, round8(P));
       for_each(warp_tile(), [&](int t, int s, int si, int jj, int i) {
         const bool keep = t < nt && s < ns && s0 + s < t0 + t;
-        Sa[t * LD + s] = keep ? a[si][jj][i] : 0.f;
-        Sd[t * LD + s] = keep ? da[si][jj][i] : 0.f;
+        Sa[t * LD + s] = keep ? rnd<BF>(a[si][jj][i]) : 0.f;
+        Sd[t * LD + s] = keep ? rnd<BF>(da[si][jj][i]) : 0.f;
       });
     }
     __syncthreads();
-    mm(dva, [&](int s, int t) { return Sa[t * LD + s]; },
-       [&](int t, int q) { return Dy[t * LD + q]; }, round8(nt));
-    mm(dkk, [&](int s, int t) { return Sd[t * LD + s]; },
-       [&](int t, int p) { return Rr[t * LD + p]; }, round8(nt));
+    if constexpr (BF)
+      mm_in<BF>(dvi, [&](int s, int t) { return Sa[t * LD + s]; },
+                [&](int t, int q) { return Dy[t * LD + q]; }, round8(nt));
+    else
+      mm(dva, [&](int s, int t) { return Sa[t * LD + s]; },
+         [&](int t, int q) { return Dy[t * LD + q]; }, round8(nt));
+    mm_in<BF>(dkk, [&](int s, int t) { return Sd[t * LD + s]; },
+              [&](int t, int p) { return Rr[t * LD + p]; }, round8(nt));
   }
   __syncthreads();
-  float* dvb = dv + dense;
+  T* dvb = dv + dense;
   for_each(warp_tile(), [&](int s, int q, int si, int jj, int i) {
     if (s < ns && q < P) {
       const long long row = c0 + s0 + s;
-      dvb[row * ss + q] =
-          __fadd_rn(dva[si][jj][i], __fmul_rn(diag[s], dyb[row * ss + q]));
+      const float du_term = __fmul_rn(diag[s], dyb[row * ss + q]);
+      dvb[row * ss + q] = narrow<T>(
+          BF ? round_bf16(__fadd_rn(
+                   round_bf16(__fadd_rn(round_bf16(dva[si][jj][i]),
+                                        round_bf16(du_term))),
+                   round_bf16(dvi[si][jj][i])))
+             : __fadd_rn(dva[si][jj][i], du_term));
     }
   });
-  to_shared(dkk, Sa);
+  to_shared<BF>(dkk, Sa);
   __syncthreads();
-  float* dkb = dk + dense;
+  T* dkb = dk + dense;
   float* dwb = dw + dense;
   for (int e = tid; e < TILE * PMAX; e += THREADS) {
     const int s = e / PMAX, p = e % PMAX;
@@ -494,12 +572,22 @@ wkv6_bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ k,
           cexp(__fsub_rn(0.5f * lend[p], l), -EXP_CLAMP, EXP_CLAMP, in_k);
       const float tail = cexp(__fsub_rn(lend[p], l), -EXP_CLAMP, EXP_CLAMP,
                               in_t);
-      const float kv = kb[row * sk.s + p], rv = rb[row * sr.s + p];
+      const float kv = widen(kb[row * sk.s + p]), rv = widen(rb[row * sr.s + p]);
       const float d_kk = Sa[s * LD + p], d_kt = X2[s * LD + p];
-      dkb[(long long)row * ss + p] = __fadd_rn(
-          __fadd_rn(__fmul_rn(ek, d_kk), __fmul_rn(tail, d_kt)),
-          __fmul_rn(__fmul_rn(ddiag[s], u_s[p]), rv));
-      zk = in_k ? __fmul_rn(__fmul_rn(kv, d_kk), ek) : 0.f;
+      float out;
+      if constexpr (BF) {
+        out = round_bf16(__fadd_rn(
+            round_bf16(__fadd_rn(
+                round_bf16(__fmul_rn(d_kt, tail)),
+                round_bf16(__fmul_rn(ddiag[s], __fmul_rn(rv, u_s[p]))))),
+            round_bf16(__fmul_rn(d_kk, round_bf16(ek)))));
+      } else {
+        out = __fadd_rn(
+            __fadd_rn(__fmul_rn(ek, d_kk), __fmul_rn(tail, d_kt)),
+            __fmul_rn(__fmul_rn(ddiag[s], u_s[p]), rv));
+      }
+      dkb[(long long)row * ss + p] = narrow<T>(out);
+      zk = in_k ? __fmul_rn(rnd<BF>(__fmul_rn(kv, d_kk)), ek) : 0.f;
       zt = in_t ? __fmul_rn(__fmul_rn(kv, d_kt), tail) : 0.f;
       dwb[(long long)row * ss + p] = __fsub_rn(-zk, zt);
     }
@@ -580,6 +668,80 @@ wkv6_bwd_du_kernel(const float* __restrict__ du_part, float* __restrict__ du,
 
 inline long long round4(long long n) { return (n + 3) & ~3LL; }
 
+// the launches of one call, r, k, v and dr, dk, dv of type T
+// (wkv6_bwd_launch's contract)
+template <class T>
+int launch(const void* r, const void* k, const void* v, long long r_sb,
+           long long r_ss, long long r_sh, long long k_sb, long long k_ss,
+           long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+           const void* u, const void* dy, const void* dS_final,
+           const void* fws, void* bws, long long bws_floats, void* dr,
+           void* dk, void* dv, void* dw, void* du, void* dstate, int B, int S,
+           int H, int P, int chunk, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > PMAX || chunk <= 0 ||
+      S % chunk != 0 || (long long)B * H > 2147483647LL || fws == nullptr ||
+      bws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nc = S / chunk;
+  const long long n_tiles = (chunk + TILE - 1) / TILE;
+  const long long slices = ((long long)P * P + CARRY_ELEMS - 1) / CARRY_ELEMS;
+  const long long n_states = round4((long long)B * H * nc * P * P);
+  const long long n_lw = round4((long long)B * S * H * P);
+  const long long n_part = round4((long long)B * H * nc * n_tiles * P);
+  if (nc > 65535 || n_tiles > 65535 ||
+      bws_floats < n_states + n_lw + 4 * n_part)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Seq sr{r_sb, r_ss, r_sh}, sk{k_sb, k_ss, k_sh}, sv{v_sb, v_ss, v_sh};
+  const T* rf = static_cast<const T*>(r);
+  const T* kf = static_cast<const T*>(k);
+  const T* vf = static_cast<const T*>(v);
+  const float* uf = static_cast<const float*>(u);
+  const float* dyf = static_cast<const float*>(dy);
+  const float* S_in = static_cast<const float*>(fws);
+  const float* lw = S_in + n_states;
+  const float* dec = lw + n_lw;
+  float* dS = static_cast<float*>(bws);
+  float* g = dS + n_states;
+  float* dmr = g + n_lw;
+  float* dup = dmr + n_part;
+  float* dmk = dup + n_part;
+  float* dLp = dmk + n_part;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int ROW_SMEM = ROW_TILES * TILE_FLOATS * 4;
+  constexpr int COL_SMEM = COL_TILES * TILE_FLOATS * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_bwd_row_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ROW_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wkv6_bwd_col_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               COL_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned bh = unsigned(B * H);
+  wkv6_bwd_state_kernel<T><<<dim3(bh, unsigned(nc)), THREADS, 0, st>>>(
+      rf, sr, dyf, lw, dS, H, S, P, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wkv6_bwd_carry_kernel<<<dim3(bh, unsigned(slices)), THREADS, 0, st>>>(
+      dec, static_cast<const float*>(dS_final), dS,
+      static_cast<float*>(dstate), P, int(nc));
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 tiles(bh, unsigned(nc), unsigned(n_tiles));
+  wkv6_bwd_row_kernel<T><<<tiles, THREADS, ROW_SMEM, st>>>(
+      rf, kf, vf, sr, sk, sv, uf, dyf, lw, S_in, static_cast<T*>(dr), g, dmr,
+      dup, H, S, P, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wkv6_bwd_col_kernel<T><<<tiles, THREADS, COL_SMEM, st>>>(
+      rf, kf, vf, sr, sk, sv, uf, dyf, lw, dS, static_cast<T*>(dk),
+      static_cast<T*>(dv), static_cast<float*>(dw), dmk, dLp, H, S, P, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wkv6_bwd_dw_kernel<<<dim3(bh, unsigned(nc)), PMAX, 0, st>>>(
+      lw, S_in, dS, g, dmr, dmk, dLp, static_cast<float*>(dw), H, S, P, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wkv6_bwd_du_kernel<<<unsigned(H), PMAX, 0, st>>>(
+      dup, static_cast<float*>(du), B, H, P, int(nc), int(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The gradient of one wkv6 call.  r, k, v: (B, S, H, P) float32 with the P
@@ -600,67 +762,25 @@ extern "C" int wkv6_bwd_launch(
     void* bws, long long bws_floats, void* dr, void* dk, void* dv, void* dw,
     void* du, void* dstate, int B, int S, int H, int P, int chunk,
     void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > PMAX || chunk <= 0 ||
-      S % chunk != 0 || (long long)B * H > 2147483647LL || fws == nullptr ||
-      bws == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long nc = S / chunk;
-  const long long n_tiles = (chunk + TILE - 1) / TILE;
-  const long long slices = ((long long)P * P + CARRY_ELEMS - 1) / CARRY_ELEMS;
-  const long long n_states = round4((long long)B * H * nc * P * P);
-  const long long n_lw = round4((long long)B * S * H * P);
-  const long long n_part = round4((long long)B * H * nc * n_tiles * P);
-  if (nc > 65535 || n_tiles > 65535 ||
-      bws_floats < n_states + n_lw + 4 * n_part)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Seq sr{r_sb, r_ss, r_sh}, sk{k_sb, k_ss, k_sh}, sv{v_sb, v_ss, v_sh};
-  const float* rf = static_cast<const float*>(r);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* uf = static_cast<const float*>(u);
-  const float* dyf = static_cast<const float*>(dy);
-  const float* S_in = static_cast<const float*>(fws);
-  const float* lw = S_in + n_states;
-  const float* dec = lw + n_lw;
-  float* dS = static_cast<float*>(bws);
-  float* g = dS + n_states;
-  float* dmr = g + n_lw;
-  float* dup = dmr + n_part;
-  float* dmk = dup + n_part;
-  float* dLp = dmk + n_part;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  constexpr int ROW_SMEM = ROW_TILES * TILE_FLOATS * 4;
-  constexpr int COL_SMEM = COL_TILES * TILE_FLOATS * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv6_bwd_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      ROW_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(wkv6_bwd_col_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               COL_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned bh = unsigned(B * H);
-  wkv6_bwd_state_kernel<<<dim3(bh, unsigned(nc)), THREADS, 0, st>>>(
-      rf, sr, dyf, lw, dS, H, S, P, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_carry_kernel<<<dim3(bh, unsigned(slices)), THREADS, 0, st>>>(
-      dec, static_cast<const float*>(dS_final), dS,
-      static_cast<float*>(dstate), P, int(nc));
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const dim3 tiles(bh, unsigned(nc), unsigned(n_tiles));
-  wkv6_bwd_row_kernel<<<tiles, THREADS, ROW_SMEM, st>>>(
-      rf, kf, vf, sr, sk, sv, uf, dyf, lw, S_in, static_cast<float*>(dr), g,
-      dmr, dup, H, S, P, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_col_kernel<<<tiles, THREADS, COL_SMEM, st>>>(
-      rf, kf, vf, sr, sk, sv, uf, dyf, lw, dS, static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<float*>(dw), dmk, dLp, H, S, P,
-      chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_dw_kernel<<<dim3(bh, unsigned(nc)), PMAX, 0, st>>>(
-      lw, S_in, dS, g, dmr, dmk, dLp, static_cast<float*>(dw), H, S, P, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_du_kernel<<<unsigned(H), PMAX, 0, st>>>(
-      dup, static_cast<float*>(du), B, H, P, int(nc), int(n_tiles));
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(r, k, v, r_sb, r_ss, r_sh, k_sb, k_ss, k_sh, v_sb,
+                       v_ss, v_sh, u, dy, dS_final, fws, bws, bws_floats, dr,
+                       dk, dv, dw, du, dstate, B, S, H, P, chunk, stream);
+}
+
+// The gradient of one bf16 wkv6 call (the bf16 recurrence above): r, k and
+// v in bf16 (the P axis contiguous, any other strides), fws the forward's
+// workspace of wkv6_bf16_passes_launch, dr, dk and dv (B, S, H, P) bf16 and
+// contiguous; u, dy, dS_final, bws, dw, du and dstate as wkv6_bwd_launch's.
+extern "C" int wkv6_bwd_bf16_launch(
+    const void* r, const void* k, const void* v, long long r_sb,
+    long long r_ss, long long r_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    const void* u, const void* dy, const void* dS_final, const void* fws,
+    void* bws, long long bws_floats, void* dr, void* dk, void* dv, void* dw,
+    void* du, void* dstate, int B, int S, int H, int P, int chunk,
+    void* stream) {
+  return launch<__nv_bfloat16>(r, k, v, r_sb, r_ss, r_sh, k_sb, k_ss, k_sh,
+                               v_sb, v_ss, v_sh, u, dy, dS_final, fws, bws,
+                               bws_floats, dr, dk, dv, dw, du, dstate, B, S,
+                               H, P, chunk, stream);
 }

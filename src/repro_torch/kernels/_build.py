@@ -194,6 +194,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wkv6_bf16_launch.restype = ctypes.c_int
     lib.wkv6_passes_launch.argtypes = lib.wkv6_launch.argtypes
     lib.wkv6_passes_launch.restype = ctypes.c_int
+    lib.wkv6_bf16_passes_launch.argtypes = lib.wkv6_launch.argtypes
+    lib.wkv6_bf16_passes_launch.restype = ctypes.c_int
     lib.wkv6_bwd_launch.argtypes = [
         p, p, p,                    # r, k, v
         *[ll] * 9,                  # strides (b, s, h) of r, k, v
@@ -203,6 +205,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,              # B, S, H, P, chunk
         p]                          # stream
     lib.wkv6_bwd_launch.restype = ctypes.c_int
+    lib.wkv6_bwd_bf16_launch.argtypes = lib.wkv6_bwd_launch.argtypes
+    lib.wkv6_bwd_bf16_launch.restype = ctypes.c_int
     lib.ssd_chunk_launch.argtypes = [
         p, p, p, p, p, p,           # x, dt, A_log, B, C, D
         p, p, p,                    # state, y, state_out

@@ -39,9 +39,9 @@ says where each rounding falls).  ``wkv6.bf16_launches`` counts its calls.
 :func:`wkv6` launches the kernels for CUDA tensors (or raises) and computes
 :func:`wkv6_plain` for CPU tensors; there is no other route between the two.
 
-Its gradient (f32 operands, where autograd records) is the port's own
-kernel, ``csrc/wkv6_bwd.cu`` (:func:`wkv6_backward`; the JAX package takes
-it by ``jax.grad`` of its jnp chunked form), on the CPU
+Its gradient (where autograd records) is the port's own kernel,
+``csrc/wkv6_bwd.cu`` (:func:`wkv6_backward`; the JAX package takes it by
+``jax.grad`` of its jnp chunked form), on the CPU
 :func:`wkv6_backward_plain`.  The forward under autograd keeps its three
 passes' workspace (each chunk's incoming state, lw, the decays) for the
 backward pass, which runs a state pass (rs^T dy a chunk), a reverse carry,
@@ -51,6 +51,14 @@ summed in a fixed order: no float atomics.  ``wkv6.backward_launches``
 counts its calls.  The bound of one backward call at rwkv6's loss shape is
 the bytes of r, k, v, w, dy and S_in read and dr, dk, dv, dw written once:
 335.5 MB over 3.35 TB/s = 0.100 ms.
+
+bf16 r, k and v under autograd take the bf16 forward with its passes kept
+(``wkv6_bf16_passes_launch``) and the bf16 backward
+(``wkv6_bwd_bf16_launch``, counted by ``wkv6.bf16_backward_launches``):
+the same passes, rounding where ``jax.grad`` of the reference's bf16 form
+rounds (:func:`wkv6_backward_plain` with ``compute_dtype`` says where), dr,
+dk and dv written in bf16.  r, k, v, dr, dk and dv move at 2 bytes an
+element: the bound at the loss shape is 234.9 MB, 0.070 ms.
 """
 
 from __future__ import annotations
@@ -247,11 +255,13 @@ def wkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         w_log: torch.Tensor, u: torch.Tensor,
                         state: torch.Tensor, y_grad: torch.Tensor,
                         state_grad: Optional[torch.Tensor] = None, *,
-                        chunk: int) -> Tuple[torch.Tensor, ...]:
-    """The gradient of :func:`wkv6_plain` (f32) in plain PyTorch, chunk by
-    chunk as ``csrc/wkv6_bwd.cu`` computes it: (dr, dk, dv, dw_log, du,
-    dstate), all f32, from the gradients of y and of the final state
-    (``None``: zero).
+                        chunk: int, compute_dtype: Optional[torch.dtype] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6_plain` in plain PyTorch, chunk by chunk as
+    ``csrc/wkv6_bwd.cu`` computes it: (dr, dk, dv, dw_log, du, dstate) from
+    the gradients of y and of the final state (``None``: zero).  dw_log, du
+    and dstate are f32; dr, dk and dv are f32, or bf16 for the bf16
+    recurrence.
 
     Pass by pass: the forward's lw and each chunk's incoming state S_in;
     each chunk's local state gradient rs^T dy and the reverse carry
@@ -262,14 +272,38 @@ def wkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``A^T dy``, ``dkk = dA^T rr``, the chunk's state term through
     ``dS_out``); then each clamped exponential's gradient (zero where the
     clamp binds), the centring ``m = lw[last] / 2``, and a reverse cumsum
-    of d/dlw over the chunk's rows that gives dw_log."""
+    of d/dlw over the chunk's rows that gives dw_log.
+
+    ``compute_dtype=torch.bfloat16`` (``None`` takes the operands'
+    precision, :func:`compute_dtype_of`) is ``jax.grad`` of the reference's
+    ``wkv6_chunked(..., compute_dtype=bfloat16)`` rounding for rounding:
+    the intra-chunk output's gradient ``dy1 = bf16(dy)``; ``dA =
+    bf16(tril_-1(dy1 v^T))``, ``drr = bf16(dA kk)``, ``dkk = bf16(dA^T rr)``
+    and ``A^T dy1`` rounded once each, with ``rr``, ``kk`` and ``A`` as
+    :func:`wkv6_plain` rounds them; each f32 term of dr, dk and dv (the
+    carried state's, the u term, the chunk's state term) rounded to bf16
+    and the terms added in bf16 in the reference's order, ``(state + u) +
+    intra-chunk`` (the ``add_any`` order of ``jax.make_jaxpr`` of its VJP);
+    the exponential factors' gradients ``bf16(drr r)`` and ``bf16(dkk k)``,
+    widened before the clamp's mask.  dw_log's cumsum, du and dstate stay
+    f32."""
+    if compute_dtype is None:
+        compute_dtype = compute_dtype_of(r, k, v)
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"wkv6 computes in float32 or bfloat16; got "
+                         f"{compute_dtype}")
+    bf = compute_dtype == torch.bfloat16
     b, s, h, p = r.shape
     assert_divides(chunk, s, "wkv6 sequence chunk")
     nc = s // chunk
     f32 = torch.float32
     C = EXP_CLAMP
-    rc, kc, vc, wc, dyc = (x.to(f32).reshape(b, nc, chunk, h, p)
-                           for x in (r, k, v, w_log, y_grad))
+
+    def rnd(x):
+        return x.to(compute_dtype).to(f32)
+
+    rc, kc, vc = (rnd(x).reshape(b, nc, chunk, h, p) for x in (r, k, v))
+    wc, dyc = (x.to(f32).reshape(b, nc, chunk, h, p) for x in (w_log, y_grad))
     uf = u.to(f32)
     # the forward's state and carry passes: lw, the factors, S_in
     lw = torch.cumsum(wc, dim=2)
@@ -282,7 +316,9 @@ def wkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ers, in_s = _clamped_exp(lw_prev, -C, 0.0)
     tail, in_t = _clamped_exp(L[:, :, None] - lw, -C, C)
     dec, in_d = _clamped_exp(L, -C, 0.0)
-    rr, kk, rs, kt = rc * er, kc * ek, rc * ers, kc * tail
+    er_c, ek_c = rnd(er), rnd(ek)           # the factors as rr, kk take them
+    rr, kk = rnd(rc * er_c), rnd(kc * ek_c)
+    rs, kt = rc * ers, kc * tail
     S_c = torch.einsum("bcshp,bcshq->bchpq", kt, vc)
     S = state.to(f32)
     S_in = []
@@ -304,24 +340,35 @@ def wkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lower = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                   device=r.device), diagonal=-1)
     zero = torch.zeros((), device=r.device)
-    dA = torch.where(lower, torch.einsum("bcthq,bcshq->bchts", dyc, vc),
+    dy1 = rnd(dyc)                  # the intra-chunk output's gradient
+    dA = torch.where(lower, rnd(torch.einsum("bcthq,bcshq->bchts", dy1, vc)),
                      zero)
-    drr = torch.einsum("bchts,bcshp->bcthp", dA, kk)
+    drr = rnd(torch.einsum("bchts,bcshp->bcthp", dA, kk))
     drs = torch.einsum("bcthq,bchpq->bcthp", dyc, S_in)
     ddiag = (dyc * vc).sum(-1)[..., None]                   # (b,nc,t,h,1)
-    dr = er * drr + ers * drs + ddiag * uf * kc
-    dz_r = torch.where(in_r, rc * drr * er, zero)
+    if bf:
+        dr = rnd(rnd(rnd(drs * ers) + rnd(ddiag * kc * uf)) + rnd(drr * er_c))
+    else:
+        dr = er * drr + ers * drs + ddiag * uf * kc
+    dz_r = torch.where(in_r, rnd(rc * drr) * er, zero)
     dz_s = torch.where(in_s, rc * drs * ers, zero)
     du = (ddiag * rc * kc).sum((0, 1, 2))
     # the column side
-    A = torch.where(lower, torch.einsum("bcthp,bcshp->bchts", rr, kk), zero)
-    diag = (rc * uf * kc).sum(-1)[..., None]
-    dv = (torch.einsum("bchts,bcthq->bcshq", A, dyc) + diag * dyc
-          + torch.einsum("bcshp,bchpq->bcshq", kt, dS_out))
-    dkk = torch.einsum("bchts,bcthp->bcshp", dA, rr)
+    A = torch.where(lower, rnd(torch.einsum("bcthp,bcshp->bchts", rr, kk)),
+                    zero)
+    ru = rc * uf
+    diag = (ru * kc).sum(-1)[..., None]
+    dv_a = rnd(torch.einsum("bchts,bcthq->bcshq", A, dy1))
+    dv_s = torch.einsum("bcshp,bchpq->bcshq", kt, dS_out)
+    dkk = rnd(torch.einsum("bchts,bcthp->bcshp", dA, rr))
     dkt = torch.einsum("bcshq,bchpq->bcshp", vc, dS_out)
-    dk = ek * dkk + tail * dkt + ddiag * uf * rc
-    dz_k = torch.where(in_k, kc * dkk * ek, zero)
+    if bf:
+        dv = rnd(rnd(rnd(dv_s) + rnd(diag * dyc)) + dv_a)
+        dk = rnd(rnd(rnd(dkt * tail) + rnd(ddiag * ru)) + rnd(dkk * ek_c))
+    else:
+        dv = dv_a + diag * dyc + dv_s
+        dk = ek * dkk + tail * dkt + ddiag * uf * rc
+    dz_k = torch.where(in_k, rnd(kc * dkk) * ek, zero)
     dz_t = torch.where(in_t, kc * dkt * tail, zero)
     # d/dlw and its reverse cumsum
     ddec = (dS_out * S_in).sum(-1)                          # (b,nc,h,p)
@@ -331,8 +378,8 @@ def wkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dlw = dlw + torch.cat([(dz_r + dz_s)[:, :, 1:],
                            dL[:, :, None]], dim=2)
     dw = torch.flip(torch.cumsum(torch.flip(dlw, (2,)), dim=2), (2,))
-    return (dr.reshape(b, s, h, p), dk.reshape(b, s, h, p),
-            dv.reshape(b, s, h, p), dw.reshape(b, s, h, p), du, dstate)
+    return (*(x.reshape(b, s, h, p).to(compute_dtype) for x in (dr, dk, dv)),
+            dw.reshape(b, s, h, p), du, dstate)
 
 
 def _rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -408,8 +455,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Where autograd records and an input requires a gradient, the call is
     differentiable (:class:`_WKV6Fn`: the backward pass launches
     ``csrc/wkv6_bwd.cu`` for CUDA tensors and computes
-    :func:`wkv6_backward_plain` for CPU ones).  ``state_out`` (an in-place
-    write) and bf16 operands (ROADMAP A20) raise there.
+    :func:`wkv6_backward_plain` for CPU ones, both in the operands'
+    precision).  ``state_out`` (an in-place write) raises there.
     """
     _check(r, k, v, w_log, u, state, state_out)
     cdt = compute_dtype_of(r, k, v)
@@ -421,12 +468,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if state_out is not None:
             raise ValueError("wkv6: state_out= writes the final state in "
                              "place, which autograd cannot record")
-        if cdt == torch.bfloat16:
-            raise NotImplementedError(
-                "wkv6: the gradient of the bf16 recurrence (bf16 r, k, v; "
-                "cfg.ssm_bf16=True) needs a backward kernel of its own "
-                "(ROADMAP.md queue A, A20)")
-        return _WKV6Fn.apply(r, k, v, w_log, u, state, chunk)
+        return _WKV6Fn.apply(r, k, v, w_log, u, state, chunk, cdt)
     dev = r.device
     if dev.type == "cpu":
         y, S = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk,
@@ -476,7 +518,8 @@ def _launch(r, k, v, w_log, u, state, chunk, state_out, cdt, *, keep):
     n_ws = plan.passes_workspace_floats if keep else plan.workspace_floats
     ws = torch.empty((n_ws,), dtype=torch.float32, device=dev) if n_ws else None
     bf16 = cdt == torch.bfloat16
-    launcher = (lib.wkv6_bf16_launch if bf16 else
+    launcher = ((lib.wkv6_bf16_passes_launch if keep else lib.wkv6_bf16_launch)
+                if bf16 else
                 lib.wkv6_passes_launch if keep else lib.wkv6_launch)
     err = launcher(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
@@ -502,11 +545,13 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   state_grad: Optional[torch.Tensor], *, chunk: int
                   ) -> Tuple[torch.Tensor, ...]:
     """The backward kernels (``csrc/wkv6_bwd.cu``) on CUDA tensors: (dr,
-    dk, dv, dw_log, du, dstate), f32, as :func:`wkv6_backward_plain`.
-    ``ws`` is the forward's kept workspace (:func:`_launch` with ``keep``):
-    each chunk's incoming state, lw and the chunks' decays.  r, k and v are
-    the forward's f32 operands (the last axis contiguous, any other
-    strides); ``state_grad`` may be ``None`` (zero)."""
+    dk, dv, dw_log, du, dstate) as :func:`wkv6_backward_plain`, dr, dk and
+    dv in r, k and v's precision.  ``ws`` is the forward's kept workspace
+    (:func:`_launch` with ``keep``): each chunk's incoming state, lw and the
+    chunks' decays.  r, k and v are the forward's operands, all f32 or all
+    bf16 (the bf16 recurrence: ``wkv6_bwd_bf16_launch``), the last axis
+    contiguous, any other strides; ``state_grad`` may be ``None``
+    (zero)."""
     b, s, h, p = r.shape
     dev = r.device
     plan = _plan_for(r, chunk)
@@ -518,18 +563,21 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.cuda.device(dev):
             return wkv6_backward(r, k, v, u, ws, y_grad, state_grad,
                                  chunk=chunk)
-    r, k, v = (_rows(t, torch.float32) for t in (r, k, v))
+    cdt = compute_dtype_of(r, k, v)
+    r, k, v = (_rows(t, cdt) for t in (r, k, v))
     u, dy = _f32_dense(u), _f32_dense(y_grad)
     dS = None if state_grad is None else _f32_dense(state_grad)
     if ws is None or ws.numel() < plan.passes_workspace_floats:
         raise ValueError("wkv6 backward: the forward's workspace is missing")
-    grads = [torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
-             for _ in range(4)]
+    grads = [torch.empty((b, s, h, p), dtype=dt, device=dev)
+             for dt in (cdt, cdt, cdt, torch.float32)]
     du = torch.empty((h, p), dtype=torch.float32, device=dev)
     dstate = torch.empty((b, h, p, p), dtype=torch.float32, device=dev)
     n_bws = plan.backward_workspace_floats
     bws = torch.empty((n_bws,), dtype=torch.float32, device=dev)
-    err = lib.wkv6_bwd_launch(
+    bf16 = cdt == torch.bfloat16
+    launcher = lib.wkv6_bwd_bf16_launch if bf16 else lib.wkv6_bwd_launch
+    err = launcher(
         r.data_ptr(), k.data_ptr(), v.data_ptr(),
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         u.data_ptr(), dy.data_ptr(), None if dS is None else dS.data_ptr(),
@@ -539,13 +587,17 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"wkv6 backward launch failed: CUDA error {err} "
                            f"for (b, s, h, p) = {(b, s, h, p)}, chunk "
-                           f"{chunk}")
-    wkv6.backward_launches += 1
+                           f"{chunk}{', bf16' if bf16 else ''}")
+    if bf16:
+        wkv6.bf16_backward_launches += 1
+    else:
+        wkv6.backward_launches += 1
     return (*grads, du, dstate)
 
 
 class _WKV6Fn(torch.autograd.Function):
-    """:func:`wkv6` (f32) under autograd.  The forward is the kernels' (the
+    """:func:`wkv6` under autograd, in the recurrence's precision ``cdt``
+    (f32, or bf16 for bf16 r, k and v).  The forward is the kernels' (the
     three passes, their workspace kept for the backward pass) on CUDA,
     :func:`wkv6_plain` on the CPU; the backward pass is
     :func:`wkv6_backward` on CUDA and :func:`wkv6_backward_plain` on the
@@ -553,17 +605,17 @@ class _WKV6Fn(torch.autograd.Function):
     all) and handed back where ``ctx.needs_input_grad`` asks for it."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w_log, u, state, chunk):
+    def forward(ctx, r, k, v, w_log, u, state, chunk, cdt):
         ctx.set_materialize_grads(False)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.cdt = chunk, cdt
         ctx.dtypes = [t.dtype for t in (r, k, v, w_log, u, state)]
         if r.device.type == "cpu":
             y, S = wkv6_plain(r, k, v, w_log, u, state, chunk=chunk,
-                              compute_dtype=torch.float32)
+                              compute_dtype=cdt)
             ctx.save_for_backward(r, k, v, w_log, u, state)
         else:
-            y, S, ws = _launch(r, k, v, w_log, u, state, chunk, None,
-                               torch.float32, keep=True)
+            y, S, ws = _launch(r, k, v, w_log, u, state, chunk, None, cdt,
+                               keep=True)
             ctx.save_for_backward(r, k, v, u, ws)
         return y, S
 
@@ -576,12 +628,13 @@ class _WKV6Fn(torch.autograd.Function):
                                  device=r.device)
         if r.device.type == "cpu":
             grads = wkv6_backward_plain(*saved, y_grad, state_grad,
-                                        chunk=ctx.chunk)
+                                        chunk=ctx.chunk,
+                                        compute_dtype=ctx.cdt)
         else:
             grads = wkv6_backward(*saved, y_grad, state_grad,
                                   chunk=ctx.chunk)
         return (*(g.to(dt) if need else None for g, dt, need in zip(
-            grads, ctx.dtypes, ctx.needs_input_grad)), None)
+            grads, ctx.dtypes, ctx.needs_input_grad)), None, None)
 
 
 #: calls of :func:`wkv6` that launched its f32 kernels (one a call, for all
@@ -592,3 +645,6 @@ wkv6.bf16_launches = 0
 #: backward passes of :func:`wkv6` that launched ``csrc/wkv6_bwd.cu`` (one
 #: a call, for all of its passes)
 wkv6.backward_launches = 0
+#: backward passes of :func:`wkv6` that launched its bf16 variant
+#: (``wkv6_bwd_bf16_launch``: r, k, v in bf16)
+wkv6.bf16_backward_launches = 0

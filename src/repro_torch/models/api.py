@@ -24,7 +24,8 @@ state is made by ``make_decode_state`` / ``prefill`` and only ever handed
 back to these methods.  ``train_loss`` runs
 with autograd recording (the trainer's loss): every family, ssm and hybrid
 through the backward kernels of their recurrences (``wkv6`` and
-``ssd_chunk``); ``cfg.ssm_bf16=True`` does not train yet (ROADMAP A20).
+``ssd_chunk``; with ``cfg.ssm_bf16=True`` rwkv6's bf16 recurrence through
+``wkv6``'s bf16 backward).
 """
 
 from __future__ import annotations
@@ -55,17 +56,6 @@ class BatchSpec:
         """A stand-in with this shape and dtype that holds no data (a
         ``meta`` tensor; the reference's ``ShapeDtypeStruct``)."""
         return torch.empty(self.shape, dtype=self.dtype, device="meta")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise where the port cannot train ``cfg`` yet: the bf16 recurrence
-    (``ssm_bf16=True``) of the ssm and hybrid families, whose gradient needs
-    a backward kernel of its own."""
-    if cfg.family in ("ssm", "hybrid") and cfg.ssm_bf16:
-        raise NotImplementedError(
-            f"{cfg.name}: training with ssm_bf16=True needs a bf16 variant "
-            "of the wkv6 backward kernel, which is not ported yet (ROADMAP.md "
-            "queue A, A20); the f32 recurrence trains")
 
 
 def _no_grad():
@@ -159,9 +149,7 @@ class ModelAPI:
         the same backend scope, each block under ``cfg.remat``.  A routed
         GEMM's gradient is the straight-through one (exact products; the
         backend's ``traced_matmul``); the recurrences' gradients are their
-        backward kernels' (``wkv6``, ``ssd_chunk``).  ``ssm_bf16=True``
-        raises (ROADMAP A20)."""
-        check_trainable(self.cfg)
+        backward kernels' (``wkv6``, ``ssd_chunk``)."""
         f = self.cfg.family
         with self._scope():
             if f == "ssm":

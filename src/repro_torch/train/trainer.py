@@ -14,7 +14,7 @@ gradients are dropped when the step returns, so the device holds the
 parameters, the optimizer state and one step's activations and gradients
 at a time.  Every family trains; the ssm and hybrid families' recurrences
 take their gradients from the backward kernels of ``wkv6`` and
-``ssd_chunk``, and ``cfg.ssm_bf16=True`` does not train yet (ROADMAP A20).
+``ssd_chunk`` (with ``cfg.ssm_bf16=True``, ``wkv6``'s bf16 variant).
 
 With mesh ``rules`` (``repro_torch.launch.mesh``) parameters and optimizer
 state are ``DTensor`` s laid out by their logical axes, each rank updates
@@ -36,7 +36,7 @@ from ..checkpoint.manager import CheckpointManager
 from ..configs.base import ModelConfig, ShapeConfig
 from ..data.pipeline import DataConfig, PrefetchLoader, SyntheticDataset
 from ..models import model_api
-from ..models.api import BatchSpec, ModelAPI, check_trainable
+from ..models.api import BatchSpec, ModelAPI
 from ..models.shardlib import (Rules, distribute_tree, is_dtensor,
                                tree_leaves, tree_map, use_rules)
 from ..runtime.monitor import HeartbeatMonitor
@@ -110,7 +110,6 @@ def make_train_step(api: ModelAPI, cfg: ModelConfig,
     parameters and state (:func:`~repro_torch.models.shardlib.
     distribute_tree`); a plain batch is split over its batch axis first."""
     check_rules(rules)
-    check_trainable(cfg)
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -159,7 +158,6 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
     train_cfg = train_cfg or TrainConfig()
     opt_cfg = opt_cfg or optim.AdamWConfig(total_steps=train_cfg.steps)
     check_rules(rules)
-    check_trainable(cfg)
     dev = resolve_device(device)
     api = model_api(cfg, device=dev)
 

@@ -3,7 +3,8 @@
 * Each shipped arch's train, prefill and decode steps (smoke config) lower
   on a ``fake`` (2, 2) mesh with every collective a rank would issue, as
   ``launch.dryrun`` lowers them; rwkv6's and zamba2's train cells take
-  their recurrences' gradients on (batch, head) blocks.
+  their recurrences' gradients on (batch, head) blocks, rwkv6's also with
+  ``ssm_bf16=True`` (the bf16 backward).
 * On a 4-rank ``gloo`` (2, 2) mesh (one process a rank), rwkv6's and
   zamba2's step-0 gradients on ``reference`` equal the unsharded ones
   within the train tests' ``GRAD_TOL``: the recurrences run on (batch,
@@ -54,6 +55,32 @@ def test_every_family_lowers_on_a_2x2_mesh(arch, kind):
     shape = ShapeConfig(kind, 64, 4, kind)
     with _mesh((2, 2), "fake") as mesh:
         lowered = steps.build_cell(arch, shape, mesh, smoke=True).lower()
+    assert lowered.cost["flops"] > 0
+    assert lowered.memory["argument_bytes"] > 0
+    assert sum(1 for _ in lowered.collectives) > 0
+
+
+def test_rwkv6_with_ssm_bf16_lowers_its_train_step_on_a_2x2_mesh(
+        monkeypatch):
+    """The bf16 recurrence's train cell (``ssm_bf16=True``, the config's
+    override) lowers as the shipped configs' do: each rank's (batch, head)
+    block through ``local_map`` takes the bf16 backward, and its bf16
+    gradients of r, k and v pass its ``in_grad_placements``."""
+    from repro_torch.kernels import wkv6 as wmod
+    seen = []
+    real = wmod.wkv6_backward_plain
+
+    def spy(*args, **kw):
+        seen.append(kw["compute_dtype"])
+        return real(*args, **kw)
+    monkeypatch.setattr(wmod, "wkv6_backward_plain", spy)
+    shape = ShapeConfig("train", 64, 4, "train")
+    with _mesh((2, 2), "fake") as mesh:
+        cell = steps.build_cell("rwkv6-1.6b", shape, mesh, smoke=True,
+                                overrides={"ssm_bf16": True})
+        lowered = cell.lower()
+    assert cell.api.cfg.ssm_bf16
+    assert seen and set(seen) == {torch.bfloat16}
     assert lowered.cost["flops"] > 0
     assert lowered.memory["argument_bytes"] > 0
     assert sum(1 for _ in lowered.collectives) > 0

@@ -416,21 +416,60 @@ def test_train_under_reference_counts_every_gemm_and_no_flag():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
-def test_ssm_bf16_training_is_refused_naming_a20(arch):
-    """The f32 recurrences train (tests/test_torch_train_ssm.py); the bf16
-    one (``ssm_bf16=True``) needs a backward kernel of its own, and every
-    entry point stops naming ROADMAP A20."""
-    cfg = dataclasses.replace(get_config(arch, smoke=True), ssm_bf16=True)
-    api = model_api(cfg, device="cpu")
-    for call in (
-            lambda: train(cfg, ShapeConfig("t", 32, 4, "train"),
-                          TrainConfig(steps=1), device="cpu"),
-            lambda: make_train_step(api, cfg, optim.AdamWConfig()),
-            lambda: steps.build_train_step(cfg, ShapeConfig(
-                "t", 32, 4, "train"), device="cpu"),
-            lambda: api.train_loss(api.init_params(0), {})):
-        with pytest.raises(NotImplementedError, match="A20"):
-            call()
+def test_ssm_bf16_trains_through_every_entry_point(arch, monkeypatch):
+    """``ssm_bf16=True`` trains through the four entry points, one smoke
+    step each (``train``, ``make_train_step``, ``steps.build_train_step``,
+    ``ModelAPI.train_loss``): finite losses and gradients.  rwkv6 takes the
+    bf16 recurrence's gradient (``wkv6_backward_plain`` in bf16, once a
+    layer); zamba2, whose Mamba2 path reads no ``ssm_bf16`` in either
+    package, gives the bits of ``ssm_bf16=False``."""
+    from repro_torch.kernels import wkv6 as wmod
+    seen = []
+    real = wmod.wkv6_backward_plain
+
+    def spy(*args, **kw):
+        seen.append(kw["compute_dtype"])
+        return real(*args, **kw)
+    monkeypatch.setattr(wmod, "wkv6_backward_plain", spy)
+    shape = ShapeConfig("t", 32, 4, "train")
+    base = get_config(arch, smoke=True)
+    b = _tbatch(_batches(base, 1)[0])
+    runs = {}
+    for flag in (False, True):
+        cfg = dataclasses.replace(base, ssm_bf16=flag)
+        api = model_api(cfg, device="cpu")
+        res = train(cfg, shape, TrainConfig(steps=1, log_every=0,
+                                            checkpoint_every=0),
+                    device="cpu")
+        params = api.init_params(0)
+        state = optim.init_state(params, optim.AdamWConfig())
+        _, _, loss1 = make_train_step(api, cfg, optim.AdamWConfig())(
+            params, state, b)
+        built = steps.build_train_step(cfg, shape, device="cpu")
+        params2 = built.api.init_params(0)
+        _, _, loss2 = built.fn(params2, optim.init_state(
+            params2, optim.AdamWConfig()), b)
+        params3 = api.init_params(0)
+        leaves = tree_leaves(params3)
+        for x in leaves:
+            x.requires_grad_(True)
+        seen.clear()
+        grads = torch.autograd.grad(api.train_loss(params3, b), leaves)
+        losses = res.losses + [float(loss1), float(loss2)]
+        assert np.isfinite(losses).all()
+        assert all(torch.isfinite(g.float()).all() for g in grads)
+        if cfg.family == "ssm":
+            want = torch.bfloat16 if flag else torch.float32
+            assert seen == [want] * cfg.n_layers
+        runs[flag] = (losses, tree_leaves(params), tree_leaves(params2),
+                      grads)
+    (l0, p0, q0, g0), (l1, p1, q1, g1) = runs[False], runs[True]
+    if arch == "zamba2-2.7b":
+        assert l0 == l1
+        for x, y in zip(p0 + q0 + list(g0), p1 + q1 + list(g1)):
+            assert torch.equal(x, y)
+    else:
+        assert any(not torch.equal(x, y) for x, y in zip(g0, g1))
 
 
 def test_launcher_trains_on_the_cpu(monkeypatch, capsys):

@@ -4,14 +4,16 @@ config's train step against the JAX package's ``make_train_step`` from the
 reference's own initial weights and ``SyntheticDataset`` batches, with the
 tolerances of ``tests/test_torch_train.py``:
 
-* five steps on ``ideal``: step 0's loss within ``LOSS_RTOL0``, the others
+* five steps on ``ideal``, with the f32 recurrence and (rwkv6) with
+  ``cfg.ssm_bf16=True``, the bf16 one: step 0's loss within ``LOSS_RTOL0``, the others
   within ``LOSS_RTOL``; step 0's gradients leaf by leaf within
   ``GRAD_TOL`` of the reference's largest magnitude in the leaf; the
   parameters after step 0 within one bf16 rounding (2 x lr where the two
   gradients can differ in sign).  The reference runs op by op
   (``jax.disable_jit()``, ROADMAP C7).  The recurrences' gradients are the
   port's own backward (``wkv6_backward_plain`` / ``ssd_chunk_backward_plain``
-  on the CPU), the reference's XLA's autodiff of its jnp chunked forms;
+  on the CPU; its bf16 variant for ``ssm_bf16``), the reference's XLA's
+  autodiff of its jnp chunked forms;
 * one step on ``reference`` (B1's route; the reference compiled: its host
   callbacks can deadlock op by op): the backend's telemetry (GEMM calls,
   MACs, flags) equal to the reference's.  Each block runs again in the
@@ -23,6 +25,7 @@ tolerances of ``tests/test_torch_train.py``:
 """
 
 import contextlib
+import dataclasses
 import importlib.util
 import re
 import sys
@@ -52,10 +55,11 @@ from test_torch_train import (BATCH, GRAD_TOL, LOSS_RTOL, LOSS_RTOL0, LR,
 ARCH = "rwkv6-1.6b"
 
 
-def five_steps_on_ideal(arch):
+def five_steps_on_ideal(arch, ssm_bf16=False):
     """The smoke config's five ``ideal`` steps and step 0's gradients
-    against the reference's (op by op)."""
-    jcfg, tcfg = j_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    against the reference's (op by op), both configs with ``ssm_bf16``."""
+    jcfg, tcfg = (dataclasses.replace(get(arch, smoke=True), ssm_bf16=ssm_bf16)
+                  for get in (j_get_config, get_config))
     jparams = j_model_api(jcfg).init_params(jax.random.PRNGKey(0))
     batches = _batches(jcfg)
     japi = j_model_api(jcfg)
@@ -194,6 +198,12 @@ def entry_points_train(arch, monkeypatch, capsys):
 
 def test_five_steps_match_the_references_train_step():
     five_steps_on_ideal(ARCH)
+
+
+def test_five_steps_with_ssm_bf16_match_the_references_train_step():
+    """rwkv6 with the bf16 recurrence: its gradient through ``wkv6``'s bf16
+    backward against ``jax.grad`` of the reference's bf16 form."""
+    five_steps_on_ideal(ARCH, ssm_bf16=True)
 
 
 def test_a_steps_gemm_count_equals_the_references():

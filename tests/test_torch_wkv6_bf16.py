@@ -32,6 +32,8 @@ from repro_torch.models import ssm as tssm
 Y_TOL = 2.0 ** -8
 STATE_TOL = 1e-5
 SRC = (_build.CSRC_DIR / "wkv6.cu").read_text()
+#: the bf16 helpers wkv6.cu shares with its gradient (wkv6_bwd.cu)
+TILES = (_build.CSRC_DIR / "tf32_tiles.cuh").read_text()
 
 
 def _inputs(b, s, h, p, seed, decay=0.5):
@@ -153,13 +155,15 @@ def test_the_wrapper_routes_by_the_operands_dtype(monkeypatch):
 def test_cuda_source_has_the_bf16_variant():
     """The same three passes and one-token kernel, instantiated for bf16
     r/k/v: the scores and the intra-chunk output on the bf16 tensor cores
-    (m16n8k16, f32 accumulate), the reference's four roundings, the f32
-    products still 3xTF32, and the launcher's entry point."""
+    (m16n8k16, f32 accumulate; ``tf32_tiles.cuh``'s ``product_bf16``), the
+    reference's four roundings, the f32 products still 3xTF32, and the
+    launcher's entry point."""
     flat = " ".join(SRC.split())
     assert 'extern "C" int wkv6_bf16_launch(' in SRC
     assert "return launch<__nv_bfloat16>(" in flat
     assert "return launch<float>(" in flat
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in SRC
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in TILES
+    assert "void product_bf16(" in TILES and "void product_bf16(" not in SRC
     for kernel in ("wkv6_state_kernel", "wkv6_scan_kernel"):
         assert re.search(rf"template <class T>\n__global__ void "
                          rf"__launch_bounds__\(THREADS, \d\)\n{kernel}\("
@@ -169,7 +173,7 @@ def test_cuda_source_has_the_bf16_variant():
     assert flat.count("round_bf16(__fmul_rn(x, round_bf16(f)))") == 2
     assert "round_bf16(sc[si][jj][i])" in flat
     assert "round_bf16(acc_in[si][jj][i])" in flat
-    assert flat.count("product_bf16(") == 1 + 2
+    assert flat.count("product_bf16(") == 2
     assert flat.count("product_3xtf32(") == 1 + 3
     assert "fmaf" not in SRC and "__expf" not in SRC
     assert not re.findall(r"atomic\w*\(", SRC)

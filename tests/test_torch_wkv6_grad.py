@@ -194,12 +194,32 @@ def test_inference_path_is_unchanged():
     assert S is state and torch.equal(state, want[1])
 
 
-def test_state_out_and_bf16_under_autograd_raise():
+def test_state_out_under_autograd_raises():
     args, _, _ = _inputs(1, 16, 2, 8, seed=5)
     leaves = [_t(a).requires_grad_(True) for a in args]
     with pytest.raises(ValueError, match="state_out"):
         wkv6(*leaves, chunk=8, state_out=torch.zeros(1, 2, 8, 8))
-    bf = [x.detach().to(torch.bfloat16).requires_grad_(True)
-          for x in leaves[:3]]
-    with pytest.raises(NotImplementedError, match="A20"):
-        wkv6(*bf, *leaves[3:], chunk=8)
+
+
+def test_bf16_under_autograd_routes_to_the_bf16_backward(monkeypatch):
+    """bf16 r, k and v under autograd take the bf16 recurrence both ways:
+    the plain bf16 forward and ``wkv6_backward_plain`` with
+    ``compute_dtype=bfloat16`` (bf16 gradients for r, k, v); f32 operands
+    the f32 ones."""
+    args, dy, _ = _inputs(1, 16, 2, 8, seed=5)
+    seen = []
+    real = wkv6_mod.wkv6_backward_plain
+
+    def spy(*a, **kw):
+        seen.append(kw["compute_dtype"])
+        return real(*a, **kw)
+    monkeypatch.setattr(wkv6_mod, "wkv6_backward_plain", spy)
+    for dt in (torch.bfloat16, torch.float32):
+        leaves = [_t(a).to(dt).requires_grad_(True) for a in args[:3]]
+        y, _ = wkv6(*leaves, *map(_t, args[3:]), chunk=8)
+        assert torch.equal(y.detach(), wkv6_plain(
+            *[x.detach() for x in leaves], *map(_t, args[3:]), chunk=8,
+            compute_dtype=dt)[0])
+        grads = torch.autograd.grad(y, leaves, _t(dy))
+        assert seen[-1] == dt and all(g.dtype == dt for g in grads)
+    assert seen == [torch.bfloat16, torch.float32]
