@@ -16,9 +16,10 @@ paper's emulated voltage-island array (``--backend emulated --hwloop``: the
 ``hwloop`` tiled form, held first against its plain tile loop), the
 Algorithm-2 watchdog healing an undervolted rail on the serving device, and a
 short run on the simulated array; then guarded (``--guard abft`` on
-``reference`` and on the emulated array, the ABFT guard's checksums on the
-``abft_checksums`` kernel; the chaos campaign's ``silent_burst`` and
-``watchdog_delay`` scripts) and autoscaled (``--autoscale threshold``
+``reference`` and on the emulated array, each GEMM's checks one
+``abft_checksums`` launch and each verification one ``abft_verdict`` launch,
+beside unguarded runs of the same workload; the chaos campaign's
+``silent_burst`` and ``watchdog_delay`` scripts) and autoscaled (``--autoscale threshold``
 from a ladder the flow CLI writes on the card) phi4-mini serving; phi4-mini
 behind the HTTP frontend (``repro_torch.server``: streams bit-equal to the
 direct run's, and the ``--serve-http`` launcher as a child process serving
@@ -201,6 +202,20 @@ TOL_TILED_REL = 1e-9
 #: abft_checksums against its plain version, as a fraction of the sums of
 #: magnitudes: float64 sums of the same terms taken in another order
 TOL_ABFT = 1e-12
+#: the guard's residual tolerance (GuardedBackend's default, --guard abft)
+GUARD_TOL = 1e-6
+#: what the guard may cost a served reference step, against unguarded runs
+#: of the same workload in the same call: model step and host ms a GEMM as
+#: ratios, profiled kernel launches a step (copies not counted: the guard's
+#: one read a verification is a copy) as an excess
+GUARD_LIMITS = {"model_step_ratio": 2.0, "host_ms_per_gemm_ratio": 4.0,
+                "launches_per_model_step_over_unguarded": 500}
+#: device ms the guard's kernels may take over a guarded decode step's 225
+#: calls, as the profiler reads them in served decode steps (serve_guard)
+ABFT_STEP_LIMIT_MS = {"abft_checksums": 6.0, "abft_verdict": 1.5}
+#: decode steps the second of serve_guard's two profiled guarded runs adds
+#: (the same prefills): the difference is the served decode steps' own
+PROFILE_DECODE_EXTRA = 4
 #: new tokens a request in the autoscale phase: 23 decode steps, room for
 #: three descents under the launcher's dwell of 8 steps
 AUTOSCALE_NEW = 24
@@ -1473,7 +1488,7 @@ def profile_calls(torch, calls, repeats: int = 1):
 
 
 def profile_serve(torch, serve_mod, params, backend="reference", extra=(),
-                  pick=()):
+                  pick=(), max_new=3):
     """A short run on ``backend`` (launcher flags ``extra`` added) under
     ``torch.profiler``: the device time of a model step by kernel, and the
     share of the run's wall time in which the device ran a kernel.  Tracing
@@ -1485,8 +1500,8 @@ def profile_serve(torch, serve_mod, params, backend="reference", extra=(),
     from torch.profiler import ProfilerActivity, profile
     args = serve_mod.parse_args(
         ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
-         "--requests", str(SLOTS), "--max-new", "3", "--backend", backend,
-         *extra])
+         "--requests", str(SLOTS), "--max-new", str(max_new), "--backend",
+         backend, *extra])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1500,16 +1515,22 @@ def profile_serve(torch, serve_mod, params, backend="reference", extra=(),
     device_ms = sum(ms for _, ms, _ in rows)
     steps = run.stats.model_steps
     if device_ms <= 0:
-        return {"model_steps": steps, "device_ms_per_model_step": None,
+        return {"model_steps": steps, "decode_steps": run.stats.decode_steps,
+                "device_ms_per_model_step": None,
                 "device_busy_share_traced": None, "top_kernels": None,
                 **({"picked_ms_per_model_step": None} if pick else {})}
     picked = {p: sum(ms for k, ms, _ in rows if p in k) / steps
               for p in pick}
-    return {"model_steps": steps, "traced_wall_ms": 1e3 * run.wall_s,
+    return {"model_steps": steps, "decode_steps": run.stats.decode_steps,
+            "traced_wall_ms": 1e3 * run.wall_s,
             **({"picked_ms_per_model_step": picked} if pick else {}),
             "device_ms_per_model_step": device_ms / steps,
             "device_busy_share_traced": device_ms / (1e3 * run.wall_s),
             "kernels_per_model_step": sum(n for _, _, n in rows) / steps,
+            # kernel launches alone (no copies or memsets)
+            "launches_per_model_step": sum(
+                n for k, _, n in rows
+                if not k.startswith(("Memcpy", "Memset"))) / steps,
             "top_kernels": [{"name": k[:64], "ms_per_model_step": ms / steps,
                              "calls_per_model_step": n / steps}
                             for k, ms, n in rows[:6]]}
@@ -1991,22 +2012,41 @@ def serve_hwloop(torch, cfg, mods, params, ref, counters, tiled):
 # ---------------------------------------------------------------------------
 
 
-def abft_bound_ms(k, n, elem, r, nu):
-    """Least time for one abft_checksums call on a (K, N) operand with ``r``
-    columns of v and ``nu`` rows of u: b read once, the float64 vectors read
-    once and the outputs written once, against 2 K N flops a vector (the
-    ``r`` of v, the |b| row sums, the ``nu``) at the float64 peak."""
-    nbytes = elem * k * n + 8 * (n * r + k * nu) + 8 * (k * (r + 1) + nu * n)
+def abft_bound_ms(k, n, elem, r, nu, m=0):
+    """Least time for one abft_checksums call on a (K, N) operand: b read
+    once, the float64 vectors read once and the outputs written once,
+    against 2 K N flops a vector at the float64 peak.  The general form:
+    ``r`` columns of v and ``nu`` rows of u; the abft mode (``m`` > 0): a
+    (M, K) read once, the (2, M + N) pack written, and four vectors (b 1,
+    |b| 1 and a's sums times b and |b|)."""
+    if m:
+        nbytes = elem * (k * n + m * k) + 8 * 2 * (m + n)
+        flops = 2.0 * k * n * 4 + 2.0 * m * k * 4
+    else:
+        nbytes = elem * k * n + 8 * (n * r + k * nu) + 8 * (k * (r + 1)
+                                                            + nu * n)
+        flops = 2.0 * k * n * (r + 1 + nu)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * k * n * (r + 1 + nu) / PEAK_FLOPS["float64"]
+    t_ops = flops / PEAK_FLOPS["float64"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def verdict_bound_ms(m, n, elem):
+    """Least time for one abft_verdict call: the (M, N) product and the
+    (2, M + N) checks read once, seven doubles written; M N + ... adds at
+    the float64 peak."""
+    nbytes = elem * m * n + 8 * 2 * (m + n) + 8 * 7
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * n / PEAK_FLOPS["float64"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def abft_vectors(torch, gen, a, n, r):
-    """The guard's arguments for an (M, K) ``a`` and an N-wide product: the
-    abft mode's (ones; a's column sums and, against |b|, |a|'s) for
-    ``r == 0``, else ``r`` Freivalds probes and no u."""
+    """The general form's arguments for an (M, K) ``a`` and an N-wide
+    product: the abft mode's vectors (ones; a's column sums and, against
+    |b|, |a|'s) for ``r == 0``, else ``r`` Freivalds probes and no u."""
     dev = a.device
     a64 = a.to(torch.float64)
     if r == 0:
@@ -2017,9 +2057,10 @@ def abft_vectors(torch, gen, a, n, r):
 
 
 def abft_case(torch, abft, plain, b, args, what):
-    """One call of the kernel against its plain version, and a repeated
-    call: the largest error as a fraction of the sums of magnitudes (the
-    float64 sums are taken in another order), bit-equal on repeat."""
+    """One call of the general form against its plain version, and a
+    repeated call: the largest error as a fraction of the sums of
+    magnitudes (the float64 sums are taken in another order), bit-equal on
+    repeat."""
     got = abft(b, *args)
     again = abft(b, *args)
     torch.cuda.synchronize()
@@ -2044,34 +2085,110 @@ def abft_case(torch, abft, plain, b, args, what):
     return err
 
 
+def abft_pack_case(torch, abft, plain, b, a, what):
+    """The abft mode (the guard's call) against its plain version, and a
+    repeated call: each reference as a fraction of its sum of magnitudes,
+    each tolerance of its own; bit-equal on repeat."""
+    got = abft(b, a=a, tol=GUARD_TOL)
+    again = abft(b, a=a, tol=GUARD_TOL)
+    torch.cuda.synchronize()
+    want = plain(b, a=a, tol=GUARD_TOL)
+    if got.shape != want.shape:
+        fail(f"abft_checksums {what}: pack {tuple(got.shape)}, expected "
+             f"{tuple(want.shape)}")
+    a64, b64 = a.to(torch.float64).abs(), b.to(torch.float64).abs()
+    mags = torch.cat([a64 @ b64.sum(dim=1), a64.sum(dim=0) @ b64])
+    del b64
+    scale = torch.stack([mags, (mags + 1.0) * GUARD_TOL]).clamp_min(1e-300)
+    err = float(((got - want).abs() / scale).max())
+    if not math.isfinite(err) or err > TOL_ABFT:
+        fail(f"abft_checksums {what}: error {err} of the magnitude sums "
+             f"over the limit {TOL_ABFT}")
+    if not torch.equal(got, again):
+        fail(f"abft_checksums {what}: a repeated call gave other bits")
+    return err
+
+
+def verdict_case(torch, verdict, plain, out, checks, what):
+    """abft_verdict against its plain version on one product, and a
+    repeated call: counts and first indices equal, the residuals within
+    TOL_ABFT of their rows' and columns' magnitude sums (the largest ratio
+    within as much over its tolerance), bit-equal on repeat."""
+    got = verdict(out, checks)
+    again = verdict(out, checks)
+    torch.cuda.synchronize()
+    want = plain(out, checks)
+    g, w = got.tolist(), want.tolist()
+    if g[:4] != w[:4]:
+        fail(f"abft_verdict {what}: counts and first indices {g[:4]}, the "
+             f"plain version's {w[:4]}")
+    o64 = out.to(torch.float64).abs()
+    mags = torch.cat([o64.sum(dim=1), o64.sum(dim=0)]) + checks[0].abs()
+    m = out.shape[0]
+    err_r = abs(g[4] - w[4]) / float(mags[int(g[2])])
+    err_c = abs(g[5] - w[5]) / float(mags[m + int(g[3])])
+    err_w = abs(g[6] - w[6]) / float((mags / checks[1]).max())
+    err = max(err_r, err_c, err_w)
+    if not math.isfinite(err) or err > TOL_ABFT:
+        fail(f"abft_verdict {what}: residual error {err} of the magnitude "
+             f"sums over the limit {TOL_ABFT} ({g} against {w})")
+    if not torch.equal(got, again):
+        fail(f"abft_verdict {what}: a repeated call gave other bits")
+    return {"bad_rows": g[0], "bad_cols": g[1], "first_bad": [g[2], g[3]],
+            "max_err": err, "max_err_limit": TOL_ABFT,
+            "equal_to_plain": True, "repeat_bit_equal": True}
+
+
 def check_abft(torch, cfg, abft_mod, GuardedBackend, get_backend):
     """abft_checksums against its plain version: at phi4-mini's weights as
-    the model holds them (bf16, the logits a transposed view) for a decode
-    step's rows (M 4) and a prefill chunk's (M 256), the abft mode's vectors
-    and two Freivalds probes; f32, float64, ragged and strided operands; five
-    probes (two launches).  Then the guard's verdicts on seeded corrupted
-    products, on the card against the CPU's plain route; and the times of
-    the call the guard makes at each weight."""
+    the model holds them (bf16, the logits a transposed view), the abft mode
+    (the guard's call) for a decode step's rows (M 4) and a prefill chunk's
+    (M 256), and two Freivalds probes; f32, float64, ragged and strided
+    operands; five probes (two launches).  abft_verdict against its plain
+    version on seeded corrupted products at each weight's width, bf16, f32
+    and f64.  Then the guard's verdicts on seeded corrupted products, on the
+    card against the CPU's plain route; and the times of the two calls the
+    guard makes at each weight."""
     abft, plain = abft_mod.abft_checksums, abft_mod.abft_checksums_plain
+    verdict, vplain = abft_mod.abft_verdict, abft_mod.abft_verdict_plain
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 20)
-    rows = []
+    rows, vrows = [], []
     gemms = dense_gemms(cfg)
     for name, (k, n, per_step, transposed, dname) in gemms.items():
         b = model_weight(torch, gen, k, n, torch.bfloat16, transposed)
         for m, r in ((DECODE_M, 0), (CHUNK_M, 0), (DECODE_M, 2)):
             a = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
-            err = abft_case(torch, abft, plain, b,
-                            abft_vectors(torch, gen, a, n, r),
-                            f"{name} M={m} r={r}")
+            what = f"{name} M={m} r={r}"
+            err = (abft_pack_case(torch, abft, plain, b, a, what) if r == 0
+                   else abft_case(torch, abft, plain, b,
+                                  abft_vectors(torch, gen, a, n, r), what))
             rows.append({"weight": name, "K": k, "N": n, "M": m,
                          "dtype": "bfloat16", "b_transposed_view": transposed,
                          "mode": "abft" if r == 0 else f"freivalds r={r}",
                          "max_err": err, "max_err_limit": TOL_ABFT,
                          "repeat_bit_equal": True})
-        del b
+        # the verdict on this weight's products (M 4), clean and corrupted
+        a = torch.randn((DECODE_M, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        checks = abft(b, a=a, tol=GUARD_TOL)
+        clean = a.to(torch.float64) @ b.to(torch.float64)
+        scale = float(clean.abs().max())
+        for what, hits in (("clean", []),) + CORRUPTIONS:
+            prod = clean.clone()
+            for i, j, f in hits:
+                prod[i, j] += f * scale
+            for dtype in (torch.bfloat16, torch.float32, torch.float64):
+                dn = str(dtype).split(".")[1]
+                row = verdict_case(torch, verdict, vplain, prod.to(dtype),
+                                   checks, f"{name} {what} {dn}")
+                if hits and not row["bad_rows"] + row["bad_cols"]:
+                    fail(f"abft_verdict {name} {what} {dn}: not detected")
+                vrows.append({"weight": name, "N": n, "M": DECODE_M,
+                              "product_dtype": dn, "corruption": what, **row})
+        del b, clean
     others = (("f32", 3072, 1024, torch.float32, False, 0),
               ("f32 transposed", 1000, 4096, torch.float32, True, 0),
               ("ragged bf16", 1000, 333, torch.bfloat16, False, 0),
@@ -2083,27 +2200,30 @@ def check_abft(torch, cfg, abft_mod, GuardedBackend, get_backend):
     for what, k, n, dtype, transposed, r in others:
         b = model_weight(torch, gen, k, n, dtype, transposed)
         a = torch.randn((DECODE_M, k), generator=gen, device=dev).to(dtype)
-        err = abft_case(torch, abft, plain, b,
-                        abft_vectors(torch, gen, a, n, r), what)
+        err = (abft_pack_case(torch, abft, plain, b, a, what) if r == 0
+               else abft_case(torch, abft, plain, b,
+                              abft_vectors(torch, gen, a, n, r), what))
         rows.append({"weight": what, "K": k, "N": n, "M": DECODE_M,
                      "dtype": str(dtype).split(".")[1],
                      "b_transposed_view": transposed, "probes": r,
                      "max_err": err, "max_err_limit": TOL_ABFT})
-    # a strided view (every other column of a wider table)
+    # a strided view (every other column of a wider table): both forms
     wide = torch.randn((1024, 2 * 777), generator=gen, device=dev).to(
         torch.bfloat16)
     b = wide[:, ::2]
     a = torch.randn((DECODE_M, 1024), generator=gen, device=dev).to(
         torch.bfloat16)
-    err = abft_case(torch, abft, plain, b, abft_vectors(torch, gen, a, 777, 0),
-                    "strided view")
+    err = max(abft_pack_case(torch, abft, plain, b, a, "strided view"),
+              abft_case(torch, abft, plain, b,
+                        abft_vectors(torch, gen, a, 777, 0), "strided view"))
     rows.append({"weight": "strided view (1024, 777) of (1024, 1554)",
                  "K": 1024, "N": 777, "dtype": "bfloat16", "max_err": err,
                  "max_err_limit": TOL_ABFT})
 
     verdicts = abft_verdicts(torch, gen, GuardedBackend, get_backend)
 
-    # the guard's call at each weight (abft mode, M = 4), timed
+    # the guard's two calls at each weight (abft mode, M = 4; B1's f32
+    # product), timed
     timed = []
     for name, (k, n, per_step, transposed, dname) in gemms.items():
         copies = max(1, math.ceil(120e6 / (2 * k * n)))
@@ -2111,37 +2231,54 @@ def check_abft(torch, cfg, abft_mod, GuardedBackend, get_backend):
               for _ in range(copies)]
         a = torch.randn((DECODE_M, k), generator=gen, device=dev).to(
             torch.bfloat16)
-        vecs = abft_vectors(torch, gen, a, n, 0)
         iters = 4 if transposed else 24
 
         def kernel(i):
-            return abft(bs[i], *vecs)
+            return abft(bs[i], a=a, tol=GUARD_TOL)
 
         def library(i):
-            return torch.mv(bs[i].to(torch.float64), vecs[0][:, 0])
+            return torch.mv(bs[i].to(torch.float64),
+                            torch.ones((n,), dtype=torch.float64, device=dev))
 
+        checks = kernel(0)
+        outs = [(a.to(torch.float32) @ bs[0].to(torch.float32))
+                for _ in range(4)]
 
-        t_bound, by = abft_bound_ms(k, n, 2, 1, 2)
+        def judge(i):
+            return verdict(outs[i % 4], checks)
+
+        t_bound, by = abft_bound_ms(k, n, 2, 0, 0, m=DECODE_M)
+        v_bound, v_by = verdict_bound_ms(DECODE_M, n, 4)
         row = {"weight": name, "K": k, "N": n, "M": DECODE_M,
                "b_transposed_view": transposed,
                "launches_per_model_step": per_step,
                "plan": dataclasses.asdict(abft_mod.launch_plan(
-                   *((n, k) if transposed else (k, n)))),
+                   *((n, k) if transposed else (k, n)), torch.bfloat16)),
                "kernel_ms": time_ms(kernel, copies, iters),
                "device_ms": device_ms(kernel, copies, iters),
-               "plain_ms": time_ms(lambda i: plain(bs[i], *vecs), copies,
-                                   max(2, iters // 4)),
+               "plain_ms": time_ms(
+                   lambda i: plain(bs[i], a=a, tol=GUARD_TOL), copies,
+                   max(2, iters // 4)),
                "library_ms": time_ms(library, copies, iters),
-               "library": "torch.mv on a float64 copy of b (the copy "
-                          "included): one of the four vectors",
-               "bound_ms": t_bound, "bound_by": by}
+               "library": "torch.mv of a float64 copy of b by ones (the "
+                          "copy included): one of the four vectors",
+               "bound_ms": t_bound, "bound_by": by,
+               "verdict": {
+                   "product_dtype": "float32",
+                   "kernel_ms": time_ms(judge, 4, 24),
+                   "device_ms": device_ms(judge, 4, 24),
+                   "plain_ms": time_ms(lambda i: vplain(outs[i % 4], checks),
+                                       4, 8),
+                   "bound_ms": v_bound, "bound_by": v_by}}
         if name == "w1/wg":
             row["host_us_per_call"] = host_us_per_call(
-                torch, lambda: abft(bs[0], *vecs), 200, 5)
+                torch, lambda: abft(bs[0], a=a, tol=GUARD_TOL), 200, 5)
+            row["verdict"]["host_us_per_call"] = host_us_per_call(
+                torch, lambda: verdict(outs[0], checks), 200, 5)
         timed.append(row)
-        del bs
+        del bs, outs
     torch.cuda.empty_cache()
-    return rows, verdicts, timed
+    return rows, vrows, verdicts, timed
 
 
 #: (what, [(row, col, delta as a fraction of max|C|)]): one corrupted
@@ -2214,6 +2351,24 @@ def abft_verdicts(torch, gen, GuardedBackend, get_backend):
     return out
 
 
+def served_decode_ms(short, longer, picks):
+    """Device ms a served decode step of each picked kernel, from two
+    profiled runs of the same requests (``profile_serve``) that differ only
+    in their decode steps: the difference of their totals over the
+    difference of their decode steps.  None where either run has no device
+    rows or their prefills differ."""
+    if (short.get("picked_ms_per_model_step") is None
+            or longer.get("picked_ms_per_model_step") is None):
+        return None
+    prefills = [r["model_steps"] - r["decode_steps"] for r in (short, longer)]
+    extra = longer["decode_steps"] - short["decode_steps"]
+    if prefills[0] != prefills[1] or extra <= 0:
+        return None
+    return {p: (longer["picked_ms_per_model_step"][p] * longer["model_steps"]
+                - short["picked_ms_per_model_step"][p] * short["model_steps"])
+            / extra for p in picks}
+
+
 def guard_stats(run):
     """The guarded backend's telemetry of a launcher run, and its host ms a
     GEMM (``backend_callback_seconds``)."""
@@ -2265,16 +2420,20 @@ def chaos_run(cfg, params, scenario, bursts):
         session=session, wall_s=wall, v_crash=V_CRASH)
 
 
-def serve_guard(torch, cfg, mods, params, ref, counters, abft):
+def serve_guard(torch, cfg, mods, params, ref, counters, abft_mod):
     """phi4-mini-3.8b at full width through the launcher with ``--guard
-    abft``: (a) on ``reference`` (every GEMM on B1, every verification's
-    operand checksums on abft_checksums): no detection, tokens bit-equal to
-    the unguarded run of the ``serve`` phase; (b) on the emulated array at
-    the calibrated rails (``--hwloop --guard-policy fail_closed``): no
-    detection, no flag, tokens equal to ``serve_hwloop``'s; (c) the
-    reference's ``silent_burst`` script; (d) its ``watchdog_delay``
-    script."""
+    abft``: (a) on ``reference`` (every GEMM on B1, every GEMM's checks one
+    abft_checksums launch and every verification one abft_verdict launch):
+    no detection, tokens bit-equal to the unguarded run of the ``serve``
+    phase; its model step, host ms a GEMM and profiled kernels a step beside
+    unguarded runs of the same workload just before and after it, held to
+    ``GUARD_LIMITS``, and the guard's two kernels' device ms a served decode
+    step held to ``ABFT_STEP_LIMIT_MS`` (a figure not measured fails); (b) on the emulated array at the calibrated rails
+    (``--hwloop --guard-policy fail_closed``): no detection, no flag, tokens
+    equal to ``serve_hwloop``'s; (c) the reference's ``silent_burst``
+    script; (d) its ``watchdog_delay`` script."""
     serve_mod = mods.serve
+    abft, verdict = abft_mod.abft_checksums, abft_mod.abft_verdict
     per_step = 7 * cfg.n_layers + 1
     argv = ["--arch", ARCH, "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
             "--requests", str(REQUESTS), "--max-new", str(MAX_NEW), "--mixed",
@@ -2282,20 +2441,32 @@ def serve_guard(torch, cfg, mods, params, ref, counters, abft):
     api = mods.model_api(cfg)
     ratios = {}
 
+    def unguarded():
+        r = serve_mod.run(serve_mod.parse_args(argv + ["--backend",
+                                                       "reference"]), params)
+        torch.cuda.synchronize()
+        _, cb_s, cb_n = r.engine.obs.registry.histogram(
+            "backend_callback_seconds", labels=("backend",)).snapshot(
+                backend="reference")
+        return 1e3 * r.wall_s / r.stats.model_steps, 1e3 * cb_s / cb_n
+
     # ---- warm-up, uncounted
     serve_mod.run(serve_mod.parse_args(
         ["--arch", ARCH, "--slots", "2", "--max-len", str(MAX_LEN),
          "--requests", "2", "--max-new", "2", "--backend", "reference",
          "--guard", "abft"]), params)
     torch.cuda.synchronize()
+    before = unguarded()
 
     # ---- (a) the main path: counts set to 0 just before, read just after
     counters.zero()
-    abft.launches = 0
+    abft.launches = verdict.launches = 0
     run = serve_mod.run(serve_mod.parse_args(
         argv + ["--backend", "reference", "--guard", "abft"]), params)
     torch.cuda.synchronize()
-    launches = dict(counters.read(), abft_checksums=abft.launches)
+    launches = dict(counters.read(), abft_checksums=abft.launches,
+                    abft_verdict=verdict.launches)
+    after = unguarded()
     stats = run.stats
     tel, host_ms = guard_stats(run)
     steps = stats.model_steps
@@ -2307,7 +2478,8 @@ def serve_guard(torch, cfg, mods, params, ref, counters, abft):
              f"{tel['guard_uncorrected']} uncorrected, {tel['flags']} flags "
              f"on clean B1 products")
     if not (tel["guard_checks"] == tel["calls"] == per_step * steps
-            == launches["systolic_mac"] == launches["abft_checksums"]):
+            == launches["systolic_mac"] == launches["abft_checksums"]
+            == launches["abft_verdict"]):
         fail(f"serve_guard reference: {tel['guard_checks']} checks, "
              f"{tel['calls']} GEMMs, {launches} launches, expected "
              f"{per_step} x {steps}")
@@ -2315,12 +2487,37 @@ def serve_guard(torch, cfg, mods, params, ref, counters, abft):
             r.out_tokens for r in ref.requests]:
         fail("serve_guard reference: tokens differ from the unguarded run")
     ratios["reference"] = run.engine.backend.max_clean_ratio
-    _, ref_cb_s, ref_cb_n = ref.engine.obs.registry.histogram(
-        "backend_callback_seconds", labels=("backend",)).snapshot(
-            backend="reference")
+    picks = tuple(f"{k}_kernel" for k in ABFT_STEP_LIMIT_MS)
     profile = profile_serve(torch, serve_mod, params, "reference",
-                            extra=["--guard", "abft"],
-                            pick=("abft_strip", "abft_reduce"))
+                            extra=["--guard", "abft"], pick=picks)
+    profile_unguarded = profile_serve(torch, serve_mod, params, "reference")
+    # the same requests with more decode steps: the guard's kernels in the
+    # served decode steps alone, apart from the prefills (M = a prompt)
+    longer = profile_serve(torch, serve_mod, params, "reference",
+                           extra=["--guard", "abft"], pick=picks,
+                           max_new=3 + PROFILE_DECODE_EXTRA)
+    decode_ms = served_decode_ms(profile, longer, picks)
+    step_ms = 1e3 * run.wall_s / steps
+    unguarded_step = (before[0] + after[0]) / 2
+    unguarded_host = (before[1] + after[1]) / 2
+    def excess(key):
+        g, u = profile.get(key), profile_unguarded.get(key)
+        return None if g is None or u is None else g - u
+
+    held = {"model_step_ratio": step_ms / unguarded_step,
+            "host_ms_per_gemm_ratio": host_ms / unguarded_host,
+            "launches_per_model_step_over_unguarded": excess(
+                "launches_per_model_step")}
+    limits = dict(GUARD_LIMITS)
+    for name, limit in ABFT_STEP_LIMIT_MS.items():
+        key = f"{name}_device_ms_per_decode_step"
+        held[key] = None if decode_ms is None else decode_ms[f"{name}_kernel"]
+        limits[key] = limit
+    for key, limit in limits.items():
+        # a figure the run could not measure fails as one over its limit
+        if held[key] is None or held[key] > limit:
+            fail(f"serve_guard reference: {key} {held[key]} (null: not "
+                 f"measured) over its limit {limit}")
     guarded_ref = {
         "backend": "guarded[reference]", "completed": stats.completed,
         "model_steps": steps, "decode_steps": stats.decode_steps,
@@ -2328,34 +2525,43 @@ def serve_guard(torch, cfg, mods, params, ref, counters, abft):
         "guard_detected": tel["guard_detected"],
         "kernel_launches": launches,
         "tokens_bit_equal_to_unguarded": True,
-        "model_step_ms": 1e3 * run.wall_s / steps,
-        "unguarded_model_step_ms": ref.model_step_ms,
+        "model_step_ms": step_ms,
+        "unguarded_model_step_ms": unguarded_step,
+        "unguarded_model_step_ms_before_after": [before[0], after[0]],
+        "serve_phase_model_step_ms": ref.model_step_ms,
         "host_ms_per_gemm": host_ms,
-        "unguarded_host_ms_per_gemm": 1e3 * ref_cb_s / ref_cb_n,
+        "unguarded_host_ms_per_gemm": unguarded_host,
+        **held, "limits": limits,
+        "kernels_and_copies_per_model_step_over_unguarded": excess(
+            "kernels_per_model_step"),
         "max_clean_ratio": ratios["reference"],
-        "profile": profile}
+        "profile": profile, "profile_unguarded": profile_unguarded,
+        "profile_more_decode_steps": longer}
 
     # ---- (b) the emulated array at the calibrated rails, fail_closed
     counters.zero()
-    abft.launches = 0
+    abft.launches = verdict.launches = 0
     emu = serve_mod.run(serve_mod.parse_args(
         argv + ["--backend", "emulated", "--hwloop", "--guard", "abft",
                 "--guard-policy", "fail_closed"]), params)
     torch.cuda.synchronize()
-    e_launches = dict(counters.read(), abft_checksums=abft.launches)
+    e_launches = dict(counters.read(), abft_checksums=abft.launches,
+                      abft_verdict=verdict.launches)
     e_tel, e_host_ms = guard_stats(emu)
     if e_tel["guard_detected"] or e_tel["flags"] or e_tel["silent"]:
         fail(f"serve_guard emulated: {e_tel['guard_detected']} detections, "
              f"{e_tel['flags']} flags, {e_tel['silent']} silent at the "
              f"calibrated rails")
-    if e_launches["abft_checksums"] != e_tel["calls"]:
+    if not (e_launches["abft_checksums"] == e_tel["calls"]
+            == e_launches["abft_verdict"] == e_tel["guard_checks"]):
         fail(f"serve_guard emulated: {e_launches} launches for "
-             f"{e_tel['calls']} GEMMs")
+             f"{e_tel['calls']} GEMMs, {e_tel['guard_checks']} checks")
     if [r.out_tokens for r in emu.requests] != [
             r.out_tokens for r in ref.emulated_requests]:
         fail("serve_guard emulated: tokens differ from serve_hwloop's "
              "unguarded emulated run")
     ratios["emulated"] = emu.engine.backend.max_clean_ratio
+    e_step = 1e3 * emu.wall_s / emu.stats.model_steps
     guarded_emu = {
         "backend": "guarded[emulated]", "hwloop": True,
         "policy": "fail_closed", "completed": emu.stats.completed,
@@ -2364,8 +2570,9 @@ def serve_guard(torch, cfg, mods, params, ref, counters, abft):
         "guard_detected": e_tel["guard_detected"], "flags": e_tel["flags"],
         "kernel_launches": e_launches,
         "tokens_equal_to_serve_hwloop": True,
-        "model_step_ms": 1e3 * emu.wall_s / emu.stats.model_steps,
+        "model_step_ms": e_step,
         "unguarded_model_step_ms": ref.emulated_step_ms,
+        "model_step_ratio": e_step / ref.emulated_step_ms,
         "host_ms_per_gemm": e_host_ms,
         "unguarded_host_ms_per_gemm": ref.emulated_host_ms_per_gemm,
         "energy_per_token_j": e_tel["energy_per_token_j"],
@@ -2892,14 +3099,16 @@ def serve_trace(torch, cfg, mods, systolic_mac):
             "model_step_ms": 1e3 * card["wall_s"] / card["model_steps"]}
 
 
-def chaos(torch, cfg, params, abft):
+def chaos(torch, cfg, params, abft_mod):
     """The port's chaos campaign's four wire scenarios on the card, phi4-mini
-    at full width on a guarded emulated engine (every verification's
-    checksums on ``abft_checksums``); each completed stream is held to the
-    same engine's fault-free run.  The scenarios run one ``run_scenario``
-    call each, as ``run_campaign`` runs them, so that each is timed."""
+    at full width on a guarded emulated engine (every verification on
+    ``abft_checksums`` and ``abft_verdict``); each completed stream is held
+    to the same engine's fault-free run.  The scenarios run one
+    ``run_scenario`` call each, as ``run_campaign`` runs them, so that each
+    is timed."""
     from repro_torch.resilience import run_scenario
-    abft.launches = 0
+    abft, verdict = abft_mod.abft_checksums, abft_mod.abft_verdict
+    abft.launches = verdict.launches = 0
     rows = {}
     t0 = time.monotonic()
     for name in CHAOS_SCENARIOS:
@@ -2910,14 +3119,16 @@ def chaos(torch, cfg, params, abft):
                       "wall_s": time.monotonic() - t1, **r.details}
     elapsed = time.monotonic() - t0
     torch.cuda.synchronize()
-    launches = abft.launches
+    launches, v_launches = abft.launches, verdict.launches
     if not all(r["ok"] and not r.get("crashed") for r in rows.values()):
         print(json.dumps({"chaos_red": rows})[-20000:], file=sys.stderr)
         fail(f"chaos: {[(n, r['violations']) for n, r in rows.items()]}")
-    if launches <= 0:
-        fail("chaos: the guarded engines launched abft_checksums no time")
+    if launches <= 0 or v_launches <= 0:
+        fail("chaos: the guarded engines launched abft_checksums or "
+             "abft_verdict no time")
     return {"arch": ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
             "fast": True, "truth": "fault_free", "scenarios": rows,
+            "abft_verdict_launches": v_launches,
             "elapsed_s": elapsed, "abft_checksums_launches": launches}
 
 
@@ -5769,10 +5980,10 @@ def main() -> int:
     emit("hwloop_checks", hwloop_checks(torch, np, tflow, thw,
                                         SimulatedBackend, tiled))
 
-    abft_rows, abft_verdict_rows, abft_timed = check_abft(
+    abft_rows, verdict_rows, abft_verdict_rows, abft_timed = check_abft(
         torch, cfg, abft_mod, GuardedBackend, get_backend)
-    emit("abft_checks", {"checks": abft_rows, "verdicts": abft_verdict_rows,
-                         "timed": abft_timed})
+    emit("abft_checks", {"checks": abft_rows, "verdict_kernel": verdict_rows,
+                         "verdicts": abft_verdict_rows, "timed": abft_timed})
 
     launches, params, ref_run, served = serve(
         torch, cfg, serve_mod, model_api, param_count, use_backend,
@@ -5790,20 +6001,23 @@ def main() -> int:
     ref = types.SimpleNamespace(requests=ref_run.requests,
                                 engine=ref_run.engine,
                                 model_step_ms=served["model_step_ms"],
-                                peak_gb=served["peak_device_memory_gb"])
+                                peak_gb=served["peak_device_memory_gb"],
+                                profile=served["profile"])
     emit("serve_hwloop", serve_hwloop(torch, cfg, mods, params, ref,
                                       counters, tiled))
     guard_launches, guarded = serve_guard(torch, cfg, mods, params, ref,
-                                          counters, abft_mod.abft_checksums)
+                                          counters, abft_mod)
     emit("serve_guard", guarded)
-    if guard_launches["abft_checksums"] <= 0:
-        fail("the guarded path launched abft_checksums no time")
+    if min(guard_launches["abft_checksums"],
+           guard_launches["abft_verdict"]) <= 0:
+        fail("the guarded path launched abft_checksums or abft_verdict no "
+             "time")
     emit("autoscale", autoscale(torch, cfg, mods, params, tflow))
     http = serve_http(torch, cfg, mods, params, ref, systolic_mac)
     emit("serve_http", http)
     traced = serve_trace(torch, cfg, mods, systolic_mac)
     emit("serve_trace", traced)
-    campaign = chaos(torch, cfg, params, abft_mod.abft_checksums)
+    campaign = chaos(torch, cfg, params, abft_mod)
     emit("chaos", campaign)
     census = census_phase(torch, cfg, mods, params)
     emit("census", census)
@@ -6094,9 +6308,29 @@ def main() -> int:
                 "b", "s", "h", "p", "chunk", "kernel_ms", "kernel_device_ms",
                 "kernel_device_ms_by_pass", "plain_ms", "bound_ms",
                 "bound_by")}})
-    step_sum = lambda key: sum(  # noqa: E731
-        r[key] * r["launches_per_model_step"] for r in abft_timed)
-    dev_rows = [r["device_ms"] for r in abft_timed]
+    def step_sum(key, rows):
+        """A decode step's sum over its calls at each weight (None where a
+        weight was not measured)."""
+        vals = [r[key] for r in rows]
+        return None if None in vals else sum(
+            v * r["launches_per_model_step"] for v, r in zip(vals, rows))
+
+    n_calls = sum(r["launches_per_model_step"] for r in abft_timed)
+    by_of = lambda rows: max(  # noqa: E731
+        set(r["bound_by"] for r in rows),
+        key=lambda by: sum(r["bound_ms"] for r in rows if r["bound_by"] == by))
+    v_timed = [dict(r["verdict"], launches_per_model_step=r[
+        "launches_per_model_step"]) for r in abft_timed]
+
+    def served_figure(name):
+        """The kernel's device ms in a served guarded decode step, the
+        figure serve_guard held to the limit."""
+        key = f"{name}_device_ms_per_decode_step"
+        return {"served_device_ms": guarded["reference"][key],
+                "served_device_ms_of": "device ms a served guarded decode "
+                                       "step (serve_guard (a)'s profiles)",
+                "device_ms_limit": ABFT_STEP_LIMIT_MS[name],
+                "device_ms_limit_held_against": "served_device_ms"}
     kernels.append({
         "name": "abft_checksums", "route": "cuda",
         "source": "src/repro_torch/csrc/abft_checksums.cu",
@@ -6110,21 +6344,46 @@ def main() -> int:
         "max_abs_err": max(r["max_err"] for r in abft_rows),
         "max_err_of": "as a fraction of the sums of magnitudes",
         "max_err_limit": TOL_ABFT,
-        "timed": f"the {sum(r['launches_per_model_step'] for r in abft_timed)}"
-                 f" calls of one guarded decode step (abft mode, M="
-                 f"{DECODE_M}, bf16, each weight cold in L2)",
-        "ms": step_sum("kernel_ms"), "plain_ms": step_sum("plain_ms"),
-        "bound_ms": step_sum("bound_ms"),
-        "bound_by": max(set(r["bound_by"] for r in abft_timed),
-                        key=lambda by: sum(r["bound_ms"] for r in abft_timed
-                                           if r["bound_by"] == by)),
-        "library_ms": step_sum("library_ms"),
+        "timed": f"the {n_calls} calls of one guarded decode step (abft "
+                 f"mode, M={DECODE_M}, bf16, each weight cold in L2)",
+        "ms": step_sum("kernel_ms", abft_timed),
+        "plain_ms": step_sum("plain_ms", abft_timed),
+        "bound_ms": step_sum("bound_ms", abft_timed),
+        "bound_by": by_of(abft_timed),
+        "library_ms": step_sum("library_ms", abft_timed),
         "library": abft_timed[0]["library"],
-        "device_ms": (None if None in dev_rows else sum(
-            r["device_ms"] * r["launches_per_model_step"]
-            for r in abft_timed)),
+        "device_ms": step_sum("device_ms", abft_timed),
+        **served_figure("abft_checksums"),
         "host_us_per_call": next(r["host_us_per_call"] for r in abft_timed
                                  if "host_us_per_call" in r)})
+    kernels.append({
+        "name": "abft_verdict", "route": "cuda",
+        "source": "src/repro_torch/csrc/abft_checksums.cu",
+        "replaces": "src/repro/resilience/guard.py:148-159 (numpy; a kernel "
+                    "of the port, not a TPU kernel)",
+        "launches": guard_launches["abft_verdict"],
+        "launches_of": "serve_guard (a): --backend reference --guard abft",
+        "launches_by_path": {
+            "serve_guard (a)": guard_launches["abft_verdict"],
+            "chaos": campaign["abft_verdict_launches"]},
+        "max_abs_err": max(r["max_err"] for r in verdict_rows),
+        "max_err_of": "residuals as a fraction of their rows' and columns' "
+                      "sums of magnitudes; counts and first indices equal",
+        "max_err_limit": TOL_ABFT,
+        "timed": f"the {n_calls} verifications of one guarded decode step "
+                 f"(M={DECODE_M}, B1's float32 products; each weight's "
+                 f"four products and one pack reused, hot in L2)",
+        "ms": step_sum("kernel_ms", v_timed),
+        "plain_ms": step_sum("plain_ms", v_timed),
+        "bound_ms": step_sum("bound_ms", v_timed),
+        "bound_by": by_of(v_timed),
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the verdict",
+        "device_ms": step_sum("device_ms", v_timed),
+        **served_figure("abft_verdict"),
+        "host_us_per_call": next(r["verdict"]["host_us_per_call"]
+                                 for r in abft_timed
+                                 if "host_us_per_call" in r["verdict"])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -227,11 +227,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         p]                          # stream
     lib.ssd_chunk_bwd_launch.restype = ctypes.c_int
     lib.abft_checksums_launch.argtypes = [
-        p, i, i,                    # x, R, C
-        ll, ll, i,                  # strides of x (r, c), dtype
-        p, i, ctypes.c_uint,        # P, np, its |x| bits
-        p, i, ctypes.c_uint,        # Q, nq, its |x| bits
-        i, i,                       # sub-tiles, rows of a block
-        p, p, p, p,                 # partials along C and R, Yr, Yc
+        p,                          # the call's fixed Args (by address)
+        p, p, p, p,                 # x, P, Q, a
+        p, p, p, p,                 # Yr's, Yc's and a's outputs, a's partials
         p]                          # stream
     lib.abft_checksums_launch.restype = ctypes.c_int
+    lib.abft_verdict_launch.argtypes = [
+        p, i, i, ll, ll, i,         # out, M, N, its strides, dtype
+        p, ll,                      # checks (2, M + N), its row stride
+        p, p, p,                    # partials, ticket, the verdict
+        p]                          # stream
+    lib.abft_verdict_launch.restype = ctypes.c_int

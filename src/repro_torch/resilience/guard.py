@@ -27,15 +27,18 @@ best product with ``guard_uncorrected`` telemetry, ``fail_closed`` raises
 of :class:`~repro_torch.backend.base.BackendTelemetry`.
 
 The port's counterpart of ``repro.resilience.guard``, with the same ladder,
-counters, events and probe sequence.  The checksums are computed where the
-operands lie: the operand-side float64 products by
-:func:`repro_torch.kernels.abft.abft_checksums` (one read of ``b`` in its own
-type: the kernel on a GPU, its plain version on the CPU), the rest by
-PyTorch ops on the same device.  The verdict is one small float64 pack (the
-bad-row and bad-column counts, the first of each with its residual, and the
-largest residual-to-tolerance ratio) read by the host once a verification;
-neither the product nor an operand goes to the host.  The ``b``-side
-checksums of one guarded GEMM are computed once and serve its retries.
+counters, events and probe sequence.  The checks are computed where the
+operands lie, by :mod:`repro_torch.kernels.abft` (the kernels on a GPU,
+their plain versions on the CPU): in the abft mode
+:func:`~repro_torch.kernels.abft.abft_checksums` forms a GEMM's references
+and tolerances from one read of ``b`` (one launch), and
+:func:`~repro_torch.kernels.abft.abft_verdict` each verification's verdict
+(one launch): the bad-row and bad-column counts, the first of each with its
+residual, and the largest residual-to-tolerance ratio, seven float64 numbers
+read by the host once a verification.  Freivalds' probes go through
+``abft_checksums``' general form and PyTorch ops.  Neither the product nor
+an operand goes to the host.  The ``b``-side checks of one guarded GEMM are
+computed once and serve its retries.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ import torch
 
 from ..backend.base import (BackendTelemetry, MatmulBackend, get_backend,
                             register_backend)
-from ..kernels.abft import abft_checksums
+from ..kernels.abft import abft_checksums, abft_verdict
 
 MODES = ("off", "freivalds", "abft")
 POLICIES = ("fail_open", "fail_closed")
@@ -82,12 +85,13 @@ class _Verdict:
 @dataclasses.dataclass
 class _Checks:
     """What one guarded GEMM's operands give every verification of it (on
-    the operands' device).  abft: the reference row sums then column sums
-    (M + N,) and their tolerances; freivalds: ``a`` in float64 and, after
-    the first probe pass, the row tolerances (M,)."""
+    the operands' device).  abft: ``ref``, the (2, M + N) pack of the
+    reference row sums then column sums over their tolerances; freivalds:
+    ``a`` in float64 and, after the first probe pass, the row tolerances
+    (M,)."""
 
-    a64: torch.Tensor
-    tol: Optional[torch.Tensor]
+    a64: Optional[torch.Tensor] = None
+    tol: Optional[torch.Tensor] = None
     ref: Optional[torch.Tensor] = None
 
 
@@ -131,6 +135,7 @@ class GuardedBackend(MatmulBackend):
         self.session = session
         self.name = f"guarded[{self.inner.name}]"
         self._rng = np.random.default_rng(seed)
+        self._pinned: Dict[int, torch.Tensor] = {}
         self.max_clean_ratio = 0.0
 
     # -- wiring ---------------------------------------------------------------
@@ -158,43 +163,31 @@ class GuardedBackend(MatmulBackend):
     # -- verification ---------------------------------------------------------
 
     def _checks(self, a: torch.Tensor, b: torch.Tensor) -> _Checks:
-        """The operand-side products of one guarded GEMM: ``b`` read once
-        (``abft_checksums``: its row sums and ``|b|``'s, ``a``'s column sums
-        times ``b`` and ``|a|``'s times ``|b|``), then ``a`` times the row
-        sums.  Freivalds' tolerance comes with its first probe pass (the
-        same read of ``b``)."""
-        a64 = a.to(torch.float64)
+        """The operand-side checks of one guarded GEMM.  abft: one
+        ``abft_checksums`` call (``b`` read once; a's column sums, the
+        products with ``a`` and the tolerances formed with it).  Freivalds'
+        tolerance comes with its first probe pass (the same read of
+        ``b``)."""
         if self.mode == "freivalds":
-            return _Checks(a64, tol=None)
-        m, k = a64.shape
-        acat = torch.cat([a64, a64.abs()])                  # (2M, K)
-        bw, ub = abft_checksums(
-            b, torch.ones((b.shape[1], 1), dtype=torch.float64,
-                          device=b.device),
-            acat.view(2, m, k).sum(dim=1), abs_rows=1)
-        ab = acat @ bw                       # [a; |a|] @ [b 1, |b| 1]
-        ref = torch.cat([ab[:m, 0], ub[0]])
-        tol = (torch.cat([ab[m:, 1], ub[1]]) + 1.0) * self.tol
-        return _Checks(a64, tol=tol, ref=ref)
+            return _Checks(a64=a.to(torch.float64))
+        return _Checks(ref=abft_checksums(b, a=a, tol=self.tol))
 
-    def _read(self, pack: List[torch.Tensor]) -> List[float]:
-        """The verdict's one read by the host."""
-        return torch.stack(pack).tolist()
+    def _read(self, pack: torch.Tensor) -> List[float]:
+        """The verdict's one read by the host (on a GPU a copy into pinned
+        memory, then the stream's end)."""
+        if not pack.is_cuda:
+            return pack.tolist()
+        host = self._pinned.get(pack.numel())
+        if host is None:
+            host = self._pinned[pack.numel()] = torch.empty(
+                pack.shape, dtype=pack.dtype, pin_memory=True)
+        host.copy_(pack, non_blocking=True)
+        torch.cuda.current_stream(pack.device).synchronize()
+        return host.tolist()
 
     def _abft_verify(self, ck: _Checks, out: torch.Tensor) -> _Verdict:
-        m = out.shape[0]
-        err = torch.cat([out.sum(dim=1, dtype=torch.float64),
-                         out.sum(dim=0, dtype=torch.float64)]) - ck.ref
-        # |err| / tol > 1 exactly where |err| > tol (tol is a positive
-        # normal float64, the division correctly rounded)
-        ratio = err.abs() / ck.tol
-        bad = ratio > 1.0
-        first = bad.to(torch.int32)
-        i, j = first[:m].argmax(), first[m:].argmax()     # first maxima
-        nbr, nbc, fi, fj, er, ec, worst = self._read([
-            bad[:m].sum(dtype=torch.float64),
-            bad[m:].sum(dtype=torch.float64), i.to(torch.float64),
-            j.to(torch.float64), err[i], err[m + j], ratio.max()])
+        nbr, nbc, fi, fj, er, ec, worst = self._read(abft_verdict(out,
+                                                                  ck.ref))
         ok = nbr == 0 and nbc == 0
         if ok:
             self.max_clean_ratio = max(self.max_clean_ratio, worst)
@@ -221,9 +214,9 @@ class GuardedBackend(MatmulBackend):
         tol = ck.tol[:, None]                                     # (M, k)
         bad = (resid > tol).any(dim=0)
         first = bad.to(torch.int32).argmax()
-        any_bad, fp, worst = self._read([
+        any_bad, fp, worst = self._read(torch.stack([
             bad.any().to(torch.float64), first.to(torch.float64),
-            (resid / tol).max()])
+            (resid / tol).max()]))
         if any_bad:
             self._rng.bit_generator.state = states[int(fp)]
             return False

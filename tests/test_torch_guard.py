@@ -9,7 +9,8 @@ scripts on a guarded starcoder2 smoke engine in both packages (streams equal
 to the port's unguarded decode, and to the reference's up to ties; the same
 guard counters, step events, rails and recalibrations); and the
 checksum module: its plain version against ``guard.py``'s numpy GEMVs, and
-the kernel's launch plan with an emulation of its two passes.
+the kernel's launch plan with the wrapper's routes, each launch emulated in
+the kernel's order (``test_torch_abft_plan.py``).
 """
 
 import types
@@ -564,45 +565,19 @@ def test_checksums_validate_their_vectors():
                                    (8192, 3072), (200, 20), (7, 1000)])
 def test_launch_plan_fills_the_card_and_covers_the_operand(shape):
     r, c = shape
-    plan = abft_mod.launch_plan(r, c)
-    assert 1 <= plan.sub <= abft_mod.MAX_SUB
-    assert abft_mod.WARPS <= plan.rows <= abft_mod.MAX_ROWS
-    assert plan.rows % abft_mod.WARPS == 0
-    assert plan.n_cb * plan.sub * abft_mod.TILE_C >= c
+    plan = abft_mod.launch_plan(r, c, torch.bfloat16)
+    assert abft_mod.MIN_ROWS <= plan.rows <= abft_mod.MAX_ROWS
+    assert plan.rows % abft_mod.CHUNK_ROWS == 0
+    assert plan.n_cb * plan.strip >= c
     assert plan.n_rb * plan.rows >= r and plan.n_rb <= 65535
     blocks = plan.n_cb * plan.n_rb
-    assert blocks >= abft_mod.TARGET_BLOCKS or (
-        plan.sub == 1 and plan.rows == abft_mod.WARPS)
+    assert blocks <= abft_mod.TARGET_BLOCKS or (
+        plan.rows in (abft_mod.MIN_ROWS, abft_mod.MAX_ROWS)
+        or plan.n_cb > abft_mod.TARGET_BLOCKS)
     # the partial sums stay a small share of the operand's bytes
     pr, pc = plan.partial_doubles(2, 2)
     if r * c >= 1 << 24:
         assert 8 * (pr + pc) < 0.2 * 2 * r * c
-
-
-def _emulated_launch(x, p, pabs, q, qabs):
-    """csrc/abft_checksums.cu's two passes in float64 numpy, block by block
-    in its order: X' @ P summed over a block's columns then over the column
-    blocks; Q @ X' over a block's rows then over the row blocks."""
-    xs = x.to(torch.float64).numpy()
-    p, q = p.numpy(), q.numpy()
-    r_tot, c_tot = xs.shape
-    plan = abft_mod.launch_plan(r_tot, c_tot)
-    n_p, n_q = p.shape[1], q.shape[0]
-    xp = np.stack([np.abs(xs) if (pabs >> j) & 1 else xs
-                   for j in range(n_p)]) if n_p else None
-    xq = np.stack([np.abs(xs) if (qabs >> i) & 1 else xs
-                   for i in range(n_q)]) if n_q else None
-    yr = np.zeros((r_tot, n_p))
-    yc = np.zeros((n_q, c_tot))
-    width = plan.sub * abft_mod.TILE_C
-    for c0 in range(0, c_tot, width):
-        for j in range(n_p):
-            yr[:, j] += xp[j][:, c0:c0 + width] @ p[c0:c0 + width, j]
-    for r0 in range(0, r_tot, plan.rows):
-        for i in range(n_q):
-            yc[i] += q[i, r0:r0 + plan.rows] @ xq[i][r0:r0 + plan.rows]
-    abft_mod.abft_checksums.launches += 1
-    return torch.as_tensor(yr), torch.as_tensor(yc)
 
 
 @pytest.mark.parametrize("layout", ["row-major", "transposed", "strided"])
@@ -610,9 +585,12 @@ def _emulated_launch(x, p, pabs, q, qabs):
 def test_kernel_route_maps_its_vectors_as_the_plain_version(
         layout, n_probe, monkeypatch):
     """The wrapper's side of the kernel (which axis is X's, which vector
-    goes to P or Q with which |.| bit, probe groups of three) on CPU tensors,
-    with the two passes emulated: equal to the plain version."""
-    monkeypatch.setattr(abft_mod, "_launch", _emulated_launch)
+    goes to P or Q with which |.| bit, probe groups of three, where a's sums
+    and the pack's pieces go) on CPU tensors, with each launch emulated in
+    the kernel's order (``test_torch_abft_plan.emulated_launch``): equal to
+    the plain version."""
+    from test_torch_abft_plan import emulated_launch
+    monkeypatch.setattr(abft_mod, "_launch", emulated_launch)
     monkeypatch.setattr(abft_mod.abft_checksums, "launches", 0)
     rng = np.random.default_rng(13 + n_probe)
     k, n = 300, 700
@@ -626,9 +604,14 @@ def test_kernel_route_maps_its_vectors_as_the_plain_version(
     v = torch.as_tensor(rng.integers(0, 2, size=(n, n_probe)) * 2.0 - 1.0)
     u = torch.as_tensor(rng.normal(size=(1, k)))
     for uu, abs_rows in ((torch.cat([u, u.abs()]), 1), (u, 0), (u[:0], 0)):
-        got = abft_mod._kernel_route(b, v, uu, abs_rows)
+        got = abft_mod._general_route(b, v, uu, abs_rows)
         want = abft_mod.abft_checksums_plain(b, v, uu, abs_rows)
         for g, w in zip(got, want):
             assert g.shape == w.shape
             assert torch.allclose(g, w, rtol=1e-12, atol=1e-9)
-    assert abft_mod.abft_checksums.launches == 3 * max(1, -(-n_probe // 3))
+    a = torch.as_tensor(rng.normal(size=(4, k))).to(torch.bfloat16)
+    got = abft_mod._abft_route(b, a, 1e-6)
+    want = abft_mod.abft_checksums_plain(b, a=a, tol=1e-6)
+    assert got.shape == want.shape == (2, 4 + n)
+    assert torch.allclose(got, want, rtol=1e-12, atol=1e-9)
+    assert abft_mod.abft_checksums.launches == 3 * max(1, -(-n_probe // 3)) + 1

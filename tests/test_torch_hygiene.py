@@ -198,13 +198,20 @@ def test_build_is_keyed_by_its_sources():
     for name in ("systolic_mac", "quant_rows", "razor_matmul",
                  "precision_island", "wkv6", "ssd_chunk", "abft_checksums"):
         assert f'extern "C" int {name}_launch' in texts[f"{name}.cu"]
-    # the guard's checksums: float64 sums in a fixed order (a strip pass and
-    # an ordered reduce pass), no atomics of any kind
+    # the guard's checksums and verdict: float64 sums in a fixed order (one
+    # launch each; the last block of a group adds the partials in block
+    # order), no float atomics: integer tickets only, and no per-row
+    # shuffle tree
     abft = texts["abft_checksums.cu"]
-    for kernel in ("abft_strip_kernel", "abft_reduce_kernel"):
+    for kernel in ("abft_checksums_kernel", "abft_verdict_kernel"):
         assert kernel in abft
-    assert not re.findall(r"atomic\w*\(", abft)
-    assert "__shfl_xor_sync" in abft and "double" in abft
+    assert 'extern "C" int abft_verdict_launch' in abft
+    atomics = re.findall(r"(atomic\w*)\(\s*([^,]+)", abft)
+    assert atomics and all(op == "atomicInc" and "ticket" in arg
+                           for op, arg in atomics), atomics
+    assert "unsigned* tickets" in abft and "unsigned* ticket" in abft
+    assert "__shfl_xor_sync" not in abft and "double" in abft
+    assert "cp.async.cg.shared.global" in abft
     # the recurrences: accurate expf (no __expf), the Pallas kernels'
     # clamps; wkv6's and ssd_chunk's four products on the TF32 tensor cores
     # with a 3xTF32 split (hi = rna(a), lo = rna(a - hi), by cvt.rna.tf32's
@@ -257,7 +264,7 @@ class _CudaLooking(torch.Tensor):
 
 @pytest.mark.parametrize("kernel", ["razor_matmul", "precision_island",
                                     "wkv6", "ssd_chunk", "wkv6_chunked",
-                                    "abft_checksums"])
+                                    "abft_checksums", "abft_verdict"])
 def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
         kernel, monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
@@ -274,6 +281,7 @@ def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
     monkeypatch.setattr(wkv6_mod, "wkv6_plain", plain)
     monkeypatch.setattr(ssd_mod, "ssd_chunk_plain", plain)
     monkeypatch.setattr(abft_mod, "abft_checksums_plain", plain)
+    monkeypatch.setattr(abft_mod, "abft_verdict_plain", plain)
 
     def cuda(*shape):
         return torch.zeros(*shape).as_subclass(_CudaLooking)
@@ -293,6 +301,9 @@ def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
             f64 = lambda *s: torch.zeros(*s, dtype=torch.float64) \
                 .as_subclass(_CudaLooking)               # noqa: E731
             abft_mod.abft_checksums(b, f64(256, 1), f64(2, 64), abs_rows=1)
+        elif kernel == "abft_verdict":
+            abft_mod.abft_verdict(a[:4], torch.zeros(
+                2, 4 + 64, dtype=torch.float64).as_subclass(_CudaLooking))
         elif kernel == "ssd_chunk":
             ssd_mod.ssd_chunk(seq, cuda(2, 8, 2), cuda(2), cuda(2, 8, 4),
                               cuda(2, 8, 4), cuda(2), cuda(2, 2, 4, 16))
@@ -303,6 +314,7 @@ def test_cuda_tensors_raise_without_nvcc_and_never_take_the_plain_version(
     assert island_mod.precision_island.launches == 0
     assert wkv6_mod.wkv6.launches == ssd_mod.ssd_chunk.launches == 0
     assert abft_mod.abft_checksums.launches == 0
+    assert abft_mod.abft_verdict.launches == 0
 
 
 def test_chip_smoke_fails_here_and_prints_no_result():
