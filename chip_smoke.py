@@ -58,7 +58,9 @@ depth through the same trainer (4 steps of 2 x 256 tokens under
 ``reference`` and ``ideal``), and rwkv6-1.6b again with ``ssm_bf16=True``:
 the recurrences' backward kernels (``wkv6_bwd``, its bf16 variant
 ``wkv6_bwd_bf16`` and ``ssd_chunk_bwd``, held first against their plain
-versions) on the main path.  Then the device mesh: a one-rank ``nccl`` group
+versions, their device ms a call at the train and loss shapes to
+``BWD_LIMIT_MS`` and their launches a call to ``BWD_LAUNCH_LIMIT``) on the
+main path.  Then the device mesh: a one-rank ``nccl`` group
 and a (1, 1) mesh (``repro_torch.launch.mesh``), one phi4-mini train step
 at full width and four decode steps of the served model through
 ``build_cell``'s rules, each bit-equal to the unsharded step with
@@ -213,6 +215,14 @@ GUARD_LIMITS = {"model_step_ratio": 2.0, "host_ms_per_gemm_ratio": 4.0,
 #: device ms the guard's kernels may take over a guarded decode step's 225
 #: calls, as the profiler reads them in served decode steps (serve_guard)
 ABFT_STEP_LIMIT_MS = {"abft_checksums": 6.0, "abft_verdict": 1.5}
+#: device ms one backward call of the recurrences may take (torch.profiler,
+#: the state gradient zero) at the train (2 x 256) and loss (2 x 2048)
+#: shapes, and the kernels one call may launch: the redesign's limits
+BWD_LIMIT_MS = {("ssd_chunk_bwd", "train"): 0.22, ("ssd_chunk_bwd", "loss"): 1.2,
+                ("wkv6_bwd", "train"): 0.14, ("wkv6_bwd", "loss"): 0.9,
+                ("wkv6_bwd_bf16", "train"): 0.14,
+                ("wkv6_bwd_bf16", "loss"): 0.9}
+BWD_LAUNCH_LIMIT = 4
 #: decode steps the second of serve_guard's two profiled guarded runs adds
 #: (the same prefills): the difference is the served decode steps' own
 PROFILE_DECODE_EXTRA = 4
@@ -3572,11 +3582,15 @@ def grad_case(torch, fn, plain_bwd, args, chunk, state_grad, names,
     return row, (y, S, leaves, dy, dS)
 
 
-def time_grad(torch, row, graph, plain_bwd, args, chunk, name, bound):
+def time_grad(torch, row, graph, plain_bwd, args, chunk, name, bound,
+              shape):
     """A timed backward row: the backward pass alone (``autograd.grad`` of
     a kept graph: the backward kernel's launch and nothing else on the
     device) by CUDA events, its plain version on the same inputs, the byte
-    and operation bound, and the device time by pass (torch.profiler)."""
+    and operation bound, and the device time and launches by pass
+    (torch.profiler).  The device ms are held to ``BWD_LIMIT_MS[name,
+    shape]`` and the launches of one call to ``BWD_LAUNCH_LIMIT``; a figure
+    not measured fails."""
     y, S, leaves, dy, dS = graph
     state_grad = bool(dS.abs().max() > 0)
 
@@ -3596,27 +3610,44 @@ def time_grad(torch, row, graph, plain_bwd, args, chunk, name, bound):
               if "_bwd_" in r["kernel"]}
     row["kernel_device_ms"] = sum(passes.values()) if passes else None
     row["kernel_device_ms_by_pass"] = passes or None
+    row["launches_per_call"] = (sum(r["calls"] for r in prof
+                                    if "_bwd_" in r["kernel"]) / iters
+                                if passes else None)
+    limit = BWD_LIMIT_MS[name, shape]
+    row.update(device_ms_limit=limit, launches_limit=BWD_LAUNCH_LIMIT)
+    what = f"{name} at the {shape} shape"
+    if row["kernel_device_ms"] is None or row["kernel_device_ms"] > limit:
+        fail(f"{what}: {row['kernel_device_ms']} device ms a call (null: "
+             f"not measured) over its limit {limit}")
+    if (row["launches_per_call"] is None
+            or row["launches_per_call"] > BWD_LAUNCH_LIMIT):
+        fail(f"{what}: {row['launches_per_call']} launches a call (null: "
+             f"not measured) over its limit {BWD_LAUNCH_LIMIT}")
 
 
 def check_wkv6_bwd(torch, wkv6, wkv6_backward_plain):
     """wkv6's backward kernel (csrc/wkv6_bwd.cu, through ``wkv6`` under
     autograd) against ``wkv6_backward_plain`` at rwkv6-1.6b's loss (b 2, s
-    2048) and train (2, 256) shapes, ragged chunks (100, 1000), the JAX
-    tests' shapes and p 47 in unaligned views (chunk 128, and chunk 1: the
-    forward's three passes at one row), each with the final state's
-    gradient zero and random, and repeated (the same bits); the loss and
-    train shapes timed, by CUDA events and by pass."""
+    2048) and train (2, 256) shapes, the train shape at b 1, ragged chunks
+    (100, 1000), the JAX tests' shapes and p 47 in unaligned views (chunk
+    128: the multi-tile passes; chunk 64 with h 12: the fused pass at odd
+    widths; chunk 1: the forward's three passes at one row), each with the
+    final state's gradient zero and random, and repeated (the same bits);
+    the loss and train shapes timed, by CUDA events and by pass, and held
+    to ``BWD_LIMIT_MS`` and ``BWD_LAUNCH_LIMIT``."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 19)
     H, P = 32, 64
     cases = [("rwkv6 loss", 2, 2048, H, P, 64),
              ("rwkv6 train", 2, 256, H, P, 64),
+             ("rwkv6 train b1", 1, 256, H, P, 64),
              ("ragged", 1, 100, H, P, 100),
              ("ragged", 1, 1000, H, P, 1000),
              ("jax-test", 2, 64, 2, 16, 16),
              ("jax-test", 1, 128, 3, 32, 32),
              ("jax-test", 2, 32, 1, 8, 32),
              ("unaligned", 2, 256, 12, 47, 128),
+             ("unaligned", 2, 256, 12, 47, 64),
              ("unaligned", 2, 3, 12, 47, 1)]
     names = ("dr", "dk", "dv", "dw_log", "du", "dstate")
     out = []
@@ -3636,7 +3667,8 @@ def check_wkv6_bwd(torch, wkv6, wkv6_backward_plain):
             if name in ("rwkv6 loss", "rwkv6 train") and not state_grad:
                 time_grad(torch, row, graph, wkv6_backward_plain, args, ch,
                           "wkv6_bwd",
-                          wkv6_bwd_bound_ms(b, s, h, p, ch, state_grad))
+                          wkv6_bwd_bound_ms(b, s, h, p, ch, state_grad),
+                          name.split()[1])
             del graph
             out.append(row)
     return out
@@ -3667,9 +3699,10 @@ def check_wkv6_bwd_bf16(torch, wkv6, wkv6_backward_plain):
     """wkv6's bf16 backward (``wkv6_bwd_bf16_launch``, through ``wkv6`` on
     bf16 r/k/v under autograd, the forward ``wkv6_bf16_passes_launch``)
     against ``wkv6_backward_plain`` in bf16 at rwkv6-1.6b's train (b 2, s
-    256) and loss (2, 2048) shapes, a ragged chunk (1000), chunk 1 (the
-    forward's three passes at one row) and p 47 in strided bf16 views, each
-    with the final state's gradient zero and random: dr, dk, dv (bf16) and
+    256) and loss (2, 2048) shapes, the train shape at b 1, a ragged chunk
+    (1000), chunk 1 (the forward's three passes at one row) and p 47 in
+    strided bf16 views (chunk 128, and chunk 64 with h 12: the fused pass at
+    odd widths), each with the final state's gradient zero and random: dr, dk, dv (bf16) and
     dw_log within TOL_WKV6_BF16 of their largest magnitudes, du within
     TOL_REDUCED_GRAD, dstate within TOL_RECURRENCE; where a chunk holds more
     than one row dr, dk and dv at least WKV6_BF16_SEPARATION times closer
@@ -3678,15 +3711,17 @@ def check_wkv6_bwd_bf16(torch, wkv6, wkv6_backward_plain):
     repeated backward pass the same bits; each pass counted by
     ``wkv6.bf16_backward_launches`` and its forward by
     ``wkv6.bf16_launches``, none by the f32 counts.  The train and loss
-    shapes timed as the f32 rows are."""
+    shapes timed and held as the f32 rows are."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 24)
     H, P = 32, 64
     cases = [("rwkv6 train", 2, 256, H, P, 64, False),
              ("rwkv6 loss", 2, 2048, H, P, 64, False),
+             ("rwkv6 train b1", 1, 256, H, P, 64, False),
              ("ragged", 1, 1000, H, P, 1000, False),
              ("chunk 1", 2, 16, H, P, 1, False),
-             ("strided", 2, 256, 12, 47, 128, True)]
+             ("strided", 2, 256, 12, 47, 128, True),
+             ("strided", 2, 256, 12, 47, 64, True)]
     names = ("dr", "dk", "dv", "dw_log", "du", "dstate")
     tols = {"dr": TOL_WKV6_BF16, "dk": TOL_WKV6_BF16, "dv": TOL_WKV6_BF16,
             "dw_log": TOL_WKV6_BF16, "du": TOL_REDUCED_GRAD,
@@ -3735,7 +3770,8 @@ def check_wkv6_bwd_bf16(torch, wkv6, wkv6_backward_plain):
             if name in ("rwkv6 loss", "rwkv6 train") and not state_grad:
                 time_grad(torch, row, graph, wkv6_backward_plain, args, ch,
                           "wkv6_bwd_bf16",
-                          wkv6_bwd_bf16_bound_ms(b, s, h, p, ch, state_grad))
+                          wkv6_bwd_bf16_bound_ms(b, s, h, p, ch, state_grad),
+                          name.split()[1])
             del graph
             out.append(row)
     return out
@@ -3745,20 +3781,26 @@ def check_ssd_bwd(torch, ssd_chunk, ssd_chunk_backward_plain):
     """ssd_chunk's backward kernel (csrc/ssd_chunk_bwd.cu, through
     ``ssd_chunk`` under autograd) against ``ssd_chunk_backward_plain`` at
     zamba2-2.7b's loss (b 2, s 2048, h 80, p 64, n 64) and train (2, 256)
-    shapes, ragged chunks (100, 1000), the JAX tests' shapes and odd widths
-    in unaligned views, each with the final state's gradient zero and
-    random, and repeated (the same bits); the loss and train shapes timed."""
+    shapes, the train shape at b 1 (one head a block where b 2 takes two),
+    ragged chunks (100, 1000), the JAX tests' shapes and odd widths in
+    unaligned views (chunk 128: the multi-tile passes; chunk 64 with h 12:
+    the fused pass with a partial head group at p 47, n 37), each with the
+    final state's gradient zero and random, and repeated (the same bits);
+    the loss and train shapes timed and held to ``BWD_LIMIT_MS`` and
+    ``BWD_LAUNCH_LIMIT``."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 20)
     H, P, N = 80, 64, 64
     cases = [("zamba2 loss", 2, 2048, H, P, N, 64),
              ("zamba2 train", 2, 256, H, P, N, 64),
+             ("zamba2 train b1", 1, 256, H, P, N, 64),
              ("ragged", 1, 100, H, P, N, 100),
              ("ragged", 1, 1000, H, P, N, 1000),
              ("jax-test", 2, 64, 2, 16, 8, 16),
              ("jax-test", 1, 96, 4, 32, 16, 32),
              ("jax-test", 2, 32, 1, 8, 4, 8),
-             ("unaligned", 2, 256, 12, 47, 37, 128)]
+             ("unaligned", 2, 256, 12, 47, 37, 128),
+             ("unaligned", 2, 256, 12, 47, 37, 64)]
     names = ("dx", "ddt", "dA_log", "dB", "dC", "dD", "dstate")
     out = []
     for name, b, s, h, p, n, ch in cases:
@@ -3777,7 +3819,8 @@ def check_ssd_bwd(torch, ssd_chunk, ssd_chunk_backward_plain):
             if name in ("zamba2 loss", "zamba2 train") and not state_grad:
                 time_grad(torch, row, graph, ssd_chunk_backward_plain, args,
                           ch, "ssd_chunk_bwd",
-                          ssd_bwd_bound_ms(b, s, h, p, n, ch, state_grad))
+                          ssd_bwd_bound_ms(b, s, h, p, n, ch, state_grad),
+                          name.split()[1])
             del graph
             out.append(row)
     return out
@@ -6304,10 +6347,15 @@ def main() -> int:
             "device_ms_in_the_step": (
                 sum(v for k, v in prof.items() if "_bwd_" in k
                     and k.startswith(kernel[:4])) or None),
+            "device_ms_per_call": train_row["kernel_device_ms"],
+            "device_ms_by_pass": train_row["kernel_device_ms_by_pass"],
+            "launches_per_call": train_row["launches_per_call"],
+            "device_ms_limit": train_row["device_ms_limit"],
+            "device_ms_limit_held_against": "device_ms_per_call",
             "loss_shape": {k: loss_row[k] for k in (
                 "b", "s", "h", "p", "chunk", "kernel_ms", "kernel_device_ms",
-                "kernel_device_ms_by_pass", "plain_ms", "bound_ms",
-                "bound_by")}})
+                "kernel_device_ms_by_pass", "launches_per_call",
+                "device_ms_limit", "plain_ms", "bound_ms", "bound_by")}})
     def step_sum(key, rows):
         """A decode step's sum over its calls at each weight (None where a
         weight was not measured)."""

@@ -83,9 +83,9 @@ __device__ __forceinline__ Splitting<F> splitting(F f) {
 }
 
 // One k-step (k0 .. k0 + 7) of acc[strip][n8 tile] += A (m, k) B (k, j)
-// for the strips si >= FIRST, 3xTF32: lo.hi, hi.lo, then hi.hi.  A and B
-// give each element's (hi, lo).
-template <int FIRST, class SA, class SB>
+// for the strips FIRST <= si < LAST, 3xTF32: lo.hi, hi.lo, then hi.hi.  A
+// and B give each element's (hi, lo).
+template <int FIRST, int LAST = 2, class SA, class SB>
 __device__ __forceinline__ void k_step(float (&acc)[2][2][4], SA& A, SB& B,
                                        const WarpTile& w, int k0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -96,7 +96,7 @@ __device__ __forceinline__ void k_step(float (&acc)[2][2][4], SA& A, SB& B,
     B(k0 + t + 4, w.j0 + 8 * jj + g, bh[jj][1], bl[jj][1]);
   }
 #pragma unroll
-  for (int si = FIRST; si < 2; ++si) {
+  for (int si = FIRST; si < LAST; ++si) {
     const int m = w.m[si];
     uint32_t ah[4], al[4];
     A(m + g, k0 + t, ah[0], al[0]);
@@ -123,6 +123,60 @@ __device__ __forceinline__ void product_3xtf32(float (&acc)[2][2][4], SA A,
   int k0 = 0;
   for (; k0 < k_both; k0 += 8) k_step<0>(acc, A, B, w, k0);
   for (; k0 < k_last; k0 += 8) k_step<1>(acc, A, B, w, k0);
+}
+
+// The transposed causal product: acc += A (m, k) B (k, j) where A (m, k) is
+// zero for k < m (an upper-triangular A, as a lower-triangular tile read
+// transposed): the first (upper) strip alone over k_first0 <= k < k_first1,
+// both strips over k_first1 <= k < k_end (multiples of 8; k_first0 <=
+// w.m[0], k_first1 <= w.m[1]).  Each element's sum runs over k in
+// ascending order, as product_3xtf32's.
+template <class SA, class SB>
+__device__ __forceinline__ void product_3xtf32_upper(float (&acc)[2][2][4],
+                                                     SA A, SB B,
+                                                     const WarpTile& w,
+                                                     int k_first0,
+                                                     int k_first1,
+                                                     int k_end) {
+  int k0 = k_first0;
+  for (; k0 < k_first1 && k0 < k_end; k0 += 8) k_step<0, 1>(acc, A, B, w, k0);
+  for (; k0 < k_end; k0 += 8) k_step<0>(acc, A, B, w, k0);
+}
+
+// Two products in one walk over k: acc1 += A1 B1 over k < k_end1 and acc2
+// += A2 B2 over k < k_end2 (multiples of 8, both strips), so that the two
+// products' mma chains interleave.  Each element's sum runs over k in
+// ascending order, as product_3xtf32's: the results are its bits.
+template <class SA1, class SB1, class SA2, class SB2>
+__device__ __forceinline__ void product2_3xtf32(float (&acc1)[2][2][4],
+                                                SA1 A1, SB1 B1, int k_end1,
+                                                float (&acc2)[2][2][4],
+                                                SA2 A2, SB2 B2, int k_end2,
+                                                const WarpTile& w) {
+  const int k_both = min(k_end1, k_end2);
+  int k0 = 0;
+  for (; k0 < k_both; k0 += 8) {
+    k_step<0>(acc1, A1, B1, w, k0);
+    k_step<0>(acc2, A2, B2, w, k0);
+  }
+  for (int k = k0; k < k_end1; k += 8) k_step<0>(acc1, A1, B1, w, k);
+  for (int k = k0; k < k_end2; k += 8) k_step<0>(acc2, A2, B2, w, k);
+}
+
+// product_3xtf32_upper of two products over the same k range at once
+template <class SA1, class SB1, class SA2, class SB2>
+__device__ __forceinline__ void product2_3xtf32_upper(
+    float (&acc1)[2][2][4], SA1 A1, SB1 B1, float (&acc2)[2][2][4], SA2 A2,
+    SB2 B2, const WarpTile& w, int k_first0, int k_first1, int k_end) {
+  int k0 = k_first0;
+  for (; k0 < k_first1 && k0 < k_end; k0 += 8) {
+    k_step<0, 1>(acc1, A1, B1, w, k0);
+    k_step<0, 1>(acc2, A2, B2, w, k0);
+  }
+  for (; k0 < k_end; k0 += 8) {
+    k_step<0>(acc1, A1, B1, w, k0);
+    k_step<0>(acc2, A2, B2, w, k0);
+  }
 }
 
 template <class T>
@@ -164,34 +218,44 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 // acc[strip][n8 tile] += A (m, k) B (k, j) on the bf16 tensor cores, both
 // strips over k < k_both, the lower strip alone up to k_last (multiples of
-// 16), as product_3xtf32; A and B read shared f32, each value rounded to
-// bf16 as it is packed
-template <class FA, class FB>
-__device__ __forceinline__ void product_bf16(float (&acc)[2][2][4], FA A,
-                                             FB B, const WarpTile& w,
-                                             int k_both, int k_last) {
+// 16), as product_3xtf32.  A and B give bf16x2 pairs: A(m, k) the elements
+// (m, k) and (m, k + 1), B(k, j) the elements (k, j) and (k + 1, j), the
+// first in the low half (k even).
+template <class PA, class PB>
+__device__ __forceinline__ void product_bf16x2(float (&acc)[2][2][4], PA A,
+                                               PB B, const WarpTile& w,
+                                               int k_both, int k_last) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
   for (int k0 = 0; k0 < k_last; k0 += 16) {
     uint32_t b[2][2];
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       const int n = w.j0 + 8 * jj + g;
-      b[jj][0] = pack_bf16(B(k0 + t2, n), B(k0 + t2 + 1, n));
-      b[jj][1] = pack_bf16(B(k0 + t2 + 8, n), B(k0 + t2 + 9, n));
+      b[jj][0] = B(k0 + t2, n);
+      b[jj][1] = B(k0 + t2 + 8, n);
     }
 #pragma unroll
     for (int si = 0; si < 2; ++si) {
       if (si == 0 && k0 >= k_both) continue;
       const int m = w.m[si];
-      const uint32_t a[4] = {
-          pack_bf16(A(m + g, k0 + t2), A(m + g, k0 + t2 + 1)),
-          pack_bf16(A(m + g + 8, k0 + t2), A(m + g + 8, k0 + t2 + 1)),
-          pack_bf16(A(m + g, k0 + t2 + 8), A(m + g, k0 + t2 + 9)),
-          pack_bf16(A(m + g + 8, k0 + t2 + 8), A(m + g + 8, k0 + t2 + 9))};
+      const uint32_t a[4] = {A(m + g, k0 + t2), A(m + g + 8, k0 + t2),
+                             A(m + g, k0 + t2 + 8), A(m + g + 8, k0 + t2 + 8)};
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) mma_bf16(acc[si][jj], a, b[jj][0], b[jj][1]);
     }
   }
+}
+
+// product_bf16x2 with A and B read as f32 values (shared memory), each
+// rounded to bf16 as it is packed
+template <class FA, class FB>
+__device__ __forceinline__ void product_bf16(float (&acc)[2][2][4], FA A,
+                                             FB B, const WarpTile& w,
+                                             int k_both, int k_last) {
+  product_bf16x2(
+      acc, [&](int m, int k) { return pack_bf16(A(m, k), A(m, k + 1)); },
+      [&](int k, int n) { return pack_bf16(B(k, n), B(k + 1, n)); }, w,
+      k_both, k_last);
 }
 
 // f(row, col, si, jj, r) for every element acc[si][jj][r] of a warp's share
@@ -256,6 +320,37 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld, At at, int rows,
       const int i = e / COLS, q = e % COLS;
       cp_async4(dst + i * ld + q, at(min(i, rows - 1), min(q, cols - 1)),
                 i < rows && q < cols);
+    }
+  }
+}
+
+// stage_tile for a tile of T (float or bf16): 16 bytes a copy where vec
+// (every row 16-byte aligned, cols a multiple of 16 / sizeof(T)); else 4
+// bytes a copy for float, and for bf16 plain loads and stores (cp.async has
+// no 2-byte copy).  Rows >= rows and columns >= cols zero-filled.
+template <int ROWS, int COLS, int NT, class T, class At>
+__device__ __forceinline__ void stage_tile_t(T* dst, int ld, At at, int rows,
+                                             int cols, bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    stage_tile<ROWS, COLS, NT>(dst, ld, at, rows, cols, vec);
+  } else {
+    constexpr int PER = 16 / sizeof(T);
+    if (vec) {
+#pragma unroll
+      for (int e = threadIdx.x; e < ROWS * COLS / PER; e += NT) {
+        const int i = e / (COLS / PER), q = PER * (e % (COLS / PER));
+        cp_async16(reinterpret_cast<float*>(dst + i * ld + q),
+                   reinterpret_cast<const float*>(
+                       at(min(i, rows - 1), min(q, cols - PER))),
+                   i < rows && q < cols);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = threadIdx.x; e < ROWS * COLS; e += NT) {
+        const int i = e / COLS, q = e % COLS;
+        const T v = *at(min(i, rows - 1), min(q, cols - 1));
+        dst[i * ld + q] = (i < rows && q < cols) ? v : narrow<T>(0.f);
+      }
     }
   }
 }

@@ -224,6 +224,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, ll,                      # scratch, its floats
         p, p, p, p, p, p, p,        # dx, ddt, dA_log, dB, dC, dD, dstate
         i, i, i, i, i, i,           # B, S, H, P, N, chunk
+        i,                          # heads_per_block
         p]                          # stream
     lib.ssd_chunk_bwd_launch.restype = ctypes.c_int
     lib.abft_checksums_launch.argtypes = [

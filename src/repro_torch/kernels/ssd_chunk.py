@@ -35,11 +35,17 @@ Its gradient (where autograd records) is the port's own kernel,
 ``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_chunk_backward`; the JAX package takes
 it by ``jax.grad`` of the SSD core of its jnp ``mamba2_forward``), on the
 CPU :func:`ssd_chunk_backward_plain`.  The forward's scratch (each chunk's
-incoming state, the cumsum) is kept for the backward pass: a state pass,
-a reverse carry, a row pass (dC) and a column pass (dx, dB) over 64-row
-tiles, one head a block, a cumsum pass (ddt) and two reduce passes (dB and
-dC over the heads, dA_log and dD over the batch and the chunks) in a fixed
-order: no float atomics.  ``ssd_chunk.backward_launches`` counts its calls.
+incoming state, the cumsum) is kept for the backward pass: a state pass
+over (b, chunk, group of heads), a reverse carry, and where a chunk is one
+tile (every shipped config) one fused pass over (b, chunk, group of heads)
+that stages B and C and forms the scores once for the group, then takes
+each head's row and column sides, dx, ddt and the reverse cumsum of d/dcum
+in the block; the group's dB and dC terms go to one partial a group.  A
+chunk of several tiles takes the first form's row, column and cumsum
+passes, one head a block.  One reduce pass (dB and dC over the partials,
+dA_log and dD over the batch and the chunks) in a fixed order: no float
+atomics.  Four launches a call (six where a chunk spans tiles), sized by
+:func:`pass_plan`; ``ssd_chunk.backward_launches`` counts the calls.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ import torch
 
 from . import _build
 from .tuning import assert_divides, select_chunk
-from .wkv6 import _clamped_exp, _f32_dense
+from .wkv6 import _backward_workspace, _clamped_exp, _f32_dense
 
 EXP_CLAMP = 30.0
 #: largest head size p and state size n the kernel takes
@@ -65,6 +71,14 @@ MAX_HEADS = 8
 CARRY_ELEMS = 1024
 #: blocks the state and scan passes aim at: two per SM on 132 SMs
 TARGET_BLOCKS = 264
+#: threads of a block of the backward's passes (csrc/ssd_chunk_bwd.cu)
+THREADS = 256
+#: chunks whose loads a carry pass (forward or backward) issues at once
+CARRY_UNROLL = 8
+#: padded 64-row f32 tiles in shared memory of the backward's fused pass
+BWD_FUSED_TILES = 11
+#: rows of a dB / dC block of the backward's reduce pass (BC_ROWS)
+BC_ROWS = THREADS // _MAX_DIM
 
 
 @dataclass(frozen=True)
@@ -116,30 +130,66 @@ class PassPlan:
         return (self.b, self.s, self.h)
 
     @property
+    def fused_backward(self) -> bool:
+        """A chunk of one tile: the backward's tile work is one fused pass
+        over (b, chunk, group of heads); else the first form's row, column
+        and cumsum passes, one head a block."""
+        return self.chunk <= TILE
+
+    @property
+    def backward_launches(self) -> int:
+        """Kernels one backward call launches: state, carry, the fused
+        pass, reduce (the row, column and cumsum passes in place of the
+        fused one where a chunk spans tiles)."""
+        return 4 if self.fused_backward else 6
+
+    @property
     def bwd_grid(self) -> Tuple[int, int, int]:
-        """The backward pass's row and column passes: one head a block."""
+        """The backward's tile pass: the fused pass over (b * chunks, head
+        groups), as the state pass; where a chunk spans tiles the row and
+        column passes over (b * h, chunks, row tiles)."""
+        if self.fused_backward:
+            return self.state_grid
         return (self.b * self.h, self.n_chunks, self.row_tiles)
 
     @property
+    def bc_slots(self) -> int:
+        """Partials of dB and dC a row: one a head group (the fused pass
+        adds its heads' terms in head order), or one a head."""
+        return self.head_groups if self.fused_backward else self.h
+
+    @property
     def partials_shape(self) -> Tuple[int, ...]:
-        """One block of the backward's column pass: a sum over its rows."""
+        """dB's (and dC's) partials, added in slot order by the reduce
+        pass."""
+        return (self.b, self.s, self.bc_slots, self.n)
+
+    @property
+    def tile_partials_shape(self) -> Tuple[int, ...]:
+        """A head's sums over a row tile (of d/dcum at the chunk's last
+        row, of dy x for dD)."""
         return (self.b * self.h, self.n_chunks, self.row_tiles)
+
+    @property
+    def reduce_grid(self) -> Tuple[int, int, int]:
+        """The reduce pass: BC_ROWS rows of dB and dC a block, then a
+        thread a head for dA_log and dD."""
+        return (-(-self.b * self.s // BC_ROWS) + -(-self.h // THREADS), 1, 1)
 
     @property
     def backward_workspace_floats(self) -> int:
         """The backward pass's scratch, in this order, each rounded up to 4
         floats (16 bytes): each chunk's local state gradient, then (after
         the reverse carry) the gradient of the state leaving it; the row
-        and the column pass's parts of d/dcum (b, s, h each); dB's and dC's
-        terms of each head (b, s, h, n each), summed over the heads in
-        order by the last pass; the column pass's per-block sums of d/dcum
-        at the chunk's last row and of dD; each chunk's d/d(its decay) and
-        its sum of d(dt a) dt."""
+        and the column pass's parts of d/dcum (b, s, h each; the multi-tile
+        passes'); dB's and dC's partials (:attr:`partials_shape` each); a
+        head's per-tile sums of d/dcum at the chunk's last row and of dD;
+        each chunk's sum of d(dt a) dt."""
         chunks = (self.b * self.h, self.n_chunks)
-        bshn = (self.b, self.s, self.h, self.n)
         return sum(-(-math.prod(shape) // 4) * 4 for shape in (
-            self.states_shape, self.cum_shape, self.cum_shape, bshn, bshn,
-            self.partials_shape, self.partials_shape, chunks, chunks))
+            self.states_shape, self.cum_shape, self.cum_shape,
+            self.partials_shape, self.partials_shape,
+            self.tile_partials_shape, self.tile_partials_shape, chunks))
 
 
 def pass_plan(b: int, s: int, h: int, p: int, n: int, chunk: int) -> PassPlan:
@@ -451,16 +501,16 @@ def ssd_chunk_backward(x: torch.Tensor, dt: torch.Tensor,
         dA_log = torch.empty((h,), **f32)
         dD = torch.empty((h,), **f32)
         dstate = torch.empty((b, h, n, p), **f32)
-        n_bws = plan.backward_workspace_floats
-        bws = torch.empty((n_bws,), **f32)
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        bws = _backward_workspace(plan, dev.index, stream)
         err = lib.ssd_chunk_bwd_launch(
             x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), dy.data_ptr(),
             None if dS is None else dS.data_ptr(), states.data_ptr(),
-            cum.data_ptr(), bws.data_ptr(), n_bws, dx.data_ptr(),
+            cum.data_ptr(), bws.data_ptr(), bws.numel(), dx.data_ptr(),
             ddt.data_ptr(), dA_log.data_ptr(), dB.data_ptr(), dC.data_ptr(),
             dD.data_ptr(), dstate.data_ptr(), b, s, h, p, n, chunk,
-            torch.cuda.current_stream().cuda_stream)
+            plan.heads_per_block, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk backward launch failed: CUDA error "
                            f"{err} for x {(b, s, h, p)}, n {n}, chunk {chunk}")

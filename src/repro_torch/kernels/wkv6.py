@@ -45,10 +45,13 @@ Its gradient (where autograd records) is the port's own kernel,
 :func:`wkv6_backward_plain`.  The forward under autograd keeps its three
 passes' workspace (each chunk's incoming state, lw, the decays) for the
 backward pass, which runs a state pass (rs^T dy a chunk), a reverse carry,
-a row pass (dr), a column pass (dk, dv) over 64-row tiles, an lw pass (the
-reverse cumsum that gives dw_log) and a u pass, with per-block partials
-summed in a fixed order: no float atomics.  ``wkv6.backward_launches``
-counts its calls.  The bound of one backward call at rwkv6's loss shape is
+and where a chunk is one tile (rwkv6's chunk, and chunk 1) one fused pass
+over (b * h, chunk) that forms dr, dk, dv and dw (the reverse cumsum of
+d/dlw over the chunk's rows in the block), then a u pass: four launches.
+A chunk of several tiles takes the first form's row pass (dr), column pass
+(dk, dv) over 64-row tiles and lw pass (dw) in place of the fused one: six.
+Per-block partials are summed in a fixed order: no float atomics.
+``wkv6.backward_launches`` counts its calls.  The bound of one backward call at rwkv6's loss shape is
 the bytes of r, k, v, w, dy and S_in read and dr, dk, dv, dw written once:
 335.5 MB over 3.35 TB/s = 0.100 ms.
 
@@ -80,6 +83,11 @@ _MAX_P = 64
 TILE = 64
 #: state elements of one carry block (CARRY_ELEMS)
 CARRY_ELEMS = 1024
+#: chunks whose loads a carry pass (forward or backward) issues at once
+CARRY_UNROLL = 8
+#: padded 64-row f32 tiles in shared memory of the backward's fused pass
+#: (r, k and v beside them in their own type)
+BWD_FUSED_TILES = 9
 #: state columns of one block of the one-token kernel (ONE_COLS)
 ONE_COLS = 16
 #: the card's largest grid extent along y and z
@@ -157,6 +165,28 @@ class PassPlan:
         return _floats(self.states_shape, self.lw_shape, self.dec_shape)
 
     @property
+    def fused_backward(self) -> bool:
+        """A chunk of one tile: the backward's tile work is one fused pass
+        over (b * h, chunk); else the first form's row, column and lw
+        passes."""
+        return self.chunk <= TILE
+
+    @property
+    def backward_launches(self) -> int:
+        """Kernels one backward call launches: state, carry, the fused
+        pass, u (the row, column and lw passes in place of the fused one
+        where a chunk spans tiles)."""
+        return 4 if self.fused_backward else 6
+
+    @property
+    def bwd_grid(self) -> Tuple[int, int, int]:
+        """The backward's tile pass: the fused pass over (b * h, chunks);
+        where a chunk spans tiles the row and column passes over (b * h,
+        chunks, row tiles)."""
+        return (self.b * self.h, self.n_chunks,
+                1 if self.fused_backward else self.row_tiles)
+
+    @property
     def partials_shape(self) -> Tuple[int, ...]:
         """One row tile's sums over its rows, per key channel (the backward
         pass's per-block partials)."""
@@ -166,10 +196,13 @@ class PassPlan:
     def backward_workspace_floats(self) -> int:
         """The backward pass's scratch, in this order, each rounded up to 4
         floats: each chunk's local state gradient, then (after the reverse
-        carry) the gradient of the state leaving it; the gradient of lw
-        reaching each row through lw_prev; four per-block partials (the
+        carry) the gradient of the state leaving it; where a chunk is one
+        tile the fused pass's partials of du; else the gradient of lw
+        reaching each row through lw_prev and four per-block partials (the
         row pass's sums of d/dm and of the u term, the column pass's of
         d/dm and d/dL)."""
+        if self.fused_backward:
+            return _floats(self.states_shape, self.partials_shape)
         return _floats(self.states_shape, self.lw_shape,
                        *[self.partials_shape] * 4)
 
@@ -540,6 +573,17 @@ def _launch(r, k, v, w_log, u, state, chunk, state_out, cdt, *, keep):
     return y, state_out, ws
 
 
+@functools.lru_cache(maxsize=8)
+def _backward_workspace(plan, device: int, stream: int) -> torch.Tensor:
+    """A backward pass's scratch (``plan.backward_workspace_floats``: this
+    module's :class:`PassPlan` or ssd_chunk's), kept per shape, device and
+    stream: a call's kernels and the next call's run on the one stream in
+    order, so the next call's first write lands after the last read of
+    this one.  A call allocates only the gradients it returns."""
+    return torch.empty((plan.backward_workspace_floats,), dtype=torch.float32,
+                       device=torch.device("cuda", device))
+
+
 def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   u: torch.Tensor, ws: torch.Tensor, y_grad: torch.Tensor,
                   state_grad: Optional[torch.Tensor], *, chunk: int
@@ -573,17 +617,17 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              for dt in (cdt, cdt, cdt, torch.float32)]
     du = torch.empty((h, p), dtype=torch.float32, device=dev)
     dstate = torch.empty((b, h, p, p), dtype=torch.float32, device=dev)
-    n_bws = plan.backward_workspace_floats
-    bws = torch.empty((n_bws,), dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    bws = _backward_workspace(plan, dev.index, stream)
     bf16 = cdt == torch.bfloat16
     launcher = lib.wkv6_bwd_bf16_launch if bf16 else lib.wkv6_bwd_launch
     err = launcher(
         r.data_ptr(), k.data_ptr(), v.data_ptr(),
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         u.data_ptr(), dy.data_ptr(), None if dS is None else dS.data_ptr(),
-        ws.data_ptr(), bws.data_ptr(), n_bws,
+        ws.data_ptr(), bws.data_ptr(), bws.numel(),
         *(g.data_ptr() for g in grads), du.data_ptr(), dstate.data_ptr(),
-        b, s, h, p, chunk, torch._C._cuda_getCurrentRawStream(dev.index))
+        b, s, h, p, chunk, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 backward launch failed: CUDA error {err} "
                            f"for (b, s, h, p) = {(b, s, h, p)}, chunk "

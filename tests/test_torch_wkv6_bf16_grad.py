@@ -171,11 +171,12 @@ def test_a_non_cpu_tensor_goes_to_the_kernel_or_raises():
 
 def test_cuda_sources_export_the_bf16_backward_and_bind_it():
     """``wkv6_bf16_passes_launch`` (the forward's passes kept) and
-    ``wkv6_bwd_bf16_launch``: the row, column and state passes templates on
-    r/k/v's type, the five intra-chunk products on the bf16 tensor cores
-    (``product_bf16``, shared from ``tf32_tiles.cuh``), the state products
-    3xTF32, no float atomics, no fast exponentials; ``_build`` declares
-    both entry points."""
+    ``wkv6_bwd_bf16_launch``: the state, fused, row and column passes
+    templates on r/k/v's type, the five intra-chunk products on the bf16
+    tensor cores (``product_bf16`` / ``product_bf16x2``, shared from
+    ``tf32_tiles.cuh``; the fused pass reads bf16 v as bf16x2 pairs), the
+    state products 3xTF32, no float atomics, no fast exponentials;
+    ``_build`` declares both entry points."""
     fwd = (CSRC / "wkv6.cu").read_text()
     bwd = (CSRC / "wkv6_bwd.cu").read_text()
     tiles = (CSRC / "tf32_tiles.cuh").read_text()
@@ -185,23 +186,32 @@ def test_cuda_sources_export_the_bf16_backward_and_bind_it():
     assert 'extern "C" int wkv6_bwd_bf16_launch(' in bwd
     assert "return launch<__nv_bfloat16>(" in flat
     assert "return launch<float>(" in flat
-    for kernel in ("wkv6_bwd_state_kernel", "wkv6_bwd_row_kernel",
-                   "wkv6_bwd_col_kernel"):
+    for kernel, bounds in (("wkv6_bwd_state_kernel", "THREADS, 3"),
+                           ("wkv6_bwd_fused_kernel", "THREADS, 1"),
+                           ("wkv6_bwd_row_kernel", "THREADS"),
+                           ("wkv6_bwd_col_kernel", "THREADS")):
         assert re.search(rf"template <class T>\n__global__ void "
-                         rf"__launch_bounds__\(THREADS\)\n{kernel}\("
+                         rf"__launch_bounds__\({bounds}\)\n{kernel}\("
                          rf"const T\* __restrict__", bwd), kernel
     # dA, drr (row pass); A, dA, A^T dy1, dA^T rr (column pass): mm_in on
-    # the bf16 tensor cores where BF, each product rounded once
-    assert flat.count("mm_in<BF>(") == 6
+    # the bf16 tensor cores where BF, each product rounded once; the fused
+    # pass: A by mm_in, dA = dy1 v^T with v's bf16x2 pairs read as they
+    # were staged, drr, A^T dy1 and dA^T rr on product_bf16
+    assert flat.count("mm_in<BF>(") == 7
     assert "product_bf16(acc, a, b, warp_tile()" in flat
+    assert flat.count("product_bf16(") == 4 and flat.count("product_bf16x2(") == 1
+    assert "*reinterpret_cast<const uint32_t*>(Vt + s * LT + q)" in flat
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in tiles
     for helper in ("float round_bf16(", "uint32_t pack_bf16(",
-                   "void mma_bf16(", "void product_bf16(", "float widen("):
+                   "void mma_bf16(", "void product_bf16(",
+                   "void product_bf16x2(", "float widen("):
         assert helper in tiles and helper not in fwd + bwd, helper
     # the reference's order: (state + u) + the intra-chunk term, rounded
-    assert flat.count("round_bf16(__fadd_rn( round_bf16(__fadd_rn(") == 3
-    assert "round_bf16(dvi[si][jj][i])" in flat
+    # (the row and column passes' three, and the fused pass's)
+    assert flat.count("round_bf16(__fadd_rn( round_bf16(__fadd_rn(") == 6
+    assert flat.count("round_bf16(dvi[si][jj][i])") == 2
     assert "to_shared<BF>(drr, Ks)" in flat and "to_shared<BF>(dkk, Sa)" in flat
+    assert "rnd<BF>(drr[si][jj][i])" in flat and "rnd<BF>(dkk[si][jj][i])" in flat
     for src in (fwd, bwd, tiles):
         assert not re.findall(r"atomic\w*\(", src)
         assert "__expf" not in src and "fmaf" not in src
