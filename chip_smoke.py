@@ -60,7 +60,8 @@ the recurrences' backward kernels (``wkv6_bwd``, its bf16 variant
 ``wkv6_bwd_bf16`` and ``ssd_chunk_bwd``, held first against their plain
 versions, their device ms a call at the train and loss shapes to
 ``BWD_LIMIT_MS`` and their launches a call to ``BWD_LAUNCH_LIMIT``) on the
-main path.  Then the device mesh: a one-rank ``nccl`` group
+main path.  B1's device ms over llava's prefill and a phi4-mini train step
+are held to ``B1_LIMIT_MS``.  Then the device mesh: a one-rank ``nccl`` group
 and a (1, 1) mesh (``repro_torch.launch.mesh``), one phi4-mini train step
 at full width and four decode steps of the served model through
 ``build_cell``'s rules, each bit-equal to the unsharded step with
@@ -72,8 +73,11 @@ Needs a GPU and ``nvcc``; any phase that fails ends the run with
 a non-zero exit code.
 
 Output: one JSON object per line — ``env``, ``build``, ``kernel_checks``
-(``systolic_mac`` at every model's GEMM shapes, phi4-mini's also at a train
-step's 512 rows, ``razor_matmul``,
+(``systolic_mac`` at every model's GEMM shapes, phi4-mini's, rwkv6's and
+zamba2's also at a train step's 512 rows; its wide form (bf16 from
+``WIDE_FROM_M`` rows) bit-equal to 16-row calls of the same rows at every
+bf16 weight of llava's prefill and the three train steps, M = 512, 2944 and
+ragged, both layouts of b; ``razor_matmul``,
 ``precision_island``, ``wkv6``, ``ssd_chunk``, and the backward kernels
 ``wkv6_bwd``, ``wkv6_bwd_bf16`` and ``ssd_chunk_bwd``), ``paper_flow``,
 ``precision_islands``, ``hwloop_checks``, ``abft_checks``, ``serve`` (with a
@@ -223,6 +227,11 @@ BWD_LIMIT_MS = {("ssd_chunk_bwd", "train"): 0.22, ("ssd_chunk_bwd", "loss"): 1.2
                 ("wkv6_bwd_bf16", "train"): 0.14,
                 ("wkv6_bwd_bf16", "loss"): 0.9}
 BWD_LAUNCH_LIMIT = 4
+#: device ms B1 may take over llava's 2944-row prefill (its 225 GEMMs, in
+#: the profiled prefill) and over a phi4-mini train step's 417 GEMMs at
+#: M = 512 (in the profiled step, and timed one shape at a time): the wide
+#: form's limits; a figure not measured fails
+B1_LIMIT_MS = {"llava_prefill": 250.0, "phi4_train_step": 40.0}
 #: decode steps the second of serve_guard's two profiled guarded runs adds
 #: (the same prefills): the difference is the served decode steps' own
 PROFILE_DECODE_EXTRA = 4
@@ -260,6 +269,9 @@ VLM_PROMPT, VLM_STEPS = 64, 8
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_INT8_STEPS = (2, 256), 4, 2
 #: B1's rows in a train step's GEMMs: every position of the batch
 TRAIN_M = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+#: rows of the wide form's bit checks: a train step's, llava's prefill and
+#: ragged counts (a partial last row tile)
+WIDE_MS = (TRAIN_M, 2944, 129, 1000, 2945)
 #: step 0's loss under reference against ideal, relative (as TOL_LOSS)
 TOL_TRAIN_LOSS = 1e-3
 #: step 0's global gradient norm under reference against ideal, relative:
@@ -624,19 +636,25 @@ def check_serving_shapes(torch, arch, weights, systolic_mac,
     return out
 
 
+#: check_faulting's (M, K, N, cell rows, cell columns): the flow's shape,
+#: and a train step's rows on phi4-mini's wk/wv (bf16: the wide form)
+FAULT_CASES = ((256, 384, 512, 64, 128), (TRAIN_M, 3072, 1024, 32, 64))
+
+
 def check_faulting(torch, systolic_mac, systolic_mac_plain):
     """Rails drawn around the safe voltage, in f32 and bf16, at 0, 8 and 23
-    kept mantissa bits: flags, the fused count, both tolerances, and the
-    epilogue bit for bit.  The kernel sums an element in one fixed order, so
-    its result at these rails must equal its own result at nominal rails
-    with exactly the flagged cells masked."""
+    kept mantissa bits, at each of FAULT_CASES: flags, the fused count, both
+    tolerances, and the epilogue bit for bit.  The kernel sums an element in
+    one fixed order, so its result at these rails must equal its own result
+    at nominal rails with exactly the flagged cells masked."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    m, k, n, bm, bn = 256, 384, 512, 64, 128
-    gm, gn = m // bm, n // bn
     out = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for (m, k, n, bm, bn), dtype in (
+            (case, dtype) for case in FAULT_CASES
+            for dtype in (torch.float32, torch.bfloat16)):
+        gm, gn = m // bm, n // bn
         name = str(dtype).replace("torch.", "")
         a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
@@ -761,11 +779,71 @@ def check_row_invariance(torch, systolic_mac, shapes):
     return out
 
 
-def check_ragged(torch, systolic_mac, systolic_mac_plain):
+#: rows of the 16-row form's block (kernels/systolic_mac.py::TILE_M)
+TILE_ROWS = 16
+
+
+def check_wide_rows(torch, systolic_mac, launch_rows, shapes):
+    """The wide form against the 16-row form, bit for bit: for every bf16
+    (K, N, transposed view?) in ``shapes`` (llava's prefill weights and the
+    phi4-mini / rwkv6 / zamba2 train steps'), at each M of WIDE_MS, the one
+    call (the wide form) equals, ``view(torch.int32)`` so -0.0 and NaN
+    payloads included, the same rows computed 16 at a time (the 16-row
+    form) from the same operands, and a second identical call equals the
+    first.  Rows 1-3 of a hold adversarial values: exponents spread over
+    2^-60..2^60, bf16 subnormals, and a row whose products cancel."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 22)
+    v, vs = torch.ones((1, 1), device=dev), torch.zeros((1, 1), device=dev)
+    out = []
+    for k, n, transposed in shapes:
+        b = model_weight(torch, gen, k, n, torch.bfloat16, transposed)
+        a = torch.randn((max(WIDE_MS), k), generator=gen, device=dev)
+        a[1] *= torch.exp2(torch.randint(-60, 61, (k,), generator=gen,
+                                         device=dev).float())
+        a[2] *= 1e-39
+        a[3] = a[0]
+        a[3, k // 2:] = -a[0, :k - k // 2]
+        a = a.to(torch.bfloat16)
+        for m in WIDE_MS:
+            what = (f"systolic_mac wide form ({m}, {k}) x ({k}, {n})"
+                    f"{' transposed view' if transposed else ''}")
+            if launch_rows(a[:m], b) == TILE_ROWS:
+                fail(f"{what}: the call does not take the wide form")
+            if launch_rows(a[:TILE_ROWS], b) != TILE_ROWS:
+                fail(f"{what}: 16 rows do not take the 16-row form")
+            c = systolic_mac(a[:m], b, v, vs)[0]
+            again = systolic_mac(a[:m], b, v, vs)[0]
+            if not torch.equal(c.view(torch.int32), again.view(torch.int32)):
+                fail(f"{what}: a second identical call differs")
+            del again
+            rows = torch.cat([systolic_mac(a[i:min(i + TILE_ROWS, m)], b, v,
+                                           vs)[0]
+                              for i in range(0, m, TILE_ROWS)])
+            differ = int((c.view(torch.int32)
+                          != rows.view(torch.int32)).sum())
+            if differ:
+                fail(f"{what}: {differ} elements differ from the 16-row "
+                     f"calls' bits")
+            out.append({"M": m, "K": k, "N": n, "b_transposed_view":
+                        transposed, "row16_calls": -(-m // TILE_ROWS),
+                        "bit_equal_to_row16_calls": True,
+                        "repeat_bit_equal": True})
+            del c, rows
+        del a, b
+    torch.cuda.synchronize()
+    return out
+
+
+def check_ragged(torch, systolic_mac, systolic_mac_plain, launch_rows):
     """The shapes the bulk copies cannot take, in both types and both
     layouts of b: M in {1, 3, 9, 17}, K in {1, 15, 1000}, N in {1, 7, 1001};
-    and offset views (a[:, 1:], b[1:, 1:]: base pointers and row strides not
-    16-byte aligned) at (1000, 1001) and at the aligned shape (1024, 1024).
+    offset views (a[:, 1:], b[1:, 1:]: base pointers and row strides not
+    16-byte aligned) at (1000, 1001) and at the aligned shape (1024, 1024);
+    and partial row tiles of the wide form, M in {129, 1000} at (K, N) =
+    (72, 1024) and (1000, 1001) (bf16 where the tensor maps take b: the
+    wide form; ``wide_form`` says which ran).
     Rails drawn around the safe voltage on 1 x 7 (or 1 x 1) cells: flags
     equal, the count equal to flags.sum(), both tolerances, and the result
     equal to the kernel's own nominal result with the flagged cells' low
@@ -779,6 +857,8 @@ def check_ragged(torch, systolic_mac, systolic_mac_plain):
              for n in (1, 7, 1001)]
     cases += [(m, k, n, True) for m in (1, 3, 9, 17)
               for k, n in ((1000, 1001), (1024, 1024))]
+    cases += [(m, k, n, False) for m in (129, 1000)
+              for k, n in ((72, 1024), (1000, 1001))]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for transposed in (False, True):
@@ -837,6 +917,7 @@ def check_ragged(torch, systolic_mac, systolic_mac_plain):
                 out.append({
                     "M": m, "K": k, "N": n, "dtype": name,
                     "b_transposed_view": transposed, "offset_views": offset,
+                    "wide_form": launch_rows(a, b) != TILE_ROWS,
                     "flag_cell": [bm, bn], "fired": fired,
                     "flags_equal": True, "count_equals_flag_sum": True,
                     "counter_adds_flag_sum": True,
@@ -4909,6 +4990,15 @@ def frontend_loss(torch, cfg, params, api, mods, counters):
             "ln_padded_vocab": ln_v}
 
 
+def hold_b1_limit(what, ms):
+    """B1's device ms on a path held to ``B1_LIMIT_MS[what]``; a figure not
+    measured (None) fails."""
+    limit = B1_LIMIT_MS[what]
+    if ms is None or not (math.isfinite(ms) and ms <= limit):
+        fail(f"B1 {what}: {ms} device ms (limit {limit} ms; a figure not "
+             f"measured fails)")
+
+
 def vlm_prefill(torch, cfg, params, api, mods, counters, plain):
     """llava's ``ModelAPI.prefill`` at published width with seeded patch
     embeddings (1, 2880, d) in front of a 64-token prompt, then 8 decode
@@ -4979,6 +5069,7 @@ def vlm_prefill(torch, cfg, params, api, mods, counters, plain):
             params, batch, max_len=max_len)})["prefill"]
     b1 = None if prof is None else sum(r["ms"] for r in prof
                                        if r["kernel"] == "systolic_mac_kernel")
+    hold_b1_limit("llava_prefill", b1)
     gemms = prefill_gemms(torch, api, params, batch, max_len, mods, plain)
     if gemms["calls"] != per_call:
         fail(f"frontends llava prefill: {gemms['calls']} GEMMs recorded, "
@@ -4995,6 +5086,7 @@ def vlm_prefill(torch, cfg, params, api, mods, counters, plain):
             "prefill_device_ms": (None if prof is None
                                   else sum(r["ms"] for r in prof)),
             "prefill_systolic_mac_device_ms": b1,
+            "prefill_systolic_mac_limit_ms": B1_LIMIT_MS["llava_prefill"],
             "prefill_systolic_mac_M": s,
             "prefill_top_kernels": None if prof is None else prof[:6],
             "prefill_gemms": gemms}
@@ -5368,6 +5460,7 @@ def train_phase(torch, cfg, mods, counters):
                       optim_mod.AdamWConfig(), TRAIN_STEPS)
             for backend in ("reference", "ideal")]
     ref, ideal = runs
+    hold_b1_limit("phi4_train_step", ref["systolic_mac_device_ms_per_step"])
     loss_gap = abs(ref["losses"][0] - ideal["losses"][0]) / abs(
         ideal["losses"][0])
     norm_gap = abs(ref["global_grad_norm"][0] - ideal["global_grad_norm"][0]
@@ -5391,6 +5484,26 @@ def train_phase(torch, cfg, mods, counters):
             "step0_grad_norm_gap_rel": norm_gap,
             "step0_grad_norm_gap_limit": TOL_GNORM,
             "smoke": smoke_trainer(torch, mods, tmods)}
+
+
+def ssm_train_table(cfg):
+    """name -> (K, N, launches per train step, transposed view?, dtype) of
+    the bf16 GEMMs B1 runs in a rwkv6 / zamba2 train step under
+    ``reference`` (:func:`ssm_train_gemms` less rwkv6's f32 ``w_lora_b``):
+    the decode step's weights, each recomputed in the backward pass but
+    zamba2's ``out_proj`` and shared-block MLP ``w2``."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {name: (k, n, 1 if name == "logits" else 2 * per, t, dt)
+                for name, (k, n, per, t, dt) in rwkv6_gemms(cfg).items()
+                if dt == "bfloat16"}
+    apps = L // cfg.shared_attn_period
+    table = zamba2_gemms(cfg)
+    per_step = {"in_proj": 2 * L, "out_proj/down": L + 2 * apps,
+                "wq/wk/wv/wo": 8 * apps, "w1/wg": 4 * apps, "w2": apps,
+                "logits": 1}
+    return {name: (k, n, per_step[name], t, dt)
+            for name, (k, n, _, t, dt) in table.items()}
 
 
 def ssm_train_gemms(cfg):
@@ -5741,11 +5854,12 @@ def mesh_phase(torch, cfg, mods, counters):
     return out, mesh_launches + runs["mesh"]["systolic_mac_launches_step0"]
 
 
-def train_entry(shapes, trained):
-    """B1 over a phi4-mini train step's GEMMs at M = TRAIN_M (13 L + 1), from
-    the per-shape measurements, beside the step's own profile."""
+def train_entry(shapes, trained, arch=ARCH):
+    """B1 over a train step's GEMMs at M = TRAIN_M (phi4-mini's 13 L + 1,
+    :func:`ssm_train_table`'s for rwkv6 / zamba2), from the per-shape
+    measurements, beside the step's own profile."""
     rows = [s for s in shapes if s.get("M") == TRAIN_M
-            and s.get("arch") == ARCH and "launches_per_model_step" in s]
+            and s.get("arch") == arch and "launches_per_model_step" in s]
 
     def total(key):
         vals = [r[key] for r in rows]
@@ -5872,7 +5986,8 @@ def main() -> int:
     from repro_torch.kernels.razor_matmul import (razor_matmul,
                                                   razor_matmul_plain)
     from repro_torch import backend as backend_mod
-    from repro_torch.kernels.systolic_mac import (systolic_mac,
+    from repro_torch.kernels.systolic_mac import (WIDE_FROM_M, launch_rows,
+                                                  systolic_mac,
                                                   systolic_mac_plain)
     from repro_torch.kernels import abft as abft_mod
     from repro_torch.kernels.tuning import select_blocks
@@ -5946,10 +6061,16 @@ def main() -> int:
             torch, arch, table, systolic_mac, systolic_mac_plain,
             largest_common_block, ms=ms, timed_ms=())
     # a phi4-mini train step's GEMMs: every weight and the logits at the
-    # step's rows (TRAIN_M), timed with the step's launch counts
+    # step's rows (TRAIN_M), timed with the step's launch counts; and the
+    # rwkv6 / zamba2 train steps' bf16 GEMMs alike
     shapes += check_serving_shapes(
         torch, ARCH, train_gemms(cfg), systolic_mac, systolic_mac_plain,
         largest_common_block, ms=(TRAIN_M,), timed_ms=(TRAIN_M,))
+    for arch in SSM_ARCHS:
+        shapes += check_serving_shapes(
+            torch, arch, ssm_train_table(get_config(arch)), systolic_mac,
+            systolic_mac_plain, largest_common_block, ms=(TRAIN_M,),
+            timed_ms=(TRAIN_M,))
     # every model weight's (K, N, transposed view?); phi4-mini's w2 also at
     # M = 64 and 256
     model_shapes = {}
@@ -5962,7 +6083,22 @@ def main() -> int:
             model_shapes[key] = model_shapes.get(key, False) or (
                 arch == ARCH and name == "w2")
     invariance_rows = check_row_invariance(torch, systolic_mac, model_shapes)
-    ragged_rows = check_ragged(torch, systolic_mac, systolic_mac_plain)
+    # the wide form against the 16-row form: every bf16 weight of llava's
+    # prefill and of the phi4 / rwkv6 / zamba2 train steps, both layouts
+    wide_shapes = {}
+    for table in ({name: w for name, w in family_tables[FAMILY_ARCHS[2]]
+                   .items() if name != "logits"}, train_gemms(cfg),
+                  *(SSM_GEMMS[x](get_config(x)) for x in SSM_ARCHS)):
+        for k, n, _, transposed, dname in table.values():
+            if dname == "bfloat16":
+                wide_shapes[(k, n, transposed)] = True
+    t0 = time.monotonic()
+    wide_rows = check_wide_rows(torch, systolic_mac, launch_rows,
+                                wide_shapes)
+    print(f"wide-form bit checks: {len(wide_rows)} calls, "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    ragged_rows = check_ragged(torch, systolic_mac, systolic_mac_plain,
+                               launch_rows)
     wkv6_rows = check_wkv6(torch, wkv6, wkv6_plain)
     ssd_rows = check_ssd(torch, ssd_chunk, ssd_chunk_plain)
     t0 = time.monotonic()
@@ -5980,6 +6116,7 @@ def main() -> int:
     emit("kernel_checks", {"systolic_mac": shapes,
                            "systolic_mac_row_invariance": invariance_rows,
                            "systolic_mac_ragged": ragged_rows,
+                           "systolic_mac_wide_rows": wide_rows,
                            "razor_matmul": razor_rows,
                            "precision_island": island_rows,
                            "wkv6": wkv6_rows, "ssd_chunk": ssd_rows,
@@ -6130,6 +6267,7 @@ def main() -> int:
         if cfg_a.family == "vlm":
             row = vlm_prefill(torch, cfg_a, params, api, mods, counters,
                               (systolic_mac_plain, largest_common_block))
+            llava_prefill = row
         else:
             row = frontend_loss(torch, cfg_a, params, api, mods, counters)
         row.update(seconds=time.monotonic() - t0, peak_device_memory_gb=(
@@ -6169,6 +6307,11 @@ def main() -> int:
     emit("profile_misses", {"rows": PROFILE_MISSES,
                             "tries_per_measurement": PROFILE_TRIES})
     emit("total", {"seconds": time.monotonic() - t_start})
+
+    # B1 over a phi4 train step's GEMMs, one shape at a time, held to its
+    # limit as the profiled step was
+    phi4_train = train_entry(shapes, trained)
+    hold_b1_limit("phi4_train_step", phi4_train["device_ms"])
 
     # one decode step's GEMMs (225 launches at M = slots), from the
     # per-shape measurements above
@@ -6219,12 +6362,31 @@ def main() -> int:
                                  "int8_moments": trained["int8_moments"][
                                      "systolic_mac_launches"]},
                              "mesh": mesh_launches},
-        "train_step": train_entry(shapes, trained),
+        "train_step": phi4_train,
+        "train_step_by_arch": {
+            arch: dict(train_entry(shapes, ssm_trained[arch], arch),
+                       gemms=ssm_train_gemms(get_config(arch)),
+                       gemms_timed="the bf16 GEMMs (rwkv6's f32 w_lora_b "
+                                   "not timed)")
+            for arch in SSM_ARCHS},
+        "prefill": {
+            "arch": llava_prefill["arch"],
+            "M": llava_prefill["prefill_systolic_mac_M"],
+            "launches": llava_prefill["prefill_gemms"]["calls"],
+            "device_ms": llava_prefill["prefill_systolic_mac_device_ms"],
+            "limit_ms": B1_LIMIT_MS["llava_prefill"],
+            **{key: llava_prefill["prefill_gemms"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "prefill_s": llava_prefill["prefill_s"]["reference"]},
+        "wide_form": {"from_M": WIDE_FROM_M, "dtype": "bfloat16",
+                      "bit_equal_calls": len(wide_rows),
+                      "limits_ms": B1_LIMIT_MS},
         "host_us_per_launch": {key: host[key] for key in (
             "systolic_mac_us", "reference_route_us", "torch_matmul_us")},
         "decode_step_by_arch": {
             arch: {key: device_total(
                 [s for s in shapes if s.get("arch") == arch
+                 and s.get("M") == DECODE_M
                  and "launches_per_model_step" in s], key)
                    for key in ("kernel_ms", "device_ms", "plain_ms",
                                "library_ms", "library_device_ms",

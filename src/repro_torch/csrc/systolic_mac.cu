@@ -28,9 +28,12 @@
 // a (K, N) weight: the bytes of b (K * N * 2 in bf16) bound it, about 1 us
 // of memory latency has to be covered by some 3.4 MB in flight across the
 // 132 SMs, and one block streams only a fraction of the card's rate, so a
-// decode GEMM needs most SMs busy.  At large M (256 rows in the flow's
-// checks) it is the tensor cores (bf16) or the f32 FMA rate (f32).  What the
-// design does:
+// decode GEMM needs most SMs busy.  At large M (a prefill's thousands of
+// rows, a train step's 512) it is the tensor cores (bf16) or the f32 FMA
+// rate (f32).  Two forms of one kernel: the 16-row form below (every f32
+// call, bf16 at small M), and the wide form for bf16 at large M (128-row
+// tiles, see wide_tile), chosen before the launch by the wrapper
+// (kernels/systolic_mac.py::launch_rows).  The 16-row form's design:
 //   * Split-K across the blocks of a cluster (a power of two, at most 16),
 //     chosen from K, N and the type alone (kernels/systolic_mac.py::
 //     launch_plan): about one block per SM at N <= 8192, no split for the
@@ -59,7 +62,8 @@
 
 // Numerical contracts:
 //   1. One summation order per (K, N, dtype), never a function of M, so a
-//      row's result does not depend on how many rows share the call.  The
+//      row's result does not depend on how many rows share the call (nor on
+//      the form that runs it: both forms sum in this order).  The
 //      splits come from K, N and dtype; split s sums k-tiles
 //      [s * k_tiles / splits, (s + 1) * k_tiles / splits) in ascending order;
 //      bf16 sums each 64-deep k-tile as four MMAs into a fresh fragment and
@@ -193,6 +197,11 @@ __device__ __forceinline__ float cluster_load(uint32_t addr, uint32_t rank) {
   return v;
 }
 
+// a fired cell into the call's count (null: no count), the only atomic
+__device__ __forceinline__ void count_fired(int* count) {
+  if (count != nullptr) atomicAdd(count, 1);
+}
+
 // ---- tensor cores
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -235,20 +244,17 @@ __device__ __forceinline__ int elem_col(int tid, int e) {
   return tid;
 }
 
+// The 16-row form, one block a (16-row, 128-column, split) tile.
 // KFAST: b's contiguous axis is K (the transposed view), else N
 template <typename T, bool KFAST>
-__global__ void __launch_bounds__(BLOCK)
-systolic_mac_kernel(const __grid_constant__ CUtensorMap map_a,
-                    const __grid_constant__ CUtensorMap map_b,
-                    const T* __restrict__ a, const T* __restrict__ b,
-                    const float* __restrict__ v_map,
-                    const float* __restrict__ v_safe, float* __restrict__ c,
-                    int* __restrict__ flags, int* __restrict__ count, int N,
-                    int K, int row_base, int m_rows, long long sa_m,
-                    long long sa_k, long long sb_k, long long sb_n,
-                    int block_m, int block_n, int grid_n,
-                    unsigned int keep_mask, int splits, int k_tiles,
-                    int a_tma, int b_tma) {
+__device__ __forceinline__ void row16_tile(
+    const CUtensorMap& map_a, const CUtensorMap& map_b,
+    const T* __restrict__ a, const T* __restrict__ b,
+    const float* __restrict__ v_map, const float* __restrict__ v_safe,
+    float* __restrict__ c, int* __restrict__ flags, int* __restrict__ count,
+    int N, int K, int row_base, int m_rows, long long sa_m, long long sa_k,
+    long long sb_k, long long sb_n, int block_m, int block_n, int grid_n,
+    unsigned int keep_mask, int splits, int k_tiles, int a_tma, int b_tma) {
   using L = Tile<T>;
   constexpr int BK = L::BK;
   constexpr int ES = L::ES;
@@ -468,11 +474,277 @@ systolic_mac_kernel(const __grid_constant__ CUtensorMap map_a,
     c[(long long)row * N + col] = v;
     if (row == cell_i * block_m && col == cell_j * block_n) {
       flags[(long long)cell_i * grid_n + cell_j] = fail ? 1 : 0;
-      if (fail && count != nullptr) atomicAdd(count, 1);
+      if (fail) count_fired(count);
     }
   }
   // no block leaves while another may still read its partial tile
   if (splits > 1) cluster_sync();
+}
+
+// ---- the wide form: bf16 at large M (prefill, the train step)
+//
+// One block a 128 x 128 output tile, every split of the plan walked in turn
+// by the block itself: one ring of 64-deep k-tiles filled by one producer
+// warp (a's box of 128 rows, b's boxes as the 16-row form's), eight MMA
+// warps of 32 rows x 64 columns.  Each weight tile is streamed M / 128 times
+// instead of M / 16, and no cluster is needed: at these M the (row, column)
+// tiles alone fill the card.  Every element is summed as the 16-row form
+// sums it: per k-tile four mma.sync into a fresh fragment (at the same
+// place in the m16n8k16 fragment: a warp's rows and columns start on
+// multiples of 16 and 8), added into the split's f32 register sum; the
+// splits' sums in split order, `total = S0; total += S1; ...`, the total
+// in shared memory (nine warps leave a thread 168 registers: the split's
+// sum, a k-tile's fragments and its fresh MMA sums fill them).
+constexpr int WM = 128;                  // rows of a wide block
+constexpr int W_THREADS = 256;           // eight MMA warps: 4 (rows) x 2
+constexpr int W_BLOCK = W_THREADS + 32;  // and one warp that issues copies
+constexpr int W_STAGES = 5;              // ring of k-tiles
+constexpr int W_RED_LD = BN + 8;         // row of the finished tile, in
+                                         // floats: float2 stores conflict-free
+constexpr int W_A_BYTES = WM * ROW;      // a tile [WM][64]
+constexpr int W_STAGE_BYTES = W_A_BYTES + BN * ROW;
+constexpr int W_TOTAL_BYTES = WM * BN * 4;   // the splits' total, f32
+constexpr int W_SMEM_BYTES =
+    W_STAGES * W_STAGE_BYTES + W_TOTAL_BYTES + 1024;   // + align
+static_assert(WM * W_RED_LD * 4 <= W_STAGES * W_STAGE_BYTES,
+              "the finished tile fits over the ring");
+static_assert(W_SMEM_BYTES <= 232448, "a block's shared memory");
+
+template <bool KFAST>
+__device__ __forceinline__ void wide_tile(
+    const CUtensorMap& map_a, const CUtensorMap& map_b,
+    const float* __restrict__ v_map, const float* __restrict__ v_safe,
+    float* __restrict__ c, int* __restrict__ flags, int* __restrict__ count,
+    int M, int N, int block_m, int block_n, int grid_n,
+    unsigned int keep_mask, int splits, int k_tiles) {
+  using L = Tile<__nv_bfloat16>;
+  constexpr int BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[W_STAGES], empty[W_STAGES];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * WM;    // row tiles run fastest: a wave of
+  const int col0 = blockIdx.y * BN;    // blocks shares its weight tiles
+  const int rows_valid = min(WM, M - row0);
+  const int cols_valid = min(BN, N - col0);
+
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), W_THREADS / 32);
+    }
+  }
+  __syncthreads();
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  // the split's sum: [16-row piece][n8 fragment][fragment element]
+  float acc[2][8][4];
+  // the earlier splits' total: a thread's fragment (mi, nj) at [mi, nj][t]
+  float4* total = reinterpret_cast<float4*>(smem + W_STAGES * W_STAGE_BYTES);
+  if (tid >= W_THREADS) {
+    // the producer warp: every k-tile of every split, in order
+    constexpr int B_BOXES = KFAST ? 1 : BN / L::W;
+    for (int i = 0; i < k_tiles; ++i) {
+      const int s = i % W_STAGES;
+      if (i >= W_STAGES)
+        mbar_wait(smem_u32(empty + s), ((i / W_STAGES) + 1) & 1);
+      unsigned char* As = smem + s * W_STAGE_BYTES;
+      unsigned char* Bs = As + W_A_BYTES;
+      const uint32_t bar = smem_u32(full + s);
+      const int k0 = i * BK;
+      if (lane == 0) {
+        fence_proxy_async();        // the stage's last reads came before
+        mbar_arrive_expect_tx(bar, W_STAGE_BYTES);
+        tma_load(smem_u32(As), &map_a, bar, k0, row0);
+      }
+      __syncwarp();
+      if (lane >= 1 && lane <= B_BOXES) {
+        const int j = lane - 1;
+        if (KFAST)
+          tma_load(smem_u32(Bs), &map_b, bar, k0, col0);
+        else
+          tma_load(smem_u32(Bs + j * L::KN_BOX), &map_b, bar,
+                   col0 + j * L::W, k0);
+      }
+    }
+  } else {
+    const int q = lane >> 3, r8 = lane & 7;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[mi][nj][x] = 0.0f;
+    int split = 0;
+    int t_hi = static_cast<int>((long long)k_tiles / splits);
+    for (int i = 0; i < k_tiles; ++i) {
+      const int s = i % W_STAGES;
+      mbar_wait(smem_u32(full + s), (i / W_STAGES) & 1);
+      const unsigned char* As = smem + s * W_STAGE_BYTES;
+      const unsigned char* Bs = As + W_A_BYTES;
+      // a's fragments of the whole k-tile: [16-deep step][16-row piece]
+      uint32_t af[4][2][4];
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldsm_x4(af[kq][mi], As + swz(wm + mi * 16 + r8 + (q & 1) * 8,
+                                       (kq * 16 + (q >> 1) * 8) * 2));
+      // two groups of four n8 pieces: eight independent MMA chains a warp
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        // the k-tile's four MMAs into a fresh fragment, in ascending k
+        float tacc[2][4][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) tacc[mi][j][x] = 0.0f;
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          const int kk = kq * 16;
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            // b's fragments of two n8 pieces, as the 16-row form reads them
+            const int n0 = wn + g * 32 + jp * 16;
+            uint32_t bf[4];
+            if constexpr (KFAST) {
+              ldsm_x4(bf, Bs + swz(n0 + r8 + (q >> 1) * 8,
+                                   (kk + (q & 1) * 8) * 2));
+            } else {
+              const int n = n0 + (q >> 1) * 8;
+              ldsm_x4_trans(bf, Bs + (n / L::W) * L::KN_BOX +
+                                    swz(kk + r8 + (q & 1) * 8,
+                                        (n % L::W) * 2));
+            }
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma_bf16(tacc[mi][2 * jp], af[kq][mi], bf[0], bf[1]);
+              mma_bf16(tacc[mi][2 * jp + 1], af[kq][mi], bf[2], bf[3]);
+            }
+          }
+        }
+        // the k-tile's sum into the split's f32 register sum
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              acc[mi][g * 4 + j][x] += tacc[mi][j][x];
+      }
+      __syncwarp();                 // the warp's reads of the stage are done
+      if (lane == 0) mbar_arrive(smem_u32(empty + s));
+      if (i + 1 == t_hi && t_hi < k_tiles) {
+        // a split ends that is not the last: total = S0, total += S1, ...
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < 8; ++nj) {
+            float4* t = total + (mi * 8 + nj) * W_THREADS + tid;
+            float* f = acc[mi][nj];
+            *t = split == 0 ? make_float4(f[0], f[1], f[2], f[3])
+                            : make_float4(t->x + f[0], t->y + f[1],
+                                          t->z + f[2], t->w + f[3]);
+#pragma unroll
+            for (int x = 0; x < 4; ++x) f[x] = 0.0f;
+          }
+        ++split;
+        t_hi = static_cast<int>((long long)(split + 1) * k_tiles / splits);
+      }
+    }
+  }
+
+  // ---- the finished tile to shared memory, over the ring (all consumed):
+  // the last split's sum, added to the total where there are splits
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  if (tid < W_THREADS) {
+    if (splits > 1) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj) {
+          const float4 t = total[(mi * 8 + nj) * W_THREADS + tid];
+          float* f = acc[mi][nj];
+          f[0] = t.x + f[0];
+          f[1] = t.y + f[1];
+          f[2] = t.z + f[2];
+          f[3] = t.w + f[3];
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+        const int r = wm + mi * 16 + (lane >> 2);
+        const int cc = wn + nj * 8 + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(red + r * W_RED_LD + cc) =
+            make_float2(acc[mi][nj][0], acc[mi][nj][1]);
+        *reinterpret_cast<float2*>(red + (r + 8) * W_RED_LD + cc) =
+            make_float2(acc[mi][nj][2], acc[mi][nj][3]);
+      }
+  }
+  __syncthreads();
+
+  // ---- epilogue: a thread keeps one column and walks every other row,
+  // looking the rails up again only where a row enters another cell
+  const int cc = tid % BN;
+  if (tid >= W_THREADS || cc >= cols_valid) return;
+  const int col = col0 + cc;
+  const int cell_j = col / block_n;
+  const bool first_col = col == cell_j * block_n;
+  long long edge = 0, cell = 0;     // the first row looks its cell up
+  int cell_top = 0;
+  bool fail = false;
+  for (int r = tid / BN; r < rows_valid; r += W_THREADS / BN) {
+    const int row = row0 + r;
+    if (row >= edge) {
+      const int cell_i = row / block_m;
+      cell_top = cell_i * block_m;
+      edge = (long long)cell_top + block_m;
+      cell = (long long)cell_i * grid_n + cell_j;
+      fail = v_map[cell] < v_safe[cell];
+    }
+    float v = red[r * W_RED_LD + cc];
+    if (fail) v = __uint_as_float(__float_as_uint(v) & keep_mask);
+    c[(long long)row * N + col] = v;
+    if (first_col && row == cell_top) {
+      flags[cell] = fail ? 1 : 0;
+      if (fail) count_fired(count);
+    }
+  }
+}
+
+// One kernel name for both forms (the profiler reads B1's rows by it):
+// ROWS = BM is the 16-row form, ROWS = WM the wide form (bf16 only).
+template <typename T, bool KFAST, int ROWS>
+__global__ void __launch_bounds__(ROWS == BM ? BLOCK : W_BLOCK)
+systolic_mac_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const T* __restrict__ a, const T* __restrict__ b,
+                    const float* __restrict__ v_map,
+                    const float* __restrict__ v_safe, float* __restrict__ c,
+                    int* __restrict__ flags, int* __restrict__ count, int N,
+                    int K, int row_base, int m_rows, long long sa_m,
+                    long long sa_k, long long sb_k, long long sb_n,
+                    int block_m, int block_n, int grid_n,
+                    unsigned int keep_mask, int splits, int k_tiles,
+                    int a_tma, int b_tma) {
+  if constexpr (ROWS == BM) {
+    row16_tile<T, KFAST>(map_a, map_b, a, b, v_map, v_safe, c, flags, count,
+                         N, K, row_base, m_rows, sa_m, sa_k, sb_k, sb_n,
+                         block_m, block_n, grid_n, keep_mask, splits,
+                         k_tiles, a_tma, b_tma);
+  } else {
+    static_assert(ROWS == WM && sizeof(T) == 2, "the wide form is bf16");
+    wide_tile<KFAST>(map_a, map_b, v_map, v_safe, c, flags, count, m_rows, N,
+                     block_m, block_n, grid_n, keep_mask, splits, k_tiles);
+  }
 }
 
 inline bool aligned16(const void* p) {
@@ -531,27 +803,51 @@ bool encode(CUtensorMap* map, const T* base, long long inner, long long outer,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The kernel's launch attributes (dynamic shared memory, cluster size), set
+// once a device
+template <typename T>
+cudaError_t set_attributes() {
+  static uint64_t done = 0;         // a bit a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (bit != 0 && (done & bit)) return cudaSuccess;
+  using Kernel = decltype(&systolic_mac_kernel<T, false, BM>);
+  const Kernel row16[] = {systolic_mac_kernel<T, false, BM>,
+                          systolic_mac_kernel<T, true, BM>};
+  for (auto kernel : row16) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tile<T>::SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  if constexpr (sizeof(T) == 2) {
+    const Kernel wide[] = {systolic_mac_kernel<T, false, WM>,
+                           systolic_mac_kernel<T, true, WM>};
+    for (auto kernel : wide) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               W_SMEM_BYTES);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  done |= bit;
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch(const void* a_, const void* b_, const float* v_map,
            const float* v_safe, float* c, int* flags, int* count, int splits,
-           int M, int N, int K, long long sa_m, long long sa_k,
+           int rows, int M, int N, int K, long long sa_m, long long sa_k,
            long long sb_k, long long sb_n, int block_m, int block_n,
            unsigned int keep_mask, cudaStream_t stream) {
   using L = Tile<T>;
-  static bool attrs_set = false;
-  if (!attrs_set) {
-    const decltype(&systolic_mac_kernel<T, false>) kernels[] = {
-        systolic_mac_kernel<T, false>, systolic_mac_kernel<T, true>};
-    for (auto kernel : kernels) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    attrs_set = true;
-  }
+  const cudaError_t set = set_attributes<T>();
+  if (set != cudaSuccess) return static_cast<int>(set);
   const T* a = static_cast<const T*>(a_);
   const T* b = static_cast<const T*>(b_);
   const int k_tiles = (K + L::BK - 1) / L::BK;
@@ -559,20 +855,48 @@ int launch(const void* a_, const void* b_, const float* v_map,
   if (splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1)) != 0 ||
       splits > (k_tiles > 1 ? k_tiles : 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = rows == WM;
+  if (!wide && rows != BM) return static_cast<int>(cudaErrorInvalidValue);
   const int b_k_fastest = (sb_k == 1 && sb_n != 1) ? 1 : 0;
   CUtensorMap map_a = {}, map_b = {};
   const int a_tma = K > 0 && (sa_k == 1 || K == 1) &&
-                    encode<T>(&map_a, a, K, M, sa_m, L::BK, BM);
+                    encode<T>(&map_a, a, K, M, sa_m, L::BK, wide ? WM : BM);
   const int b_tma =
       K > 0 &&
       (b_k_fastest
            ? encode<T>(&map_b, b, K, N, sb_n, L::BK, BN)
            : (sb_n == 1 || N == 1) && encode<T>(&map_b, b, N, K, sb_k, L::W,
                                                 L::BK));
+  if (wide) {
+    // bf16 operands the TMA takes, in one launch: the wrapper's rule
+    // (kernels/systolic_mac.py::launch_rows) sends every other call to the
+    // 16-row form before it gets here
+    if constexpr (sizeof(T) == 2) {
+      if (!a_tma || !b_tma || n_tiles > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3((M + WM - 1) / WM, n_tiles, 1);
+      cfg.blockDim = dim3(W_BLOCK);
+      cfg.dynamicSmemBytes = W_SMEM_BYTES;
+      cfg.stream = stream;
+      const cudaError_t e = cudaLaunchKernelEx(
+          &cfg,
+          b_k_fastest ? systolic_mac_kernel<T, true, WM>
+                      : systolic_mac_kernel<T, false, WM>,
+          map_a, map_b, a, b, v_map, v_safe, c, flags, count, N, K, 0, M,
+          sa_m, sa_k, sb_k, sb_n, block_m, block_n, N / block_n, keep_mask,
+          splits, k_tiles, a_tma, b_tma);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      return static_cast<int>(cudaGetLastError());
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   // CUDA's grid.z bounds the rows of one launch
-  const long long rows = 65535LL * BM;
-  for (long long r0 = 0; r0 < M; r0 += rows) {
-    const int m_rows = static_cast<int>(M - r0 < rows ? M - r0 : rows);
+  const long long max_rows = 65535LL * BM;
+  for (long long r0 = 0; r0 < M; r0 += max_rows) {
+    const int m_rows =
+        static_cast<int>(M - r0 < max_rows ? M - r0 : max_rows);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(n_tiles, splits, (m_rows + BM - 1) / BM);
     cfg.blockDim = dim3(BLOCK);
@@ -587,8 +911,8 @@ int launch(const void* a_, const void* b_, const float* v_map,
     cfg.numAttrs = splits > 1 ? 1 : 0;
     const cudaError_t e = cudaLaunchKernelEx(
         &cfg,
-        b_k_fastest ? systolic_mac_kernel<T, true>
-                    : systolic_mac_kernel<T, false>,
+        b_k_fastest ? systolic_mac_kernel<T, true, BM>
+                    : systolic_mac_kernel<T, false, BM>,
         map_a, map_b, a, b, v_map, v_safe, c, flags, count, N, K,
         static_cast<int>(r0), m_rows, sa_m, sa_k, sb_k, sb_n, block_m, block_n,
         N / block_n, keep_mask, splits, k_tiles, a_tma, b_tma);
@@ -602,12 +926,13 @@ int launch(const void* a_, const void* b_, const float* v_map,
 // dtype: 0 = float32, 1 = bfloat16 (a and b share it).  Strides in elements.
 // count may be null (no fused reduction); zero_count = 1 zeroes it on the
 // stream first, 0 adds this call's fired cells to what it holds.  splits is
-// launch_plan's: a power of two, at most 16 and at most the k-tiles.
-// Returns the launch's error (0 = launched).
+// launch_plan's: a power of two, at most 16 and at most the k-tiles.  rows
+// is the block's row tile (launch_rows): 16, or 128 for the wide form (bf16
+// operands the TMA takes).  Returns the launch's error (0 = launched).
 extern "C" int systolic_mac_launch(
     const void* a, const void* b, const void* v_map, const void* v_safe,
-    void* c, void* flags, void* count, int zero_count, int splits, int M,
-    int N, int K, long long sa_m, long long sa_k, long long sb_k,
+    void* c, void* flags, void* count, int zero_count, int splits, int rows,
+    int M, int N, int K, long long sa_m, long long sa_k, long long sb_k,
     long long sb_n, int block_m, int block_n, int keep_bits, int dtype,
     void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || block_m <= 0 || block_n <= 0 ||
@@ -626,9 +951,10 @@ extern "C" int systolic_mac_launch(
   auto* fl = static_cast<int*>(flags);
   auto* ct = static_cast<int*>(count);
   if (dtype == 0)
-    return launch<float>(a, b, vm, vs, cf, fl, ct, splits, M, N, K, sa_m,
-                         sa_k, sb_k, sb_n, block_m, block_n, keep_mask, s);
-  return launch<__nv_bfloat16>(a, b, vm, vs, cf, fl, ct, splits, M, N, K,
-                               sa_m, sa_k, sb_k, sb_n, block_m, block_n,
+    return launch<float>(a, b, vm, vs, cf, fl, ct, splits, rows, M, N, K,
+                         sa_m, sa_k, sb_k, sb_n, block_m, block_n, keep_mask,
+                         s);
+  return launch<__nv_bfloat16>(a, b, vm, vs, cf, fl, ct, splits, rows, M, N,
+                               K, sa_m, sa_k, sb_k, sb_n, block_m, block_n,
                                keep_mask, s);
 }

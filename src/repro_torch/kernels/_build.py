@@ -149,7 +149,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.systolic_mac_launch.argtypes = [
         p, p, p, p, p, p, p,        # a, b, v_map, v_safe, c, flags, count
-        i, i,                       # zero_count, splits
+        i, i, i,                    # zero_count, splits, rows
         i, i, i,                    # M, N, K
         ll, ll, ll, ll,             # strides of a (m, k) and b (k, n)
         i, i, i, i,                 # block_m, block_n, keep_bits, dtype

@@ -19,7 +19,18 @@ into a caller's running device counter instead.
 What bounds it on an H100: at the serving shapes (M = 1..16 rows against a
 (K, N) weight) the bytes of ``b``, and how many SMs stream them: one block
 moves only a fraction of the card's memory rate.  At large M the tensor cores
-(bf16) or the f32 FMA rate (f32).  What the design does about it:
+(bf16) or the f32 FMA rate (f32).  The kernel has two forms, one kernel name
+(``systolic_mac_kernel``), chosen before the launch by :func:`launch_rows`:
+
+* the 16-row form, every f32 call and bf16 below ``WIDE_FROM_M`` rows (the
+  decode step); what follows is its design;
+* the wide form, bf16 from ``WIDE_FROM_M`` rows on (prefill, the train
+  step): 128 x 128 tiles, eight MMA warps and a copy warp on the same ring,
+  each block walking every split of the plan in turn (no cluster), so each
+  weight tile is streamed M / 128 times instead of M / 16.  It sums every
+  element in the same order, so the two forms give the same bits.
+
+The 16-row form:
 
 * K is split over the blocks of a thread-block cluster
   (:func:`launch_plan`: from K, N and the type alone, a power of two up to 16,
@@ -45,10 +56,11 @@ path) is independent of the launch tile.
 Numerical contracts (stated in the CUDA source too):
 
 1. One summation order per (K, N, dtype), never a function of M: a row's
-   result does not depend on how many rows share the call.  Split ``s`` sums
-   its k-tiles in ascending order (bf16: each 64-deep tile's MMAs into a
-   fresh fragment, added to an f32 register sum; f32: one ``fmaf`` chain),
-   and the splits are added in split order.
+   result does not depend on how many rows share the call, nor on the form
+   that runs it.  Split ``s`` sums its k-tiles in ascending order (bf16:
+   each 64-deep tile's four ``mma.sync`` into a fresh fragment, added to an
+   f32 register sum; f32: one ``fmaf`` chain), and the splits are added in
+   split order (``v = part[0]; v += part[1]; ...``).
 2. Deterministic: no float atomics; mask, flags and count are applied after
    the whole sum, by one writer per element.
 3. Within 1e-5 x max|C| of the plain f32 product at every model shape
@@ -93,6 +105,20 @@ MIN_TILES_PER_SPLIT, MAX_SPLITS = 2, 16
 #: the whole split-K workspace, on chip
 PARTIAL_BYTES = TILE_M * (TILE_N + 4) * 4
 
+#: the wide form (bf16 at large M): a block's rows, its MMA threads (eight
+#: warps of 32 rows x 64 columns) beside one copy warp, the stages of its
+#: ring (a 128 x 64 a tile and b's 64 x 128 tile each), the padded row of
+#: the finished f32 tile it stages over the ring for the epilogue
+WIDE_TILE_M, WIDE_THREADS, WIDE_STAGES = 128, 256, 5
+WIDE_STAGE_BYTES = (WIDE_TILE_M + TILE_N) * 128
+WIDE_RED_LD = TILE_N + 8
+#: fewest rows at which bf16 takes the wide form: on an H100 the 16-row
+#: form is the faster over a phi4-mini layer's GEMMs at M = 64 and the wide
+#: form from M = 128 on (``scripts/b1_ab.py --crossover``)
+WIDE_FROM_M = 128
+#: most column tiles of a wide launch (CUDA's grid.y)
+WIDE_MAX_COL_TILES = 65535
+
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
@@ -136,6 +162,53 @@ def launch_plan(k: int, n: int, dtype_code: int) -> LaunchPlan:
               MAX_SPLITS)
     splits = 1 << (max(1, cap).bit_length() - 1)
     return LaunchPlan(k, n, dtype_code, bk, k_tiles, n_tiles, splits)
+
+
+def row_tile(m: int, dtype_code: int) -> int:
+    """The row tile of a block at M rows: the wide form's ``WIDE_TILE_M``
+    for bf16 from ``WIDE_FROM_M`` rows on, else ``TILE_M``; f32 always
+    ``TILE_M``.  The bits do not depend on it: both forms sum every element
+    in :func:`launch_plan`'s order."""
+    if dtype_code == 1 and m >= WIDE_FROM_M:
+        return WIDE_TILE_M
+    return TILE_M
+
+
+def _tma_operand(ptr: int, inner: int, outer: int, stride: int,
+                 elem: int) -> bool:
+    """Whether the launcher's tensor map takes a matrix whose ``inner``
+    axis is contiguous (``csrc/systolic_mac.cu::encode``): a 16-byte
+    aligned base and row stride, rows that do not overlap."""
+    if outer == 1:
+        stride = -(-inner // (16 // elem)) * (16 // elem)
+    return ptr % 16 == 0 and stride * elem % 16 == 0 and stride >= inner
+
+
+def launch_rows(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The row tile a call launches, decided before the launch:
+    :func:`row_tile`'s, except that operands the wide form cannot take (it
+    loads through the TMA only: a K of 0, a base or row stride off 16
+    bytes, more than ``WIDE_MAX_COL_TILES`` column tiles) go to the 16-row
+    form, which also loads by hand."""
+    m, k = a.shape
+    n = b.shape[1]
+    rows = row_tile(m, _DTYPE_CODE[a.dtype])
+    if rows == TILE_M:
+        return rows
+    elem = a.element_size()
+    sa_m, sa_k = a.stride()
+    sb_k, sb_n = b.stride()
+    a_ok = (sa_k == 1 or k == 1) and _tma_operand(a.data_ptr(), k, m, sa_m,
+                                                  elem)
+    if sb_k == 1 and sb_n != 1:             # the transposed view: K inner
+        b_ok = _tma_operand(b.data_ptr(), k, n, sb_n, elem)
+    else:
+        b_ok = (sb_n == 1 or n == 1) and _tma_operand(b.data_ptr(), n, k,
+                                                      sb_k, elem)
+    if (k == 0 or not (a_ok and b_ok)
+            or -(-n // TILE_N) > WIDE_MAX_COL_TILES):
+        return TILE_M
+    return rows
 
 
 def systolic_mac_plain(a: torch.Tensor, b: torch.Tensor, v_map: torch.Tensor,
@@ -209,8 +282,8 @@ def _launch(a, b, v_map, v_safe, block_m, block_n, keep_bits, counter,
         a.data_ptr(), b.data_ptr(), v_map.data_ptr(), v_safe.data_ptr(),
         c.data_ptr(), flags.data_ptr(),
         count.data_ptr() if count is not None else None, int(fresh_count),
-        plan.splits, m, n, k, sa_m, sa_k, sb_k, sb_n, block_m, block_n,
-        keep_bits, code,
+        plan.splits, launch_rows(a, b), m, n, k, sa_m, sa_k, sb_k, sb_n,
+        block_m, block_n, keep_bits, code,
         # the raw handle of PyTorch's current stream (the Stream object
         # that torch.cuda.current_stream() builds costs more than a launch)
         torch._C._cuda_getCurrentRawStream(dev.index))

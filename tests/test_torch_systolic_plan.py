@@ -234,3 +234,218 @@ def test_cuda_tensors_raise_without_nvcc(counted, monkeypatch, tmp_path):
                 (), dtype=torch.int32).as_subclass(_CudaLooking))
         else:
             systolic_mac(a, b, v, v, count_flags=True)
+
+
+# ---- the wide form (bf16 at large M) ---------------------------------------
+
+def _constexpr(name, src):
+    hit = re.search(rf"constexpr int {name} =\s*([^;]+);", src)
+    assert hit, name
+    return hit.group(1)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 63, 64, 127, 128, 129, 512,
+                               1000, 2944, 2945])
+def test_row_tile_by_m_and_dtype(m):
+    """bf16 takes the wide form from WIDE_FROM_M rows on and the 16-row form
+    below (a decode step's M = 1..16 always); f32 the 16-row form at every
+    M.  The plan, and so every element's order of summation, is the same
+    whichever form runs."""
+    assert smod.row_tile(m, 0) == smod.TILE_M
+    wide = m >= smod.WIDE_FROM_M
+    assert smod.row_tile(m, 1) == (smod.WIDE_TILE_M if wide else smod.TILE_M)
+    assert 16 < smod.WIDE_FROM_M <= 256
+    assert list(inspect.signature(smod.row_tile).parameters) == [
+        "m", "dtype_code"]
+
+
+def test_launch_rows_routes_before_the_launch():
+    """The row tile a call launches is decided from the operands alone: the
+    wide form for bf16 operands the tensor maps take (both layouts of b),
+    the 16-row form for f32, small M, a K of 0 and bases or row strides off
+    16 bytes (which the 16-row form loads by hand)."""
+    big = smod.WIDE_FROM_M * 4
+    a = torch.zeros(big, 3072 + 8, dtype=torch.bfloat16)
+    b = torch.zeros(3072 + 8, 1024 + 8, dtype=torch.bfloat16)
+    table = torch.zeros(1024 + 8, 3072 + 8, dtype=torch.bfloat16)
+    wide, row16 = smod.WIDE_TILE_M, smod.TILE_M
+    aa, bb = a[:, :3072], b[:3072, :1024]
+    assert smod.launch_rows(aa, bb) == wide
+    assert smod.launch_rows(aa, table[:1024, :3072].T) == wide
+    assert smod.launch_rows(aa[:16], bb) == row16          # a decode step
+    assert smod.launch_rows(aa.float(), bb.float()) == row16
+    assert smod.launch_rows(a[:, 1:3073], bb) == row16     # base off 16 B
+    assert smod.launch_rows(aa, b[1:3073, 1:1025]) == row16
+    assert smod.launch_rows(aa, table[1:1025, 1:3073].T) == row16
+    odd = torch.zeros(big, 65, dtype=torch.bfloat16)       # row stride 130 B
+    assert smod.launch_rows(odd, torch.zeros(65, 128,
+                                             dtype=torch.bfloat16)) == row16
+    assert smod.launch_rows(torch.zeros(big, 0, dtype=torch.bfloat16),
+                            torch.zeros(0, 128, dtype=torch.bfloat16)) == row16
+
+
+def test_wide_constants_are_the_cuda_sources():
+    """The wide form's tile, warps, ring and padded row, read back from the
+    CUDA source; its shared memory (ring, the splits' f32 total, alignment
+    slack and the ring's mbarriers; the finished tile is staged over the
+    ring) fits the 232,448 bytes a block may hold, and the finished tile
+    fits over the ring."""
+    src = (_build.CSRC_DIR / "systolic_mac.cu").read_text()
+    assert int(_constexpr("WM", src)) == smod.WIDE_TILE_M == 128
+    assert int(_constexpr("W_THREADS", src)) == smod.WIDE_THREADS == 256
+    assert _constexpr("W_BLOCK", src) == "W_THREADS + 32"
+    assert int(_constexpr("W_STAGES", src)) == smod.WIDE_STAGES
+    assert _constexpr("W_RED_LD", src) == "BN + 8"
+    assert smod.WIDE_RED_LD == smod.TILE_N + 8
+    assert _constexpr("W_A_BYTES", src) == "WM * ROW"
+    assert _constexpr("W_STAGE_BYTES", src) == "W_A_BYTES + BN * ROW"
+    assert smod.WIDE_STAGE_BYTES == (smod.WIDE_TILE_M + smod.TILE_N) * 128
+    assert _constexpr("W_TOTAL_BYTES", src) == "WM * BN * 4"
+    ring = smod.WIDE_STAGES * smod.WIDE_STAGE_BYTES
+    total = smod.WIDE_TILE_M * smod.TILE_N * 4
+    barriers = 2 * smod.WIDE_STAGES * 8
+    assert ring + total + 1024 + barriers <= 232448
+    assert smod.WIDE_TILE_M * smod.WIDE_RED_LD * 4 <= ring
+    # one kernel name for both forms, the wide one bf16 only
+    assert "template <typename T, bool KFAST, int ROWS>" in src
+    assert 'static_assert(ROWS == WM && sizeof(T) == 2' in src
+    # the split walk: k-tiles in order, the total in split order
+    assert "int t_hi = static_cast<int>((long long)k_tiles / splits);" in src
+    assert ("t_hi = static_cast<int>((long long)(split + 1) * k_tiles / "
+            "splits);") in src
+    assert ("*t = split == 0 ? make_float4(f[0], f[1], f[2], f[3])\n"
+            "                            : make_float4(t->x + f[0], t->y + f[1],"
+            ) in src
+    # the k-tile's MMAs into a fresh fragment, added into the split's sum
+    assert "acc[mi][g * 4 + j][x] += tacc[mi][j][x];" in src
+    assert "mma_bf16(tacc[mi][2 * jp], af[kq][mi], bf[0], bf[1]);" in src
+    assert "for (int kq = 0; kq < 4; ++kq) {" in src    # ascending k
+
+
+# The wide form's index arithmetic in Python, line by line after
+# csrc/systolic_mac.cu::wide_tile: which block, warp and lane hold an
+# element, where it is staged, and which thread writes it to C.
+
+def _wide_fragment_cells():
+    """(r, cc) in the 128 x 128 tile of every (warp, lane, mi, nj, x) the
+    MMA warps hold, as the staging stores write them."""
+    warp, lane, mi, nj, x = np.meshgrid(np.arange(8), np.arange(32),
+                                        np.arange(2), np.arange(8),
+                                        np.arange(4), indexing="ij")
+    wm, wn = (warp >> 1) * 32, (warp & 1) * 64
+    r = wm + mi * 16 + (lane >> 2) + np.where(x & 2, 8, 0)
+    cc = wn + nj * 8 + 2 * (lane & 3) + (x & 1)
+    return r.ravel(), cc.ravel()
+
+
+def _wide_epilogue_writes(m, n):
+    """Every (row, col) of C the epilogue threads write, block by block."""
+    tile, threads, bn = smod.WIDE_TILE_M, smod.WIDE_THREADS, smod.TILE_N
+    rows, cols = [], []
+    for bx in range(-(-m // tile)):
+        for by in range(-(-n // bn)):
+            row0, col0 = bx * tile, by * bn
+            rows_valid, cols_valid = min(tile, m - row0), min(bn, n - col0)
+            for tid in range(threads):
+                cc = tid % bn
+                if cc >= cols_valid:
+                    continue
+                r = np.arange(tid // bn, rows_valid, threads // bn)
+                rows.append(row0 + r)
+                cols.append(np.full(r.shape, col0 + cc))
+    return np.concatenate(rows), np.concatenate(cols)
+
+
+def _wide_k_walk(plan):
+    """The consumer's k-tiles, split by split, as its loop walks them."""
+    k_tiles, splits = plan.k_tiles, plan.splits
+    walk, split, t_hi = [[]], 0, k_tiles // splits
+    for i in range(k_tiles):
+        walk[split].append(i)
+        if i + 1 == t_hi and t_hi < k_tiles:
+            split += 1
+            t_hi = (split + 1) * k_tiles // splits
+            walk.append([])
+    return walk
+
+
+def test_wide_fragments_cover_the_tile_once():
+    r, cc = _wide_fragment_cells()
+    cells = r * smod.TILE_N + cc
+    assert np.array_equal(np.sort(cells), np.arange(128 * 128))
+    # float2 stores: each lane's pair is two neighbouring columns
+    assert np.all(cc.reshape(-1, 2)[:, 1] == cc.reshape(-1, 2)[:, 0] + 1)
+
+
+@pytest.mark.parametrize("m", [129, 1000, 2945])
+def test_wide_epilogue_writes_every_element_once(m):
+    n = 1001
+    rows, cols = _wide_epilogue_writes(m, n)
+    assert rows.max() < m and cols.max() < n
+    hits = np.bincount(rows * n + cols, minlength=m * n)
+    assert np.all(hits == 1)
+
+
+@pytest.mark.parametrize("k,n", MODEL_KN + [(65, 1001), (1000, 1001),
+                                            (65, 129)])
+def test_wide_walk_is_the_plans_split_order(k, n):
+    """The wide block walks the same k-tiles in the same splits as the
+    16-row form's cluster (k_ranges), whatever M is."""
+    plan = launch_plan(k, n, 1)
+    walk = _wide_k_walk(plan)
+    assert len(walk) == plan.splits
+    assert [i for w in walk for i in w] == list(range(plan.k_tiles))
+    ranges = [(w[0] * plan.block_k, min(k, (w[-1] + 1) * plan.block_k))
+              for w in walk]
+    assert ranges == plan.k_ranges()
+
+
+def _tile_sums(a, b, block_k):
+    """A k-tile's fresh four-MMA sum for every element, one array a tile
+    (f32, 16 deep at a time: the emulation both forms share)."""
+    k = a.shape[1]
+    out = []
+    for k0 in range(0, k, block_k):
+        t = np.zeros((a.shape[0], b.shape[1]), np.float32)
+        for kk in range(k0, min(k, k0 + block_k), 16):
+            t = t + (a[:, kk:kk + 16] @ b[kk:kk + 16]).astype(np.float32)
+        out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("k,n", [(65, 1001), (1024, 1001), (3072, 200)])
+def test_wide_sums_in_the_16_row_forms_order(k, n):
+    """Given the same per-tile sums, the wide form's order (the split's
+    register sum, total = S0, total += S1, ..., the last split added at the
+    end) gives the 16-row form's bits (v = part[0]; v += part[s]) for every
+    element, -0.0 included."""
+    rng = np.random.default_rng(30)
+    m = 129
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    b[:, :3] = 0.0                              # some -0.0 / +0.0 sums
+    a[:2] = -0.0
+    plan = launch_plan(k, n, 1)
+    tiles = _tile_sums(a, b, plan.block_k)
+    # the 16-row form: each split in its block, summed in split order
+    parts = []
+    for lo, hi in plan.k_ranges():
+        acc = np.zeros((m, n), np.float32)
+        for t in range(lo // plan.block_k, -(-hi // plan.block_k)):
+            acc = acc + tiles[t]
+        parts.append(acc)
+    v = parts[0]
+    for p in parts[1:]:
+        v = v + p
+    # the wide form: one walk, the total in shared memory
+    acc = np.zeros((m, n), np.float32)
+    total = None
+    for s, walk in enumerate(_wide_k_walk(plan)):
+        for t in walk:
+            acc = acc + tiles[t]
+        if s + 1 < plan.splits:
+            total = acc if s == 0 else total + acc
+            acc = np.zeros((m, n), np.float32)
+    wide = acc if plan.splits == 1 else total + acc
+    assert plan.splits > 1 or k == 65
+    np.testing.assert_array_equal(wide.view(np.int32), v.view(np.int32))
