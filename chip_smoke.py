@@ -310,6 +310,21 @@ TOL_BF16_LOGITS = 4 * 2.0 ** -8
 #: bf16 run's requests and new tokens
 WKV6_BF16_LOSS = (1, 512)
 WKV6_BF16_REQUESTS, WKV6_BF16_NEW = 4, 4
+#: the bf16 wkv6's cases (name, b, s, h, p, chunk, strided): rwkv6-1.6b's
+#: loss shape and decode shapes, ragged chunks, one chunk, a strided p 47
+WKV6_BF16_CASES = (("rwkv6 loss", 2, 2048, 32, 64, 64, False),
+                   ("rwkv6 decode", 4, 1, 32, 64, 1, False),
+                   ("rwkv6 decode", 1, 1, 32, 64, 1, False),
+                   ("ragged", 1, 100, 32, 64, 100, False),
+                   ("ragged", 1, 1000, 32, 64, 1000, False),
+                   ("one chunk", 1, 64, 32, 64, 64, False),
+                   ("strided", 2, 256, 12, 47, 128, True),
+                   ("strided", 2, 3, 12, 47, 1, True))
+#: device ms one bf16 wkv6 call may take at rwkv6's loss shape (its three
+#: passes, torch.profiler), the bf16 tiles' redesign's limit; it must also
+#: take less than the f32 kernel on the same values in the same call; a
+#: figure not measured fails
+WKV6_BF16_LIMIT_MS = 0.22
 
 
 def emit(tag: str, payload: dict) -> None:
@@ -4395,20 +4410,15 @@ def check_wkv6_bf16(torch, wkv6, wkv6_plain):
     routes are one function, and the f32 route must equal the plain bf16
     version).  The loss and decode rows are timed beside
     the f32 kernel on the same values (f32 copies of r, k and v) and beside
-    the plain version, with device ms by pass."""
+    the plain version, with device ms by pass for both kernels; at the loss
+    shape the bf16 call's device ms is held to WKV6_BF16_LIMIT_MS and below
+    the f32 kernel's (a figure not measured fails).  Each row records
+    whether r, k and v were staged by 16-byte copies (``rows16``)."""
+    from repro_torch.kernels.wkv6 import rows16
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 21)
-    H, P = 32, 64
-    cases = [("rwkv6 loss", 2, 2048, H, P, 64, False),
-             ("rwkv6 decode", 4, 1, H, P, 1, False),
-             ("rwkv6 decode", 1, 1, H, P, 1, False),
-             ("ragged", 1, 100, H, P, 100, False),
-             ("ragged", 1, 1000, H, P, 1000, False),
-             ("one chunk", 1, 64, H, P, 64, False),
-             ("strided", 2, 256, 12, 47, 128, True),
-             ("strided", 2, 3, 12, 47, 1, True)]
     out = []
-    for name, b, s, h, p, ch, strided in cases:
+    for name, b, s, h, p, ch, strided in WKV6_BF16_CASES:
         args = wkv6_bf16_inputs(torch, gen, b, s, h, p, strided)
         what = f"wkv6 bf16 {name} (b, s, h, p) = {(b, s, h, p)} chunk {ch}"
         n0, f0 = wkv6.bf16_launches, wkv6.launches
@@ -4429,7 +4439,8 @@ def check_wkv6_bf16(torch, wkv6, wkv6_plain):
                                   compute_dtype=torch.bfloat16)
         y32, _ = wkv6_plain(*args, chunk=ch, compute_dtype=torch.float32)
         row = {"case": name, "b": b, "s": s, "h": h, "p": p, "chunk": ch,
-               "repeat_bit_equal": True, "state_in_place_bit_equal": True}
+               "repeat_bit_equal": True, "state_in_place_bit_equal": True,
+               "rkv_rows16": [rows16(t) for t in args[:3]]}
         for tag, got, want, tol in (("y", y, y_ref, TOL_WKV6_BF16),
                                     ("state", S, S_ref, TOL_RECURRENCE)):
             scale = float(want.abs().max())
@@ -4461,19 +4472,38 @@ def check_wkv6_bf16(torch, wkv6, wkv6_plain):
         t_plain = time_ms(lambda i: wkv6_plain(*args, chunk=ch), 1,
                           min(iters, 5))
         t_bound, by = wkv6_bf16_bound_ms(b, s, h, p, ch)
-        prof = profile_calls(torch, {"wkv6": lambda: [
-            wkv6(*args, chunk=ch) for _ in range(iters)]},
-            repeats=iters)["wkv6"]
-        passes = {r["kernel"]: r["ms"] / iters for r in prof or []
-                  if r["kernel"].startswith("wkv6_")
-                  and r["kernel"].endswith("_kernel")}
+        prof = profile_calls(torch, {
+            "wkv6": lambda: [wkv6(*args, chunk=ch) for _ in range(iters)],
+            "wkv6_f32": lambda: [wkv6(*f32_args, chunk=ch)
+                                 for _ in range(iters)]}, repeats=iters)
+        passes, f32_passes = ({r["kernel"]: r["ms"] / iters
+                               for r in prof[key] or []
+                               if r["kernel"].startswith("wkv6_")
+                               and r["kernel"].endswith("_kernel")}
+                              for key in ("wkv6", "wkv6_f32"))
         row.update({"kernel_ms": t_kernel, "f32_kernel_ms": t_f32,
                     "plain_ms": t_plain, "library_ms": None,
                     "bound_ms": t_bound, "bound_by": by,
                     "f32_bound_ms": wkv6_bound_ms(b, s, h, p, ch)[0],
                     "kernel_device_ms": (sum(passes.values()) if passes
                                          else None),
-                    "kernel_device_ms_by_pass": passes or None})
+                    "kernel_device_ms_by_pass": passes or None,
+                    "f32_kernel_device_ms": (sum(f32_passes.values())
+                                             if f32_passes else None),
+                    "f32_kernel_device_ms_by_pass": f32_passes or None})
+        if name == "rwkv6 loss":
+            dev, dev32 = row["kernel_device_ms"], row["f32_kernel_device_ms"]
+            row["limit_ms"] = WKV6_BF16_LIMIT_MS
+            if dev is None or dev32 is None:
+                fail(f"{what}: device ms not measured (bf16 {dev}, f32 "
+                     f"{dev32}; profiler tries {PROFILE_MISSES[-2:]})")
+            if not dev <= WKV6_BF16_LIMIT_MS:
+                fail(f"{what}: {dev} device ms a call (limit "
+                     f"{WKV6_BF16_LIMIT_MS}; by pass {passes})")
+            if not dev < dev32:
+                fail(f"{what}: {dev} device ms a call, not below the f32 "
+                     f"kernel's {dev32} on the same values (by pass "
+                     f"{passes} against {f32_passes})")
         if s == 1:
             st = args[-1]
             row["host_us_per_call"] = host_us_per_call(
@@ -6441,8 +6471,9 @@ def main() -> int:
     entry["host_us_per_call"] = bf_decode["host_us_per_call"]
     entry["loss_shape"] = {k: bf_loss[k] for k in (
         "b", "s", "h", "p", "chunk", "kernel_ms", "f32_kernel_ms",
-        "kernel_device_ms", "kernel_device_ms_by_pass", "plain_ms",
-        "bound_ms", "f32_bound_ms", "bound_by")}
+        "kernel_device_ms", "kernel_device_ms_by_pass",
+        "f32_kernel_device_ms", "f32_kernel_device_ms_by_pass", "limit_ms",
+        "plain_ms", "bound_ms", "f32_bound_ms", "bound_by")}
     entry["loss_shape"]["launches_per_loss_call"] = wkv6_bf16_run[
         "loss_launches"]["wkv6_bf16"]
     kernels.append(entry)

@@ -15,7 +15,10 @@
 // wkv6_bf16 in wkv6_bwd.cu): bf16 operands widened to f32 exactly, f32
 // values rounded to bf16 (to nearest, ties to even), and products on the
 // bf16 tensor cores (mma.sync m16n8k16, f32 accumulate) over the same warp
-// tiles.
+// tiles, their fragments given as bf16x2 pairs or, for a [k][j] tile, read
+// by ldmatrix.trans.  A fragment holds the same values however it is
+// loaded, and every mma chain keeps its order: the forms give the same
+// bits.
 
 #pragma once
 
@@ -216,33 +219,108 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// One k-step (k0 .. k0 + 15) of acc[strip][n8 tile] += A (m, k) B (k, j)
+// on the bf16 tensor cores for the strips FIRST <= si < 2.  A gives bf16x2
+// pairs, A(m, k) the elements (m, k) and (m, k + 1), the first in the low
+// half (k even); b holds the k-step's B fragments, b[jj][h] the elements
+// (k0 + 2t + 8h, n) and (k0 + 2t + 8h + 1, n) of column n = j0 + 8 jj + g.
+template <int FIRST, class PA>
+__device__ __forceinline__ void bf16_step(float (&acc)[2][2][4], PA& A,
+                                          const uint32_t (&b)[2][2],
+                                          const WarpTile& w, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int si = FIRST; si < 2; ++si) {
+    const int m = w.m[si];
+    const uint32_t a[4] = {A(m + g, k0 + t2), A(m + g + 8, k0 + t2),
+                           A(m + g, k0 + t2 + 8), A(m + g + 8, k0 + t2 + 8)};
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) mma_bf16(acc[si][jj], a, b[jj][0], b[jj][1]);
+  }
+}
+
+// B pairs of a k-step (bf16_step's b) from B(k, j), the elements (k, j)
+// and (k + 1, j), the first in the low half (k even)
+template <class PB>
+__device__ __forceinline__ void pairs_b(uint32_t (&b)[2][2], PB& B,
+                                        const WarpTile& w, int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    b[jj][0] = B(k0 + t2, w.j0 + 8 * jj + g);
+    b[jj][1] = B(k0 + t2 + 8, w.j0 + 8 * jj + g);
+  }
+}
+
 // acc[strip][n8 tile] += A (m, k) B (k, j) on the bf16 tensor cores, both
 // strips over k < k_both, the lower strip alone up to k_last (multiples of
-// 16), as product_3xtf32.  A and B give bf16x2 pairs: A(m, k) the elements
-// (m, k) and (m, k + 1), B(k, j) the elements (k, j) and (k + 1, j), the
-// first in the low half (k even).
+// 16), as product_3xtf32: bf16_step over k in ascending order, load_b(k0,
+// b) filling each k-step's B fragments.
+template <class PA, class LB>
+__device__ __forceinline__ void product_bf16_frags(float (&acc)[2][2][4],
+                                                   PA A, LB load_b,
+                                                   const WarpTile& w,
+                                                   int k_both, int k_last) {
+  for (int k0 = 0; k0 < k_last; k0 += 16) {
+    uint32_t b[2][2];
+    load_b(k0, b);
+    if (k0 < k_both)
+      bf16_step<0>(acc, A, b, w, k0);
+    else
+      bf16_step<1>(acc, A, b, w, k0);
+  }
+}
+
+// product_bf16_frags with B given as bf16x2 pairs too (pairs_b)
 template <class PA, class PB>
 __device__ __forceinline__ void product_bf16x2(float (&acc)[2][2][4], PA A,
                                                PB B, const WarpTile& w,
                                                int k_both, int k_last) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-  for (int k0 = 0; k0 < k_last; k0 += 16) {
-    uint32_t b[2][2];
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int n = w.j0 + 8 * jj + g;
-      b[jj][0] = B(k0 + t2, n);
-      b[jj][1] = B(k0 + t2 + 8, n);
+  product_bf16_frags(
+      acc, A, [&](int k0, uint32_t (&b)[2][2]) { pairs_b(b, B, w, k0); }, w,
+      k_both, k_last);
+}
+
+// A k-step's B fragments (product_bf16_frags' load_b) from a row-major
+// [k][j] bf16 tile in shared memory (row stride ld halves, rows 16-byte
+// aligned), whose k-pairs are not contiguous: one ldmatrix.x4.trans reads
+// the four 8 x 8 blocks (k0 | k0 + 8) x (j0 | j0 + 8), lanes 8i .. 8i + 7
+// giving block i's row addresses, and transposes each on the way, so a
+// thread holds (2t, g) and (2t + 1, g) of a block: its B fragment.
+__device__ __forceinline__ void ldmatrix_trans_b(uint32_t (&b)[2][2],
+                                                 const __nv_bfloat16* tile,
+                                                 int ld, int k0, int j0) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* row =
+      tile + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + j0 +
+      8 * (lane >> 4);
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(b[0][0]), "=r"(b[0][1]), "=r"(b[1][0]), "=r"(b[1][1])
+      : "r"(a));
+}
+
+// Two products in one walk over k, both strips: acc16 += A16 B16 on the
+// bf16 tensor cores (pairs as product_bf16x2's, k < k16, a multiple of 16)
+// and acc += A B in 3xTF32 (as product_3xtf32's, k < k8, a multiple of 8),
+// a bf16 k-step and then the TF32 k-steps over the same 16 k, so that the
+// two products' mma chains interleave.  Each element's sum runs over k in
+// ascending order, as in the two products alone: the results are their
+// bits.
+template <class PA16, class PB16, class SA, class SB>
+__device__ __forceinline__ void product2_bf16x2_3xtf32(
+    float (&acc16)[2][2][4], PA16 A16, PB16 B16, int k16,
+    float (&acc)[2][2][4], SA A, SB B, int k8, const WarpTile& w) {
+  for (int k0 = 0; k0 < max(k16, k8); k0 += 16) {
+    if (k0 < k16) {
+      uint32_t b[2][2];
+      pairs_b(b, B16, w, k0);
+      bf16_step<0>(acc16, A16, b, w, k0);
     }
-#pragma unroll
-    for (int si = 0; si < 2; ++si) {
-      if (si == 0 && k0 >= k_both) continue;
-      const int m = w.m[si];
-      const uint32_t a[4] = {A(m + g, k0 + t2), A(m + g + 8, k0 + t2),
-                             A(m + g, k0 + t2 + 8), A(m + g + 8, k0 + t2 + 8)};
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) mma_bf16(acc[si][jj], a, b[jj][0], b[jj][1]);
-    }
+    if (k0 < k8) k_step<0>(acc, A, B, w, k0);
+    if (k0 + 8 < k8) k_step<0>(acc, A, B, w, k0 + 8);
   }
 }
 

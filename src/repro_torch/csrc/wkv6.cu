@@ -62,9 +62,9 @@
 //
 // bf16 operands (wkv6_bf16_launch; the JAX package's cfg.ssm_bf16=True, its
 // wkv6_chunked(..., compute_dtype=bf16)): r, k and v are read as bf16 by
-// every kernel (each kernel is a template on their type; w, u and the state
-// stay f32) and widened on load, exactly.  The scan pass rounds where the
-// reference rounds, each value from an f32 sum or product:
+// every kernel (the state and scan passes and the one-token kernel are
+// templates on their type; w, u and the state stay f32).  The scan pass
+// rounds where the reference rounds, each value from an f32 sum or product:
 //   rr = bf16(r * bf16(exp(clip(lw_prev - m, +-60)))),
 //   kk = bf16(k * bf16(exp(clip(m - lw, +-60)))),
 //   A  = bf16(rr kk^T), on the bf16 tensor cores (mma.sync m16n8k16, f32
@@ -74,11 +74,22 @@
 //        every s tile of the chunk before it is rounded;
 // the state pass's S_c, the carry and r_state S_in stay f32 (3xTF32: their
 // operands are bf16-exact or f32).  At s = 1 A is all masked and the
-// one-token kernel's f32 arithmetic is the reference's.  The bf16 helpers
-// (widen, round_bf16, pack_bf16, product_bf16) are tf32_tiles.cuh's, shared
-// with the gradient (wkv6_bwd.cu).  Under autograd wkv6_bf16_passes_launch
-// takes the three passes at any chunk and keeps their workspace, as
-// wkv6_passes_launch does for f32 operands.
+// one-token kernel's f32 arithmetic is the reference's.  The state and
+// scan passes keep r, k and v in shared memory as bf16, staged by 16-byte
+// cp.async copies wherever a tensor's rows start 16-byte aligned (base,
+// strides and P multiples of 8 elements; else clamped lane loads), with
+// budgets of their own (STATE_SMEM_BYTES, SCAN_SMEM_BYTES: 36,864 and
+// 90,112 bytes against f32's 55,296 and 106,496).  rr, kk and A are
+// stored as bf16 and read by the tensor cores as bf16x2 registers (v by
+// ldmatrix.trans); the 3xTF32 products widen
+// their bf16 operands as they split.  Neither the staging nor the operand
+// reads change a value or the order of a sum: the bits are those of bf16
+// operands packed from f32 tiles, as an f32-tile form would take them.  The
+// bf16 helpers (widen, round_bf16, pack_bf16, product_bf16x2,
+// ldmatrix_trans_b) are tf32_tiles.cuh's, shared with the gradient
+// (wkv6_bwd.cu).  Under autograd wkv6_bf16_passes_launch takes the three
+// passes at any chunk and keeps their workspace, as wkv6_passes_launch does
+// for f32 operands.
 //
 // Bound on this card (NVIDIA H100 SXM), rwkv6's loss shape (b 2, s 2048, h
 // 32, p 64, chunk 64): r, k, v, w read once, y written once, u read once, the
@@ -87,7 +98,8 @@
 // ms.  Bytes bind.  The passes move more than that: the lw scratch (33.5 MB)
 // is written once and read twice, the state scratch (33.5 MB) written,
 // read, rewritten and read again.  At decode (s = 1) the state's bytes: 16 KB
-// each way a head.
+// each way a head.  With bf16 r, k and v (2 bytes an element): 119.5 MB,
+// 0.0357 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,47 +119,46 @@ constexpr int CARRY_UNROLL = 8;   // chunks whose loads the carry pass issues at
 constexpr int ONE_COLS = 16;      // state columns of a one-token block (4 a thread)
 constexpr int LDA = PMAX + 4;     // tile row read as [m][k] or [j][k]: banks 4g + t
 constexpr int LDB = PMAX + 8;     // tile row read as [k][j] or [k][m]: banks 8t + g
+// a bf16 tile's row (halves): 144 bytes, 16-byte aligned for cp.async and
+// ldmatrix; bf16x2 pairs read as [m][k] sit at banks 4g + t, ldmatrix's
+// eight rows of a block at banks 4i .. 4i + 3
+constexpr int LDH = PMAX + 8;
 constexpr float EXP_CLAMP = 60.0f;
 // bits of the launch's vec flags: tensors whose rows load 16 bytes a copy
 constexpr int VEC_R = 1, VEC_K = 2, VEC_V = 4, VEC_W = 8, VEC_SCRATCH = 16;
-// dynamic shared memory: the state pass's w / lw, k and v tiles (LDB); the
-// scan pass's rr (hi, lo), r_state or scores, k (LDA), S_in or v, lw (LDB)
-constexpr int STATE_SMEM_BYTES = 3 * TILE * LDB * 4;
-constexpr int SCAN_SMEM_BYTES = (4 * TILE * LDA + 2 * TILE * LDB) * 4;
+// dynamic shared memory by the type of r, k and v.  State pass: f32, the w /
+// lw, k and v tiles (LDB); bf16, w / lw / k * tail (LDB) and the k and v
+// tiles in bf16.  Scan pass: f32, rr (hi, lo), r_state or scores, k (LDA),
+// S_in or v, lw (LDB); bf16, lw and r_state (LDA), S_in then A (LDB), and
+// four bf16 tiles: r / rr and three slots for k and v.
+template <class T>
+constexpr int STATE_SMEM_BYTES =
+    IS_BF16<T> ? TILE * LDB * 4 + 2 * TILE * LDH * 2 : 3 * TILE * LDB * 4;
+template <class T>
+constexpr int SCAN_SMEM_BYTES =
+    IS_BF16<T> ? (2 * TILE * LDA + TILE * LDB) * 4 + 4 * TILE * LDH * 2
+               : (4 * TILE * LDA + 2 * TILE * LDB) * 4;
 
 // strides, in elements, of a (b, s, h, p) tensor whose p axis is contiguous
 struct Seq {
   long long b, s, h;
 };
 
-// a (TILE x PMAX) tile into shared memory (tf32_tiles.cuh: stage_tile)
-template <class At>
-__device__ __forceinline__ void stage(float* dst, int ld, At at, int rows,
-                                      int cols, bool vec) {
-  stage_tile<TILE, PMAX, THREADS>(dst, ld, at, rows, cols, vec);
-}
-
-// a (TILE x PMAX) tile of r, k or v into shared f32: by cp.async for f32
-// operands; widened on load for bf16 ones (clamped address, zero past the
-// edge, as stage_tile)
+// a (TILE x PMAX) tile into shared memory in the source's type
+// (tf32_tiles.cuh: stage_tile_t): 16-byte cp.async copies where vec, else
+// 4-byte copies (f32) or clamped lane loads (bf16); zero past the edge
 template <class T, class At>
-__device__ __forceinline__ void stage_in(float* dst, int ld, At at, int rows,
-                                         int cols, bool vec) {
-  if constexpr (!IS_BF16<T>) {
-    stage(dst, ld, at, rows, cols, vec);
-  } else {
-#pragma unroll 4
-    for (int e = threadIdx.x; e < TILE * PMAX; e += THREADS) {
-      const int i = e / PMAX, q = e % PMAX;
-      const float x = widen(*at(min(i, rows - 1), min(q, cols - 1)));
-      dst[i * ld + q] = (i < rows && q < cols) ? x : 0.f;
-    }
-  }
+__device__ __forceinline__ void stage_t(T* dst, int ld, At at, int rows,
+                                        int cols, bool vec) {
+  stage_tile_t<TILE, PMAX, THREADS>(dst, ld, at, rows, cols, vec);
 }
 
 // Pass 1, grid (b * h, chunks): lw (b, s, h, p), S_c (b, h, chunk, p, p) and
 // dec (b, h, chunk, p).  lw is written and, in a chunk of more than one
-// tile, read back by this block (no restrict, no read-only path).
+// tile, read back by this block (no restrict, no read-only path).  k and v
+// are staged in their own type; k * tail (f32) goes over k for f32
+// operands, over lw for bf16 ones (lw is read from the tile or the scratch
+// as each element is formed).
 template <class T>
 __global__ void __launch_bounds__(THREADS, 3)
 wkv6_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
@@ -155,10 +166,17 @@ wkv6_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
                   float* lw, float* __restrict__ states,
                   float* __restrict__ dec, int H, int S, int P, int ch,
                   int vec) {
+  constexpr bool BF = IS_BF16<T>;
+  constexpr int LDK = BF ? LDH : LDB;  // row stride of the k and v tiles
   extern __shared__ __align__(16) float smem[];
-  float* Ws = smem;                  // w, then lw, of a row tile   [s][p]
-  float* Ks = Ws + TILE * LDB;       // k, then k * tail            [s][p]
-  float* Vs = Ks + TILE * LDB;       // v                           [s][q]
+  float* Ws = smem;                  // w, then lw (bf16: then k * tail) [s][p]
+  T* Ks = reinterpret_cast<T*>(Ws + TILE * LDB);  // k (f32: then k * tail)
+  T* Vs = Ks + TILE * LDK;           // v                           [s][q]
+  float* Kt;                         // k * tail                    [s][p]
+  if constexpr (BF)
+    Kt = Ws;
+  else
+    Kt = Ks;
   __shared__ float lend[PMAX];       // lw at the chunk's last row
   const int tid = threadIdx.x;
   const int nc = S / ch;
@@ -173,12 +191,12 @@ wkv6_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
   const WarpTile wt = warp_tile();
 
   auto stage_kv = [&](int r0, int rows) {
-    stage_in<T>(Ks, LDB,
-                [&](int i, int q) { return kb + (c0 + r0 + i) * sk.s + q; },
-                rows, P, vec & VEC_K);
-    stage_in<T>(Vs, LDB,
-                [&](int i, int q) { return vb + (c0 + r0 + i) * sv.s + q; },
-                rows, P, vec & VEC_V);
+    stage_t(Ks, LDK,
+            [&](int i, int q) { return kb + (c0 + r0 + i) * sk.s + q; }, rows,
+            P, vec & VEC_K);
+    stage_t(Vs, LDK,
+            [&](int i, int q) { return vb + (c0 + r0 + i) * sv.s + q; }, rows,
+            P, vec & VEC_V);
   };
 
   // 1. lw: one thread a channel, the chunk's rows in order
@@ -186,21 +204,52 @@ wkv6_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
   for (int rt = 0; rt < n_tiles; ++rt) {
     const int r0 = rt * TILE, rows = min(TILE, ch - r0);
     if (rt > 0) __syncthreads();     // the last tile's walk is done
-    stage(Ws, LDB, [&](int i, int q) { return wb + (c0 + r0 + i) * sw.s + q; },
-          rows, P, vec & VEC_W);
-    if (n_tiles == 1) stage_kv(0, rows);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (tid < P) {
-      float* out = lwb + (long long)(c0 + r0) * lw_ss + tid;
-      for (int i = 0; i < rows; ++i) {
-        run = __fadd_rn(run, Ws[i * LDB + tid]);
-        Ws[i * LDB + tid] = run;
-        out[i * lw_ss] = run;
+    stage_t(Ws, LDB,
+            [&](int i, int q) { return wb + (c0 + r0 + i) * sw.s + q; }, rows,
+            P, vec & VEC_W);
+    if constexpr (BF) {
+      // k and v in a group of their own, in flight during the walk; the
+      // walk reads 16 rows ahead of their adds (the same adds, in order)
+      cp_async_commit();
+      if (n_tiles == 1) stage_kv(0, rows);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      if (tid < P) {
+        float* out = lwb + (long long)(c0 + r0) * lw_ss + tid;
+        for (int i0 = 0; i0 < rows; i0 += 16) {
+          float x[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            x[j] = Ws[min(i0 + j, TILE - 1) * LDB + tid];
+          // every load issued before the first add: no sinking them, one by
+          // one, to their uses
+          asm volatile("" ::: "memory");
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            if (i0 + j >= rows) break;
+            run = __fadd_rn(run, x[j]);
+            Ws[(i0 + j) * LDB + tid] = run;
+            out[(i0 + j) * lw_ss] = run;
+          }
+        }
+      }
+    } else {
+      if (n_tiles == 1) stage_kv(0, rows);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (tid < P) {
+        float* out = lwb + (long long)(c0 + r0) * lw_ss + tid;
+        for (int i = 0; i < rows; ++i) {
+          run = __fadd_rn(run, Ws[i * LDB + tid]);
+          Ws[i * LDB + tid] = run;
+          out[i * lw_ss] = run;
+        }
       }
     }
   }
+  if constexpr (BF) cp_async_wait<0>();   // k and v (one tile)
   if (tid < P) lend[tid] = run;
   __syncthreads();
 
@@ -217,7 +266,21 @@ wkv6_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
     }
     for (int e = tid; e < TILE * PMAX; e += THREADS) {
       const int i = e / PMAX, p = e % PMAX;
-      if (i < rows && p < P) {
+      if constexpr (BF) {
+        // over lw in place; zero past the edge (Ws holds w / lw there, or
+        // an earlier tile's k * tail), masked by bits: no branch around
+        // the arithmetic, the scratch's address clamped
+        const uint32_t live = i < rows && p < P ? 0xffffffffu : 0u;
+        const float l =
+            n_tiles == 1
+                ? Ws[i * LDB + p]
+                : lwb[(long long)(c0 + r0 + min(i, rows - 1)) * lw_ss +
+                      min(p, P - 1)];
+        const float kt = __fmul_rn(
+            widen(Ks[i * LDK + p]),
+            expf(clip(__fsub_rn(lend[p], l), -EXP_CLAMP, EXP_CLAMP)));
+        Kt[i * LDB + p] = __uint_as_float(__float_as_uint(kt) & live);
+      } else if (i < rows && p < P) {
         // lw of the tile: in Ws (one tile), else from the scratch
         const float l = n_tiles == 1
                             ? Ws[i * LDB + p]
@@ -230,9 +293,9 @@ wkv6_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
     __syncthreads();
     const int k_end = (rows + 7) & ~7;
     product_3xtf32(
-        acc, splitting([&](int m, int kk) { return Ks[kk * LDB + m]; }),
-        splitting([&](int kk, int q) { return Vs[kk * LDB + q]; }), wt, k_end,
-        k_end);
+        acc, splitting([&](int m, int kk) { return Kt[kk * LDB + m]; }),
+        splitting([&](int kk, int q) { return widen(Vs[kk * LDK + q]); }), wt,
+        k_end, k_end);
   }
   const long long slot = (long long)bh * nc + c;
   float* out = states + slot * P * P;
@@ -300,10 +363,38 @@ wkv6_carry_kernel(const float* __restrict__ dec, const float* s0,
   store(s_out + base, st);
 }
 
+// acc += r_state (t, p) S_in (p, q) over p < kp, 3xTF32: both f32 tiles in
+// shared memory, r_state [t][p] (LDA), S_in [p][q] (LDB)
+__device__ __forceinline__ void state_term(float (&acc)[2][2][4],
+                                           const float* rs, const float* Si,
+                                           const WarpTile& wt, int kp) {
+  product_3xtf32(acc, splitting([&](int m, int kk) { return rs[m * LDA + kk]; }),
+                 splitting([&](int kk, int q) { return Si[kk * LDB + q]; }),
+                 wt, kp, kp);
+}
+
+// a warp's share of acc, each value an exact bf16, into a bf16 tile [m][j]
+// (row stride LDH) in bf16x2 pairs: banks 4g + t
+__device__ __forceinline__ void store_pairs(const float (&acc)[2][2][4],
+                                            const WarpTile& wt,
+                                            __nv_bfloat16* dst) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int si = 0; si < 2; ++si)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<uint32_t*>(
+            dst + (wt.m[si] + g + 8 * half) * LDH + wt.j0 + 8 * jj + t2) =
+            pack_bf16(acc[si][jj][2 * half], acc[si][jj][2 * half + 1]);
+}
+
 // Pass 3, grid (b * h, chunks, row tiles of the chunk, the last first): y.
 // The t tile's r, lw and k and the chunk's S_in are staged together; then
 // per s tile up to the row tile its v (and, but for the first s tile of the
-// first row tile, which the t tile already holds, its k and lw).
+// first row tile, which the t tile already holds, its k and lw).  This is
+// the form for f32 r, k and v; bf16 ones take the specialization below.
 template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
 wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
@@ -312,9 +403,8 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                  const float* __restrict__ S_in, float* __restrict__ y, int H,
                  int S, int P, int ch, int vec) {
   extern __shared__ __align__(16) float smem[];
-  constexpr bool BF = IS_BF16<T>;
   uint32_t* RrH = reinterpret_cast<uint32_t*>(smem);  // rr (hi)   [t][p]
-  float* RrL = smem + TILE * LDA;    // r, then rr (lo; bf16: rr)    [t][p]
+  float* RrL = smem + TILE * LDA;    // r, then rr (lo)              [t][p]
   float* As = RrL + TILE * LDA;      // r_state [t][p], then A       [t][s]
   float* Ks = As + TILE * LDA;       // k, then kk, of the s tile    [s][p]
   float* Vs = Ks + TILE * LDA;       // S_in [p][q], then v          [s][q]
@@ -329,7 +419,6 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
   const int nt = min(TILE, ch - t0);
   const WarpTile wt = warp_tile();
   const int kp = (P + 7) & ~7;
-  const int kp16 = (P + 15) & ~15;   // the bf16 products' k-steps are 16
   const T* rb = r + b * sr.b + h * sr.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
@@ -338,29 +427,30 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
   const bool vec_s = vec & VEC_SCRATCH;
 
   auto stage_kl = [&](int s0, int ns) {
-    stage_in<T>(Ks, LDA,
-                [&](int i, int q) { return kb + (c0 + s0 + i) * sk.s + q; },
-                ns, P, vec & VEC_K);
-    stage(Ls, LDB, [&](int i, int q) { return lwb + (c0 + s0 + i) * lw_ss + q; },
-          ns, P, vec_s);
+    stage_t(Ks, LDA,
+            [&](int i, int q) { return kb + (c0 + s0 + i) * sk.s + q; }, ns,
+            P, vec & VEC_K);
+    stage_t(Ls, LDB,
+            [&](int i, int q) { return lwb + (c0 + s0 + i) * lw_ss + q; }, ns,
+            P, vec_s);
   };
   auto issue_s = [&](int sj, bool kl) {  // the s tile's v, and k and lw if kl
     const int s0 = sj * TILE, ns = min(TILE, ch - s0);
-    stage_in<T>(Vs, LDB,
-                [&](int i, int q) { return vb + (c0 + s0 + i) * sv.s + q; },
-                ns, P, vec & VEC_V);
+    stage_t(Vs, LDB,
+            [&](int i, int q) { return vb + (c0 + s0 + i) * sv.s + q; }, ns,
+            P, vec & VEC_V);
     if (kl) stage_kl(s0, ns);
     cp_async_commit();
   };
 
   // the t tile's r, lw and k; S_in; lw before the tile and at the chunk's
   // last row; u
-  stage_in<T>(RrL, LDA,
-              [&](int i, int q) { return rb + (c0 + t0 + i) * sr.s + q; }, nt,
-              P, vec & VEC_R);
+  stage_t(RrL, LDA,
+          [&](int i, int q) { return rb + (c0 + t0 + i) * sr.s + q; }, nt, P,
+          vec & VEC_R);
   stage_kl(t0, nt);
   const float* Sc = S_in + ((long long)bh * nc + c) * P * P;
-  stage(Vs, LDB, [&](int i, int q) { return Sc + i * P + q; }, P, P, vec_s);
+  stage_t(Vs, LDB, [&](int i, int q) { return Sc + i * P + q; }, P, P, vec_s);
   if (tid < PMAX) {
     const int p = min(tid, P - 1);
     cp_async4(lend + tid, lwb + (long long)(c0 + ch - 1) * lw_ss + p, tid < P);
@@ -385,8 +475,7 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
   }
   __syncthreads();
   // r_state = r * exp(clip(lw_prev, -60, 0)) into As; rr = r * exp(clip(
-  // lw_prev - m, +-60)), split once, into RrH / RrL (bf16: rounded as the
-  // reference rounds it, into RrL)
+  // lw_prev - m, +-60)), split once, into RrH / RrL
   for (int e = tid; e < TILE * PMAX; e += THREADS) {
     const int t = e / PMAX, p = e % PMAX;
     float rs = 0.f, rr = 0.f;
@@ -394,29 +483,20 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
       const float x = RrL[t * LDA + p];
       const float lp = t > 0 ? Ls[(t - 1) * LDB + p] : lw0[p];
       rs = __fmul_rn(x, expf(clip(lp, -EXP_CLAMP, 0.f)));
-      const float f =
-          expf(clip(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP, EXP_CLAMP));
-      rr = BF ? round_bf16(__fmul_rn(x, round_bf16(f))) : __fmul_rn(x, f);
+      rr = __fmul_rn(x, expf(clip(__fsub_rn(lp, 0.5f * lend[p]), -EXP_CLAMP,
+                                  EXP_CLAMP)));
     }
     As[t * LDA + p] = rs;
-    if constexpr (BF) {
-      RrL[t * LDA + p] = rr;
-    } else {
-      uint32_t hi, lo;
-      split(rr, hi, lo);
-      RrH[t * LDA + p] = hi;
-      RrL[t * LDA + p] = __uint_as_float(lo);
-    }
+    uint32_t hi, lo;
+    split(rr, hi, lo);
+    RrH[t * LDA + p] = hi;
+    RrL[t * LDA + p] = __uint_as_float(lo);
   }
   __syncthreads();
 
-  // inter-chunk: r_state S_in, where the intra-chunk sum starts (bf16: the
-  // intra-chunk sum has an accumulator of its own, rounded once)
+  // inter-chunk: r_state S_in, where the intra-chunk sum starts
   float acc[2][2][4] = {};
-  float acc_in[2][2][4] = {};
-  product_3xtf32(acc, splitting([&](int m, int kk) { return As[m * LDA + kk]; }),
-                 splitting([&](int kk, int q) { return Vs[kk * LDB + q]; }),
-                 wt, kp, kp);
+  state_term(acc, As, Vs, wt, kp);
   __syncthreads();                   // As and Vs are free
   issue_s(0, ti > 0);                // row tile 0: Ks, Ls hold s tile 0
   const auto rr_split = [&](int m, int kk, uint32_t& hi, uint32_t& lo) {
@@ -428,54 +508,38 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     const bool on_diag = sj == ti;
     cp_async_wait<0>();
     __syncthreads();
-    // kk = k * exp(clip(m - lw, +-60)) in place (bf16: rounded as rr)
+    // kk = k * exp(clip(m - lw, +-60)) in place
     for (int e = tid; e < TILE * PMAX; e += THREADS) {
       const int i = e / PMAX, p = e % PMAX;
-      if (i < ns && p < P) {
-        const float f = expf(clip(__fsub_rn(0.5f * lend[p], Ls[i * LDB + p]),
-                                  -EXP_CLAMP, EXP_CLAMP));
-        const float x = Ks[i * LDA + p];
-        Ks[i * LDA + p] =
-            BF ? round_bf16(__fmul_rn(x, round_bf16(f))) : __fmul_rn(x, f);
-      }
+      if (i < ns && p < P)
+        Ks[i * LDA + p] = __fmul_rn(
+            Ks[i * LDA + p],
+            expf(clip(__fsub_rn(0.5f * lend[p], Ls[i * LDB + p]), -EXP_CLAMP,
+                      EXP_CLAMP)));
     }
     __syncthreads();
     {                                // A = rr kk^T, strictly lower (s < t)
       float sc[2][2][4] = {};
-      const auto kk_t = [&](int kk, int q) { return Ks[q * LDA + kk]; };
-      if constexpr (BF)
-        product_bf16(sc, [&](int m, int kk) { return RrL[m * LDA + kk]; },
-                     kk_t, wt, kp16, kp16);
-      else
-        product_3xtf32(sc, rr_split, splitting(kk_t), wt, kp, kp);
+      product_3xtf32(sc, rr_split,
+                     splitting([&](int kk, int q) { return Ks[q * LDA + kk]; }),
+                     wt, kp, kp);
       for_each(wt, [&](int t, int q, int si, int jj, int i) {
-        const float a = BF ? round_bf16(sc[si][jj][i]) : sc[si][jj][i];
-        As[t * LDA + q] = (t < nt && q < ns && s0 + q < t0 + t) ? a : 0.f;
+        As[t * LDA + q] =
+            (t < nt && q < ns && s0 + q < t0 + t) ? sc[si][jj][i] : 0.f;
       });
     }
     __syncthreads();
     // acc += A v; on the diagonal tile a strip's rows need no s past its
     // last row
-    const auto a_of = [&](int m, int kk) { return As[m * LDA + kk]; };
-    const auto v_of = [&](int kk, int q) { return Vs[kk * LDB + q]; };
-    if constexpr (BF) {
-      const int k_all = (ns + 15) & ~15;
-      product_bf16(acc_in, a_of, v_of, wt,
-                   on_diag ? min(k_all, wt.m[0] + 16) : k_all,
+    const int k_all = (ns + 7) & ~7;
+    product_3xtf32(acc, splitting([&](int m, int kk) { return As[m * LDA + kk]; }),
+                   splitting([&](int kk, int q) { return Vs[kk * LDB + q]; }),
+                   wt, on_diag ? min(k_all, wt.m[0] + 16) : k_all,
                    on_diag ? min(k_all, wt.m[1] + 16) : k_all);
-    } else {
-      const int k_all = (ns + 7) & ~7;
-      product_3xtf32(acc, splitting(a_of), splitting(v_of), wt,
-                     on_diag ? min(k_all, wt.m[0] + 16) : k_all,
-                     on_diag ? min(k_all, wt.m[1] + 16) : k_all);
-    }
     if (on_diag) {                   // + (sum_p r u k) v; Vs holds v of the t tile
       for_each(wt, [&](int t, int q, int si, int jj, int i) {
-        const float dv = __fmul_rn(diag[t], Vs[t * LDB + q]);
-        acc[si][jj][i] =
-            BF ? __fadd_rn(__fadd_rn(round_bf16(acc_in[si][jj][i]), dv),
-                           acc[si][jj][i])
-               : __fadd_rn(acc[si][jj][i], dv);
+        acc[si][jj][i] = __fadd_rn(acc[si][jj][i],
+                                   __fmul_rn(diag[t], Vs[t * LDB + q]));
       });
       float* yb = y + (((long long)b * S + c0 + t0) * H + h) * P;
       store_tile(acc, wt, nt, P, [&](int t, int q) {
@@ -483,6 +547,286 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     } else {
       __syncthreads();               // Ks, Vs, Ls and As are free
       issue_s(sj + 1, true);
+    }
+  }
+}
+
+// Pass 3 for bf16 r, k and v: the f32 form's arithmetic and order (the
+// roundings of the file's head), its tiles in bf16 and in flight.
+//   * r, k and v are staged as bf16 (16-byte cp.async copies where their
+//     rows allow, rows16); rr, kk and A are stored as bf16, each an exact
+//     bf16 value, and the scores and A v take their tensor-core operands
+//     as bf16x2 registers straight from those tiles: rr and kk^T as pairs
+//     along p, v (whose k-pairs lie along s, across rows) by ldmatrix.trans.
+//   * Three groups of loads, each waited for where it is first read: the t
+//     tile's r, k and lw; S_in; v.
+//   * The elementwise pass takes two neighbouring elements a thread and
+//     four rows' loads ahead of their arithmetic, and masks the elements
+//     past the edge by bits, not by branches (a branch around each
+//     element's chain serialised them: measured).  The first s tile's
+//     scores and r_state S_in run in one walk over p, their mma chains
+//     interleaved.
+//   * An s tile's k and v rotate through three slots: once kk is formed
+//     the next s tile's k and lw are issued, once the scores are formed
+//     its v, so both loads run under this tile's products.
+//   * 90,112 bytes a block (SCAN_SMEM_BYTES), A over S_in once r_state
+//     S_in is done; two blocks an SM, as the f32 form.  A third fits 75 KB
+//     a block with more tiles laid over dead ones, but the registers' cap
+//     of 80 then spills the accumulators: measured slower.
+template <>
+__global__ void __launch_bounds__(THREADS, 2)
+wkv6_scan_kernel<__nv_bfloat16>(
+    const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, Seq sr, Seq sk, Seq sv,
+    const float* __restrict__ u, const float* __restrict__ lw,
+    const float* __restrict__ S_in, float* __restrict__ y, int H, int S,
+    int P, int ch, int vec) {
+  using T = __nv_bfloat16;
+  constexpr int HT = TILE * LDH;     // halves of a bf16 tile
+  extern __shared__ __align__(16) float smem[];
+  float* Ls = smem;                  // lw of the t tile, then s tile [s][p]
+  float* Rs = Ls + TILE * LDA;       // r_state                     [t][p]
+  float* Si = Rs + TILE * LDA;       // S_in                        [p][q]
+  T* As = reinterpret_cast<T*>(Si);  // then A                      [t][s]
+  T* Rr = reinterpret_cast<T*>(Si + TILE * LDB);  // r, then rr     [t][p]
+  T* slots = Rr + HT;                // three: k / kk and v         [s][p]
+  __shared__ float lend[PMAX], lw0[PMAX], u_s[PMAX], diag[TILE];
+  const int tid = threadIdx.x;
+  const int nc = S / ch;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int c = blockIdx.y, c0 = c * ch;
+  // the row tile with the most s tiles is launched first
+  const int ti = gridDim.z - 1 - blockIdx.z, t0 = ti * TILE;
+  const int nt = min(TILE, ch - t0);
+  const WarpTile wt = warp_tile();
+  const int kp = (P + 7) & ~7;
+  const int kp16 = (P + 15) & ~15;   // the bf16 products' k-steps are 16
+  const T* rb = r + b * sr.b + h * sr.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  const long long lw_ss = (long long)H * P;
+  const float* lwb = lw + (long long)b * S * lw_ss + (long long)h * P;
+  const bool vec_s = vec & VEC_SCRATCH;
+  const auto rows_of = [&](int sj) { return min(TILE, ch - sj * TILE); };
+  const auto stage_k = [&](T* dst, int sj) {
+    stage_t(dst, LDH,
+            [&](int i, int q) { return kb + (c0 + sj * TILE + i) * sk.s + q; },
+            rows_of(sj), P, vec & VEC_K);
+  };
+  const auto stage_v = [&](T* dst, int sj) {
+    stage_t(dst, LDH,
+            [&](int i, int q) { return vb + (c0 + sj * TILE + i) * sv.s + q; },
+            rows_of(sj), P, vec & VEC_V);
+  };
+  const auto stage_lw = [&](int sj) {
+    stage_t(Ls, LDA,
+            [&](int i, int q) { return lwb + (c0 + sj * TILE + i) * lw_ss + q; },
+            rows_of(sj), P, vec_s);
+  };
+  const auto pair = [](const T* tile, int m, int kk) {  // bf16 (m, kk + 0, 1)
+    return *reinterpret_cast<const uint32_t*>(tile + m * LDH + kk);
+  };
+  // kk = bf16(k * bf16(exp(clip(m - lw, +-60)))) of element (i, p) in
+  // place, where live (else k as staged: the choice by bits, no branch)
+  const auto form_kk = [&](T* Kb, int i, int p, bool live) {
+    const float f = expf(clip(__fsub_rn(0.5f * lend[p], Ls[i * LDA + p]),
+                              -EXP_CLAMP, EXP_CLAMP));
+    const float x = widen(Kb[i * LDH + p]);
+    const uint32_t mask = live ? 0xffffffffu : 0u;
+    Kb[i * LDH + p] = narrow<T>(__uint_as_float(
+        (__float_as_uint(round_bf16(__fmul_rn(x, round_bf16(f)))) & mask) |
+        (__float_as_uint(x) & ~mask)));
+  };
+
+  // three groups of loads, each waited for where it is first read: the t
+  // tile's r, k and lw, lw before the tile and at the chunk's last row, u;
+  // then S_in; then v of s tile 0 (the t tile's where ti is 0)
+  stage_t(Rr, LDH,
+          [&](int i, int q) { return rb + (c0 + t0 + i) * sr.s + q; }, nt, P,
+          vec & VEC_R);
+  stage_k(slots, ti);
+  stage_lw(ti);
+  if (tid < PMAX) {
+    const int p = min(tid, P - 1);
+    cp_async4(lend + tid, lwb + (long long)(c0 + ch - 1) * lw_ss + p, tid < P);
+    cp_async4(lw0 + tid, lwb + (long long)(c0 + max(t0 - 1, 0)) * lw_ss + p,
+              tid < P && t0 > 0);
+    cp_async4(u_s + tid, u + h * P + p, tid < P);
+  }
+  cp_async_commit();
+  const float* Sc = S_in + ((long long)bh * nc + c) * P * P;
+  stage_t(Si, LDB, [&](int i, int q) { return Sc + i * P + q; }, P, P, vec_s);
+  cp_async_commit();
+  stage_v(slots + HT, 0);
+  cp_async_commit();
+  cp_async_wait<2>();
+  __syncthreads();
+
+  // sum_p r u k of the tile's rows, four threads a row, one order
+  {
+    const int row = tid >> 2, part = tid & 3;
+    float d = 0.f;
+    for (int p = part; p < P; p += 4)
+      d = __fadd_rn(d, __fmul_rn(__fmul_rn(widen(Rr[row * LDH + p]), u_s[p]),
+                                 widen(slots[row * LDH + p])));
+    d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, 1));
+    d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, 2));
+    if (part == 0) diag[row] = d;
+  }
+  __syncthreads();
+  // r_state = r * exp(clip(lw_prev, -60, 0)); rr = bf16(r * bf16(exp(clip(
+  // lw_prev - m, +-60)))) in place; where ti is 0, kk of s tile 0 (the t
+  // tile) in place too.  A thread takes the elements (t, p) and (t, p + 1)
+  // of eight rows, four rows' loads ahead of their arithmetic; every
+  // element is computed and the ones past the edge masked by bits (r_state
+  // and rr zero, kk as staged), so the chains have no branch between them
+  // (one element's operations as ever).
+  {
+    const int p = 2 * (tid & 31);
+    const float m[2] = {0.5f * lend[p], 0.5f * lend[p + 1]};
+    const bool in[2] = {p < P, p + 1 < P};
+    const auto half = [](uint32_t x2, int i) {   // element i of a bf16 pair
+      return __uint_as_float(i ? x2 & 0xffff0000u : x2 << 16);
+    };
+    const auto keep = [](float x, uint32_t mask) {
+      return __uint_as_float(__float_as_uint(x) & mask);
+    };
+    const auto rows = [&](auto with_kk) {
+#pragma unroll
+      for (int j0 = 0; j0 < TILE / 8; j0 += 4) {
+        uint32_t xr[4], kv[4];
+        float2 lp[4], lk[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int t = (tid >> 5) + 8 * (j0 + j);
+          xr[j] = pair(Rr, t, p);
+          lp[j] = *reinterpret_cast<const float2*>(Ls + max(t - 1, 0) * LDA + p);
+          if (t == 0) lp[j] = make_float2(lw0[p], lw0[p + 1]);
+          if constexpr (decltype(with_kk)::value) {
+            lk[j] = *reinterpret_cast<const float2*>(Ls + t * LDA + p);
+            kv[j] = pair(slots, t, p);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int t = (tid >> 5) + 8 * (j0 + j);
+          float rs[2], rr[2], kk[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const uint32_t live = t < nt && in[i] ? 0xffffffffu : 0u;
+            const float x = half(xr[j], i), l = i ? lp[j].y : lp[j].x;
+            rs[i] = keep(__fmul_rn(x, expf(clip(l, -EXP_CLAMP, 0.f))), live);
+            const float f =
+                expf(clip(__fsub_rn(l, m[i]), -EXP_CLAMP, EXP_CLAMP));
+            rr[i] = keep(round_bf16(__fmul_rn(x, round_bf16(f))), live);
+            if constexpr (decltype(with_kk)::value) {
+              const float fk =
+                  expf(clip(__fsub_rn(m[i], i ? lk[j].y : lk[j].x),
+                            -EXP_CLAMP, EXP_CLAMP));
+              const float kx = half(kv[j], i);
+              kk[i] = __uint_as_float(
+                  (__float_as_uint(round_bf16(__fmul_rn(kx, round_bf16(fk)))) &
+                   live) |
+                  (__float_as_uint(kx) & ~live));
+            }
+          }
+          *reinterpret_cast<float2*>(Rs + t * LDA + p) =
+              make_float2(rs[0], rs[1]);
+          *reinterpret_cast<uint32_t*>(Rr + t * LDH + p) =
+              pack_bf16(rr[0], rr[1]);
+          if constexpr (decltype(with_kk)::value)
+            *reinterpret_cast<uint32_t*>(slots + t * LDH + p) =
+                pack_bf16(kk[0], kk[1]);
+        }
+      }
+    };
+    if (ti == 0)
+      rows(std::true_type{});
+    else
+      rows(std::false_type{});
+  }
+  if (ti > 0) {
+    __syncthreads();                 // lw and k of the t tile are read
+    stage_k(slots, 0);               // s tile 0's k and lw (its v is in)
+    stage_lw(0);
+    cp_async_commit();
+  } else {
+    cp_async_wait<1>();              // S_in
+  }
+
+  // the intra-chunk sum has an accumulator of its own, rounded once; the
+  // inter-chunk term r_state S_in (3xTF32, f32 operands) is formed with the
+  // first s tile's scores
+  float acc[2][2][4] = {};
+  float acc_in[2][2][4] = {};
+  for (int sj = 0; sj <= ti; ++sj) {
+    const int s0 = sj * TILE, ns = rows_of(sj);
+    const bool on_diag = sj == ti;
+    // the slots: k, v and free, each s tile's k going where the free one
+    // was and its v where the last k was
+    const int ks = (2 * sj) % 3;
+    T* Kb = slots + ks * HT;
+    T* Vb = slots + (ks + 1) % 3 * HT;
+    if (ti > 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+      for (int e = tid; e < TILE * PMAX; e += THREADS) {
+        const int i = e / PMAX, p = e % PMAX;
+        form_kk(Kb, i, p, i < ns && p < P);
+      }
+    }
+    __syncthreads();                 // kk formed (and rr, r_state); lw free
+    if (!on_diag) {                  // the next s tile's k and lw
+      stage_k(slots + (ks + 2) % 3 * HT, sj + 1);
+      stage_lw(sj + 1);
+      cp_async_commit();
+    }
+    {                                // A = bf16(rr kk^T), strictly lower
+      float sc[2][2][4] = {};
+      const auto rr_of = [&](int m, int kk) { return pair(Rr, m, kk); };
+      const auto kk_of = [&](int kk, int q) { return pair(Kb, q, kk); };
+      if (sj == 0)                   // with r_state S_in, interleaved
+        product2_bf16x2_3xtf32(
+            sc, rr_of, kk_of, kp16, acc,
+            splitting([&](int m, int kk) { return Rs[m * LDA + kk]; }),
+            splitting([&](int kk, int q) { return Si[kk * LDB + q]; }), kp,
+            wt);
+      else
+        product_bf16x2(sc, rr_of, kk_of, wt, kp16, kp16);
+      for_each(wt, [&](int t, int q, int si, int jj, int i) {
+        sc[si][jj][i] = t < nt && q < ns && s0 + q < t0 + t
+                            ? round_bf16(sc[si][jj][i]) : 0.f;
+      });
+      if (sj == 0) __syncthreads();  // S_in is read: A goes over it
+      store_pairs(sc, wt, As);
+    }
+    if (ti == 0) cp_async_wait<0>(); // v (else waited for at the top)
+    __syncthreads();                 // A is formed; kk's slot is free
+    if (!on_diag) {                  // the next s tile's v
+      stage_v(Kb, sj + 1);
+      cp_async_commit();
+    }
+    // acc_in += A v; on the diagonal tile a strip's rows need no s past its
+    // last row
+    const int k_all = (ns + 15) & ~15;
+    product_bf16_frags(
+        acc_in, [&](int m, int kk) { return pair(As, m, kk); },
+        [&](int k0, uint32_t (&bv)[2][2]) {
+          ldmatrix_trans_b(bv, Vb, LDH, k0, wt.j0);
+        },
+        wt, on_diag ? min(k_all, wt.m[0] + 16) : k_all,
+        on_diag ? min(k_all, wt.m[1] + 16) : k_all);
+    if (on_diag) {                   // (bf16(A v) + (sum_p r u k) v) + acc
+      for_each(wt, [&](int t, int q, int si, int jj, int i) {
+        const float dv = __fmul_rn(diag[t], widen(Vb[t * LDH + q]));
+        acc[si][jj][i] = __fadd_rn(
+            __fadd_rn(round_bf16(acc_in[si][jj][i]), dv), acc[si][jj][i]);
+      });
+      float* yb = y + (((long long)b * S + c0 + t0) * H + h) * P;
+      store_tile(acc, wt, nt, P, [&](int t, int q) {
+        return yb + (long long)t * H * P + q; });
+    } else {
+      __syncthreads();               // A and v's slot are free
     }
   }
 }
@@ -633,24 +977,28 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   float* dec = lw + n_lw;
   cudaError_t err = cudaFuncSetAttribute(
       wkv6_state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      STATE_SMEM_BYTES);
+      STATE_SMEM_BYTES<T>);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(wkv6_scan_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SCAN_SMEM_BYTES);
+                               SCAN_SMEM_BYTES<T>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte copies where every row of a tensor starts 16-byte aligned (r,
-  // k and v in bf16 are widened on load, never copied)
-  auto rows16 = [&](const void* ptr, const Seq& sq) {
-    return aligned16(ptr) && sq.b % 4 == 0 && sq.s % 4 == 0 && sq.h % 4 == 0 &&
-           P % 4 == 0 && (ptr == w || !IS_BF16<T>);
+  // 16-byte copies where every row of a tensor starts 16-byte aligned: the
+  // base, its strides and P multiples of 16 bytes' elements (4 f32, 8 bf16)
+  auto rows16 = [&](const void* ptr, const Seq& sq, long long per) {
+    return aligned16(ptr) && sq.b % per == 0 && sq.s % per == 0 &&
+           sq.h % per == 0 && P % per == 0;
   };
-  const int vec = (rows16(r, sr) ? VEC_R : 0) | (rows16(k, sk) ? VEC_K : 0) |
-                  (rows16(v, sv) ? VEC_V : 0) | (rows16(w, sw) ? VEC_W : 0) |
+  constexpr long long PER_T = 16 / sizeof(T);
+  const int vec = (rows16(r, sr, PER_T) ? VEC_R : 0) |
+                  (rows16(k, sk, PER_T) ? VEC_K : 0) |
+                  (rows16(v, sv, PER_T) ? VEC_V : 0) |
+                  (rows16(w, sw, 4) ? VEC_W : 0) |
                   (P % 4 == 0 ? VEC_SCRATCH : 0);
   const unsigned bh = unsigned(B * H);
-  wkv6_state_kernel<<<dim3(bh, unsigned(nc)), THREADS, STATE_SMEM_BYTES, st>>>(
-      kf, vf, wf, sk, sv, sw, lw, states, dec, H, S, P, chunk, vec);
+  wkv6_state_kernel<T><<<dim3(bh, unsigned(nc)), THREADS, STATE_SMEM_BYTES<T>,
+                         st>>>(kf, vf, wf, sk, sv, sw, lw, states, dec, H, S,
+                               P, chunk, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const dim3 carry_grid(bh, unsigned(slices));
   if ((P * P) % 4 == 0 && state_vec)
@@ -660,8 +1008,8 @@ int launch(const void* r, const void* k, const void* v, const void* w,
     wkv6_carry_kernel<false><<<carry_grid, THREADS, 0, st>>>(
         dec, s0f, states, sof, P, int(nc));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  wkv6_scan_kernel<<<dim3(bh, unsigned(nc), unsigned(t_tiles)), THREADS,
-                     SCAN_SMEM_BYTES, st>>>(
+  wkv6_scan_kernel<T><<<dim3(bh, unsigned(nc), unsigned(t_tiles)), THREADS,
+                        SCAN_SMEM_BYTES<T>, st>>>(
       rf, kf, vf, sr, sk, sv, uf, lw, states, yf, H, S, P, chunk, vec);
   return static_cast<int>(cudaGetLastError());
 }

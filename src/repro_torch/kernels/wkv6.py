@@ -29,12 +29,16 @@ bytes, 16 KB each way a head.
 
 bf16 r, k and v (the JAX package's ``cfg.ssm_bf16=True``: its
 ``wkv6_chunked(..., compute_dtype=bfloat16)``) take the bf16 recurrence: the
-same kernels instantiated for bf16 operands (``wkv6_bf16_launch``), which
-read r, k and v as bf16, round ``rr``, ``kk``, the scores and the
+same passes for bf16 operands (``wkv6_bf16_launch``), which keep r, k and v
+in shared memory as bf16 (16-byte ``cp.async`` copies where :func:`rows16`
+holds, else lane loads), round ``rr``, ``kk``, the scores and the
 intra-chunk output to bf16 where the reference does, and take the two
-intra-chunk products on the bf16 tensor cores; the state, the decays, the
-carry and the output stay f32 (:func:`wkv6_plain` with ``compute_dtype``
-says where each rounding falls).  ``wkv6.bf16_launches`` counts its calls.
+intra-chunk products on the bf16 tensor cores with bf16x2 operands read
+straight from bf16 tiles (each pass's shared memory by type:
+:data:`STATE_SMEM_BYTES`, :data:`SCAN_SMEM_BYTES`); the state, the decays,
+the carry and the output stay f32 (:func:`wkv6_plain` with
+``compute_dtype`` says where each rounding falls).
+``wkv6.bf16_launches`` counts its calls.
 
 :func:`wkv6` launches the kernels for CUDA tensors (or raises) and computes
 :func:`wkv6_plain` for CPU tensors; there is no other route between the two.
@@ -90,6 +94,14 @@ CARRY_UNROLL = 8
 BWD_FUSED_TILES = 9
 #: state columns of one block of the one-token kernel (ONE_COLS)
 ONE_COLS = 16
+#: dynamic shared memory of a state-pass and a scan-pass block, by the type
+#: of r, k and v (csrc/wkv6.cu: STATE_SMEM_BYTES<T>, SCAN_SMEM_BYTES<T>):
+#: bf16 keeps r, k, v, rr, kk and the scores in bf16 tiles
+STATE_SMEM_BYTES = {torch.float32: 55_296, torch.bfloat16: 36_864}
+SCAN_SMEM_BYTES = {torch.float32: 106_496, torch.bfloat16: 90_112}
+#: blocks an SM each pass's ``__launch_bounds__`` is built for, by type
+STATE_BLOCKS_PER_SM = {torch.float32: 3, torch.bfloat16: 3}
+SCAN_BLOCKS_PER_SM = {torch.float32: 2, torch.bfloat16: 2}
 #: the card's largest grid extent along y and z
 _MAX_GRID_YZ = 65535
 
@@ -205,6 +217,19 @@ class PassPlan:
             return _floats(self.states_shape, self.partials_shape)
         return _floats(self.states_shape, self.lw_shape,
                        *[self.partials_shape] * 4)
+
+
+def rows16(t: torch.Tensor) -> bool:
+    """Whether the forward kernels stage ``t`` (r, k, v or w_log, a (b, s,
+    h, p) tensor as the launcher receives it: its last axis contiguous) by
+    16-byte ``cp.async`` copies, as ``csrc/wkv6.cu``'s ``rows16`` decides:
+    every row starts 16-byte aligned, i.e. the base is, and the strides
+    of b, s and h and p are multiples of the elements in 16 bytes (4 f32, 8
+    bf16).  Else they stage it by 4-byte copies (f32) or clamped lane loads
+    (bf16), zero past the edge; the result is the same."""
+    per = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] % per == 0
+            and all(st % per == 0 for st in t.stride()[:3]))
 
 
 def _floats(*shapes: Tuple[int, ...]) -> int:

@@ -153,11 +153,12 @@ def test_the_wrapper_routes_by_the_operands_dtype(monkeypatch):
 
 
 def test_cuda_source_has_the_bf16_variant():
-    """The same three passes and one-token kernel, instantiated for bf16
-    r/k/v: the scores and the intra-chunk output on the bf16 tensor cores
-    (m16n8k16, f32 accumulate; ``tf32_tiles.cuh``'s ``product_bf16``), the
-    reference's four roundings, the f32 products still 3xTF32, and the
-    launcher's entry point."""
+    """The same three passes and one-token kernel for bf16 r/k/v: the
+    scores and the intra-chunk output on the bf16 tensor cores (m16n8k16,
+    f32 accumulate; ``tf32_tiles.cuh``'s ``product_bf16x2`` and
+    ``product_bf16_frags``, their operands bf16x2 pairs read from bf16
+    tiles, v's by ``ldmatrix.trans``), the reference's four roundings, the
+    f32 products still 3xTF32, and the launcher's entry point."""
     flat = " ".join(SRC.split())
     assert 'extern "C" int wkv6_bf16_launch(' in SRC
     assert "return launch<__nv_bfloat16>(" in flat
@@ -173,7 +174,13 @@ def test_cuda_source_has_the_bf16_variant():
     assert flat.count("round_bf16(__fmul_rn(x, round_bf16(f)))") == 2
     assert "round_bf16(sc[si][jj][i])" in flat
     assert "round_bf16(acc_in[si][jj][i])" in flat
-    assert flat.count("product_bf16(") == 2
+    assert flat.count("product_bf16(") == 0
+    # the first s tile's scores (with r_state S_in), later ones, A v
+    assert flat.count("product2_bf16x2_3xtf32(") == 1
+    assert flat.count("product_bf16x2(") == 1
+    assert flat.count("product_bf16_frags(") == 1
+    assert "ldmatrix_trans_b(bv, Vb, LDH, k0, wt.j0);" in flat
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in TILES
     assert flat.count("product_3xtf32(") == 1 + 3
     assert "fmaf" not in SRC and "__expf" not in SRC
     assert not re.findall(r"atomic\w*\(", SRC)

@@ -52,12 +52,21 @@ def _constexpr(name):
     return hit.group(1)
 
 
-def _eval_constexpr(name):
+def _eval_constexpr(name, bf16=None):
     """A constant of the CUDA source, its expression evaluated with the
-    constants it names."""
-    names = {k: int(_eval_constexpr(k)) for k in ("PMAX", "TILE", "LDA", "LDB")
-             if k != name and k in _constexpr(name)}
-    return eval(_constexpr(name), {}, names)   # noqa: S307 (our own source)
+    constants it names; a constant templated on the operand type
+    (``IS_BF16<T> ? bf16 : f32``) at ``bf16``."""
+    if bf16 is not None:
+        hit = re.search(rf"template <class T>\nconstexpr int {name} =\s*"
+                        rf"IS_BF16<T> \? ([^:]+) : ([^;]+);", SRC)
+        assert hit, name
+        expr = hit.group(1 if bf16 else 2).strip()
+    else:
+        expr = _constexpr(name)
+    names = {k: int(_eval_constexpr(k))
+             for k in ("PMAX", "TILE", "LDA", "LDB", "LDH")
+             if k != name and re.search(rf"\b{k}\b", expr)}
+    return eval(expr, {}, names)   # noqa: S307 (our own source)
 
 
 def test_plan_constants_are_the_cuda_sources():
@@ -82,31 +91,34 @@ def test_plan_constants_are_the_cuda_sources():
                  "ws_floats < n_states + n_lw + n_dec",
                  "float* lw = states + n_states; float* dec = lw + n_lw;",
                  "nc > 65535 || t_tiles > 65535",
-                 "wkv6_state_kernel<<<dim3(bh, unsigned(nc)), THREADS, "
-                 "STATE_SMEM_BYTES, st>>>",
+                 "wkv6_state_kernel<T><<<dim3(bh, unsigned(nc)), THREADS, "
+                 "STATE_SMEM_BYTES<T>, st>>>",
                  "const dim3 carry_grid(bh, unsigned(slices));",
-                 "wkv6_scan_kernel<<<dim3(bh, unsigned(nc), unsigned(t_tiles)),"
-                 " THREADS, SCAN_SMEM_BYTES, st>>>",
+                 "wkv6_scan_kernel<T><<<dim3(bh, unsigned(nc), "
+                 "unsigned(t_tiles)), THREADS, SCAN_SMEM_BYTES<T>, st>>>",
                  # the one-token kernel at chunk 1, but where the forward
                  # under autograd asks for the passes (wkv6_passes_launch)
                  "if (chunk == 1 && !passes) {",
                  "ws_floats, B, S, H, P, chunk, stream, true);"):
         assert text in FLAT, text
-    # a block reads its own chunk only; the scan's last row tile first
-    assert SRC.count("c0 = c * ch") == 2
-    assert "const int ti = gridDim.z - 1 - blockIdx.z" in SRC
+    # a block reads its own chunk only (the state pass and the scan pass's
+    # two forms, f32 and bf16); the scan's last row tile first
+    assert SRC.count("c0 = c * ch") == 3
+    assert SRC.count("const int ti = gridDim.z - 1 - blockIdx.z") == 2
 
 
 def test_shared_memory_fits_the_blocks_per_sm_it_is_sized_for():
     """Two scan blocks and three state blocks on one SM (228 KB of shared
     memory, 1 KB kept per block, the static arrays beside the dynamic
-    tiles); one block's dynamic part within the 227 KB a block may ask for.
-    The tiles' padded rows: 68 floats where a fragment reads [m][k] (banks
-    4g + t), 72 where it reads [k][j] (8t + g)."""
+    tiles), for f32 and for bf16 r, k and v.  One block's dynamic part
+    within the 227 KB a block may ask for.  The tiles' padded rows: 68
+    floats where a fragment reads [m][k] (banks 4g + t), 72 where it reads
+    [k][j] (8t + g); a bf16 tile's rows 72 halves."""
     assert _eval_constexpr("LDA") == wmod._MAX_P + 4
     assert _eval_constexpr("LDB") == wmod._MAX_P + 8
-    scan = _eval_constexpr("SCAN_SMEM_BYTES")
-    state = _eval_constexpr("STATE_SMEM_BYTES")
+    assert _eval_constexpr("LDH") == wmod._MAX_P + 8
+    scan = _eval_constexpr("SCAN_SMEM_BYTES", bf16=False)
+    state = _eval_constexpr("STATE_SMEM_BYTES", bf16=False)
     assert scan == (4 * 64 * 68 + 2 * 64 * 72) * 4
     assert state == 3 * 64 * 72 * 4
     sm, per_block = 228 * 1024, 1024
@@ -116,6 +128,15 @@ def test_shared_memory_fits_the_blocks_per_sm_it_is_sized_for():
     assert max(scan, state) <= 232448
     assert "__launch_bounds__(THREADS, 2)\nwkv6_scan_kernel" in SRC
     assert "__launch_bounds__(THREADS, 3)\nwkv6_state_kernel" in SRC
+    # the bf16 forms: r, k, v, rr, kk and the scores in bf16 tiles
+    scan16 = _eval_constexpr("SCAN_SMEM_BYTES", bf16=True)
+    state16 = _eval_constexpr("STATE_SMEM_BYTES", bf16=True)
+    assert scan16 == (2 * 64 * 68 + 64 * 72) * 4 + 4 * 64 * 72 * 2
+    assert state16 == 64 * 72 * 4 + 2 * 64 * 72 * 2
+    assert 2 * (scan16 + scan_static + per_block) <= sm
+    assert 3 * (state16 + state_static + per_block) <= sm
+    assert ("template <>\n__global__ void __launch_bounds__(THREADS, 2)\n"
+            "wkv6_scan_kernel<__nv_bfloat16>(") in SRC
     # the one-token kernel: 16 KB of state a head, no dynamic tiles
     assert "wkv6_token_kernel<true><<<grid, THREADS, 0, st>>>" in FLAT
 
