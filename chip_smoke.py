@@ -62,10 +62,16 @@ versions, their device ms a call at the train and loss shapes to
 ``BWD_LIMIT_MS`` and their launches a call to ``BWD_LAUNCH_LIMIT``) on the
 main path.  B1's device ms over llava's prefill and a phi4-mini train step
 are held to ``B1_LIMIT_MS``.  Then the device mesh: a one-rank ``nccl`` group
-and a (1, 1) mesh (``repro_torch.launch.mesh``), one phi4-mini train step
-at full width and four decode steps of the served model through
-``build_cell``'s rules, each bit-equal to the unsharded step with
-``systolic_mac`` launches equal to the GEMMs, and the dry run
+and a (1, 1) mesh (``repro_torch.launch.mesh``); through ``build_cell``'s
+rules, beside the same work with ``rules=None``: one phi4-mini train step at
+full width and four decode steps of the served model; one train step each of
+rwkv6-1.6b, zamba2-2.7b and rwkv6-1.6b with ``ssm_bf16=True`` (the
+recurrences' forward and backward kernels through ``local_map``) and four
+decode steps of rwkv6 and zamba2; seamless-m4t-medium's prefill with seeded
+frames, decode steps and a train step; llava-next-mistral-7b's 2880-patch
+prefill and decode steps, and llama4-scout's (8 layers) decode steps.  Each
+is bit-equal to the unsharded run, with every kernel's launches as counted
+(``systolic_mac`` once a GEMM).  Last the dry run
 (``repro_torch.launch.dryrun``) of phi4-mini-3.8b x train_4k on a ``fake``
 group of 256 ranks in a child process.  Weights are random, from seeded
 generators.
@@ -96,8 +102,9 @@ state-space model, rwkv6 also with ``ssm_bf16``, and backend, with the
 recurrences' forward and backward launches a step and their device ms in a
 profiled step), ``mesh_note``,
 ``mesh``
-(the one-rank mesh's train and decode steps beside the unsharded ones, the
-dry run's record and trace seconds), ``profile_misses`` (profiled
+(the one-rank mesh's train, prefill and decode steps of every family
+beside the unsharded ones: bits, launches, seconds, device ms by kernel of
+a profiled step; the dry run's record and trace seconds), ``profile_misses`` (profiled
 measurements left null, with what each try saw), ``total`` (the script's
 seconds),
 then ``{"kernels": [...]}`` (per
@@ -282,9 +289,11 @@ TOL_GNORM = 2e-2
 #: the JAX package's trainer tests at their own smoke sizes (batch 4 x 32):
 #: descent over 16 steps, and 4 steps + resume for 2 = 6 straight steps
 SMOKE_TRAIN_SHAPE = (32, 4)
-#: the mesh phase: decode steps of the served phi4 on a one-rank mesh, and
-#: the dry run's cell (traced on a fake process group of 256 ranks)
+#: the mesh phase: decode steps of each served model on a one-rank mesh,
+#: and the dry run's cell (traced on a fake process group of 256 ranks)
 MESH_DECODE_STEPS = 4
+#: seamless's prompt tokens on the mesh (beside MAX_LEN // 4 seeded frames)
+MESH_PROMPT = 8
 DRYRUN_CELL = ("phi4-mini-3.8b", "train_4k")
 #: the census phase: the pins of the CPU's dispatch census, and the prompt of
 #: the full-width phi4 prefill it counts
@@ -5237,11 +5246,14 @@ def read_recorded(torch, norms, spans):
 
 
 def train_batch(torch, cfg, tmods, step):
-    """The trainer's batch at ``step`` for TRAIN_BATCH, on the card."""
+    """The trainer's batch at ``step`` for TRAIN_BATCH, on the card (with
+    the frontend's inputs: seamless's frames)."""
     data = tmods.DataConfig(
         vocab_size=cfg.padded_vocab, seq_len=TRAIN_BATCH[1],
         global_batch=TRAIN_BATCH[0], seed=SEED,
-        mean_doc_len=max(TRAIN_BATCH[1] // 8, 8))
+        mean_doc_len=max(TRAIN_BATCH[1] // 8, 8), frontend=cfg.frontend,
+        frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model,
+        enc_frames_ratio=cfg.enc_frames_ratio)
     batch = tmods.SyntheticDataset(data).batch_at(step).data
     return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
 
@@ -5675,34 +5687,394 @@ def profiled_b1(rows):
             "kernels": sum(r["calls"] for r in rows)}
 
 
-def mesh_phase(torch, cfg, mods, counters):
-    """The device mesh on the card: a one-rank ``nccl`` group and a (1, 1)
-    ("data", "model") mesh (``launch.mesh.start_mesh``).  (b) One phi4-mini
-    train step at full width on ``reference`` through ``build_cell``'s
-    rules, from the same seeded parameters and batch as a ``rules=None``
-    step: loss, gradient norm and every updated leaf bit-equal (one rank
-    shards nothing; leaves by :func:`tree_digest`), B1 launches = the
-    step's 13 L + 1 GEMMs; a second step of each timed, and B1's device
-    time in a third by ``torch.profiler``.  (c) MESH_DECODE_STEPS decode
-    steps of the served phi4 (SLOTS rows) on the mesh: logits and tokens
-    bit-equal to the unsharded decode step's (what ServeEngine runs), B1
-    launches = 225 a step; B1's device time in one more profiled step of
-    each.  (d) The dry run of DRYRUN_CELL as a
-    child process (one process holds one default group): ``status: ok``,
-    flops > 0, collectives > 0, its trace seconds."""
-    from repro_torch import optim as optim_mod
-    from repro_torch.checkpoint.manager import _flatten_with_names
-    from repro_torch.data import DataConfig, SyntheticDataset
-    from repro_torch.launch import mesh as mesh_mod
+def launch_counts(counters):
+    """Every counted kernel's launches since the counts were zeroed, under
+    the ``kernels`` line's names (``<name>_bwd`` a backward kernel,
+    ``<name>_bf16`` wkv6's bf16 variants)."""
+    out = dict(counters.read())
+    out.update({f"{k}_bwd": v for k, v in counters.read_backward().items()})
+    fwd, bwd = counters.read_bf16()
+    out.update({f"{k}_bf16": v for k, v in fwd.items()})
+    out.update({f"{k}_bwd_bf16": v for k, v in bwd.items()})
+    return out
+
+
+def add_launches(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def expected_launches(counts, **want):
+    """``counts``' names with ``want``'s values, 0 elsewhere."""
+    return {name: want.get(name, 0) for name in counts}
+
+
+def mesh_train_launches(cfg):
+    """name -> launches of one train step of ``cfg`` on ``reference``: B1
+    once a GEMM (13 L + 1 a dense model, :func:`ssm_train_gemms` for rwkv6
+    / zamba2, 13 an encoder and 21 a decoder layer + 1 for seamless); a
+    recurrence's forward twice a layer (again in the backward pass under
+    ``remat="full"``) and its backward once, in the run's precision."""
+    L = cfg.n_layers
+    want = {}
+    if cfg.family in ("ssm", "hybrid"):
+        want["systolic_mac"] = ssm_train_gemms(cfg)
+        kernel = "wkv6" if cfg.family == "ssm" else "ssd_chunk"
+        tag = "_bf16" if cfg.ssm_bf16 and kernel == "wkv6" else ""
+        want[kernel + tag] = 2 * L
+        want[kernel + "_bwd" + tag] = L
+    elif cfg.family == "encdec":
+        want["systolic_mac"] = 13 * cfg.n_enc_layers + 21 * L + 1
+    else:
+        want["systolic_mac"] = 13 * L + 1
+    return want
+
+
+def decode_launches(cfg):
+    """name -> launches of one decode step of ``cfg`` on ``reference``: B1
+    once a GEMM, and rwkv6's one-token ``wkv6`` once a layer."""
+    table = {"ssm": rwkv6_gemms, "hybrid": zamba2_gemms,
+             "dense": dense_gemms}.get(cfg.family)
+    want = {"systolic_mac": family_gemms(cfg)[1] if table is None else sum(
+        n for _, _, n, _, _ in table(cfg).values())}
+    if cfg.family == "ssm":
+        want["wkv6"] = cfg.n_layers
+    return want
+
+
+def profiled_kernels(rows, top=8):
+    """:func:`profiled_b1`'s figures, and the device ms of the ``top``
+    kernels and of every recurrence kernel, by name."""
+    out = profiled_b1(rows)
+    if rows is not None:
+        out["by_kernel"] = {
+            r["kernel"]: r["ms"] for i, r in enumerate(rows)
+            if i < top or r["kernel"].startswith(("wkv6_", "ssd_"))}
+    return out
+
+
+def digests_differ(torch, flatten, a, b):
+    """The leaves of two trees whose bits differ (:func:`tree_digest`),
+    and the number compared."""
+    da, db = tree_digest(torch, a, flatten), tree_digest(torch, b, flatten)
+    differ = [k for k in da if da[k] != db.get(k)]
+    if len(da) != len(db):
+        differ.append(f"{len(da)} leaves against {len(db)}")
+    return differ, len(da)
+
+
+def mesh_train(torch, mods, counters, mesh, arch, overrides=None):
+    """One train step of ``arch`` at published width and depth
+    (``overrides`` on its config) on ``reference`` through ``build_cell``'s
+    rules on the one-rank mesh, beside the same step with ``rules=None``,
+    from the same seeded parameters and the trainer's TRAIN_BATCH batch:
+    loss, gradient norm and every updated leaf bit-equal (one rank shards
+    nothing; leaves by :func:`tree_digest`), every kernel's launches as
+    :func:`mesh_train_launches` counts them on both sides; a second step of
+    each timed, and a third profiled by kernel.  The two runs are made one
+    after the other, with :func:`release` between them: one optimizer
+    state at a time.  Returns (the row, the mesh side's launches)."""
     from repro_torch.launch.steps import build_cell
     from repro_torch.models.shardlib import distribute_tree
-    from repro_torch.optim import adamw
-    from repro_torch.train import make_train_step
-    out = {"moe_ep_a2a": "not run on the card: it needs n_experts ranks on "
-                         "the expert axis and one H100 is a one-rank mesh; "
-                         "held on the CPU (tests/test_torch_mesh.py, 4 gloo "
-                         "ranks against the JAX package's 4-device mesh)"}
+    tmods = train_modules()
+    ocfg = tmods.optim.AdamWConfig()
+    shape = mods.ShapeConfig("train", TRAIN_BATCH[1], TRAIN_BATCH[0],
+                             "train")
+    cell = build_cell(arch, shape, mesh, overrides=overrides, opt_cfg=ocfg)
+    cfg = cell.cfg
+    api = mods.model_api(cfg)
+    batch = train_batch(torch, cfg, tmods, 0)
+    want = mesh_train_launches(cfg)
+    runs = {}
+    for label, rules in (("rules_none", None), ("mesh", cell.rules)):
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(SEED)
+        state = tmods.optim.init_state(params, ocfg)
+        if rules is not None:
+            params = distribute_tree(params, api.param_specs(), rules)
+            state = distribute_tree(
+                state, tmods.optim.state_specs(api.param_specs(), ocfg),
+                rules)
+        step = cell.fn if rules is not None else tmods.make_train_step(
+            api, cfg, ocfg)
+        norms, spans = [], []
+        be = mods.get_backend("reference")
+        torch.cuda.synchronize()
+        seconds, losses = [], []
+        with mods.use_backend(be), recording_optimizer(
+                torch, tmods.optim, tmods.adamw, norms, spans):
+            for i in range(2):
+                if i == 0:
+                    counters.zero()
+                t1 = time.monotonic()
+                _, state, loss = step(params, state, batch)
+                losses.append(float(loss))
+                seconds.append(time.monotonic() - t1)
+                if i == 0:
+                    launches = launch_counts(counters)
+                    digest = tree_digest(
+                        torch, {"params": params, "opt": state},
+                        tmods.flatten)
+        norms, opt_s = read_recorded(torch, norms, spans)
+        summary = be.summary()
+        # the device time by kernel inside one more step (torch.profiler)
+        with mods.use_backend(mods.get_backend("reference")):
+            prof = profile_calls(torch, {"step": lambda: step(
+                params, state, batch)})["step"]
+        runs[label] = {"loss": losses[0], "global_grad_norm": norms[0],
+                       "step_s": seconds, "optimizer_stream_s": opt_s,
+                       "systolic_mac_launches_step0": launches[
+                           "systolic_mac"],
+                       "launches_step0": launches,
+                       "backend_calls": summary["calls"],
+                       "flags": summary["flags"], "digest": digest,
+                       "peak_device_memory_gb":
+                           torch.cuda.max_memory_allocated() / 1e9,
+                       "profiled_step": profiled_kernels(prof)}
+        if launches != expected_launches(launches, **want):
+            fail(f"mesh train {cfg.name} ({label}): launches {launches} in "
+                 f"a step; expected {want}")
+        del params, state, step
+    release(torch)
+    none, on_mesh = runs["rules_none"], runs["mesh"]
+    differ = [k for k in none["digest"]
+              if none["digest"][k] != on_mesh["digest"].get(k)]
+    bits = (none["loss"] == on_mesh["loss"]
+            and none["global_grad_norm"] == on_mesh["global_grad_norm"]
+            and not differ and len(none["digest"]) == len(
+                on_mesh["digest"]))
+    row = {"arch": cfg.name, "overrides": overrides or {},
+           "batch": list(TRAIN_BATCH), "layers": cfg.n_layers,
+           "backend": "reference", "gemms_per_step": want["systolic_mac"],
+           "launches_per_step": want,
+           "rules_none": {k: v for k, v in none.items() if k != "digest"},
+           "mesh": {k: v for k, v in on_mesh.items() if k != "digest"},
+           "leaves_compared": len(none["digest"]),
+           "leaves_that_differ": differ, "bit_equal": bits,
+           "step_s_second": {"rules_none": none["step_s"][1],
+                             "mesh": on_mesh["step_s"][1]}}
+    if not bits:
+        fail(f"mesh train step of {cfg.name} not bit-equal to rules=None: "
+             f"loss {on_mesh['loss']} / {none['loss']}, norm "
+             f"{on_mesh['global_grad_norm']} / {none['global_grad_norm']}, "
+             f"leaves {differ[:8]}")
+    print(f"mesh: {cfg.name} {overrides or ''} train step "
+          f"{on_mesh['step_s'][1]:.3f} s on the mesh beside "
+          f"{none['step_s'][1]:.3f} s with rules=None", flush=True)
+    return row, on_mesh["launches_step0"]
+
+
+def mesh_prefill(torch, mods, counters, api, pcell, params, dparams, batch,
+                 max_len):
+    """One ``reference`` prefill of ``batch`` on the mesh (``pcell``)
+    beside ``api.prefill``: logits and every leaf of the state bit-equal,
+    B1 launches = the prefill's GEMMs (:func:`family_gemms`) and nothing
+    else; seconds of each, and one more of each profiled by kernel.
+    Returns (the row, the mesh side's launches, the two states, the
+    greedy tokens)."""
+    from repro_torch.checkpoint.manager import _flatten_with_names
+    be = mods.get_backend("reference")
+    with mods.use_backend(be):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        want, plain_state = api.prefill(params, batch, max_len=max_len)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t1
+        counters.zero()
+        t1 = time.monotonic()
+        got, mesh_state = pcell.fn(dparams, batch)
+        got = got.full_tensor()
+        torch.cuda.synchronize()
+        mesh_s = time.monotonic() - t1
+        launches = launch_counts(counters)
+    per_call = {"systolic_mac": family_gemms(api.cfg)[0]}
+    differ, compared = digests_differ(torch, _flatten_with_names,
+                                      plain_state, mesh_state)
+    row = {"rows": int(want.shape[0]), "max_len": max_len,
+           "positions": int(plain_state["index"][0]),
+           "logits_bit_equal": bool(torch.equal(want, got)),
+           "state_leaves_compared": compared,
+           "state_leaves_that_differ": differ, "launches": launches,
+           "gemms": per_call["systolic_mac"],
+           "prefill_s": {"rules_none": plain_s, "mesh": mesh_s}}
+    if not row["logits_bit_equal"] or differ:
+        fail(f"mesh prefill of {api.cfg.name}: logits equal "
+             f"{row['logits_bit_equal']}, state leaves that differ "
+             f"{differ[:8]}")
+    if launches != expected_launches(launches, **per_call):
+        fail(f"mesh prefill of {api.cfg.name}: launches {launches}; "
+             f"expected {per_call}")
+    with mods.use_backend(mods.get_backend("reference")):
+        prof = profile_calls(torch, {
+            "rules_none": lambda: api.prefill(params, batch,
+                                              max_len=max_len),
+            "mesh": lambda: pcell.fn(dparams, batch)})
+    row["profiled"] = {k: profiled_kernels(v) for k, v in prof.items()}
+    tok = want.argmax(-1, keepdim=True).to(torch.int32)
+    return row, launches, plain_state, mesh_state, tok
+
+
+def mesh_decode(torch, mods, counters, api, dcell, params, dparams,
+                plain_state, mesh_state, tok):
+    """MESH_DECODE_STEPS ``reference`` decode steps on the mesh
+    (``dcell``) beside ``api.decode_step`` (what ServeEngine runs), the
+    unsharded step's greedy tokens fed to both: logits bit-equal at every
+    step and every leaf of the final states, launches as
+    :func:`decode_launches` counts them a step; each step's seconds, and
+    one more step of each profiled by kernel.  Returns (the row, the mesh
+    side's launches)."""
+    from repro_torch.checkpoint.manager import _flatten_with_names
+    per_step = decode_launches(api.cfg)
+    steps_out, total, mesh_s, plain_s = [], {}, [], []
+    with mods.use_backend(mods.get_backend("reference")):
+        for _ in range(MESH_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            want, plain_state = api.decode_step(params, plain_state, tok)
+            torch.cuda.synchronize()
+            plain_s.append(time.monotonic() - t1)
+            counters.zero()
+            t1 = time.monotonic()
+            got, mesh_state = dcell.fn(dparams, mesh_state, tok)
+            got = got.full_tensor()
+            torch.cuda.synchronize()
+            mesh_s.append(time.monotonic() - t1)
+            launches = launch_counts(counters)
+            add_launches(total, launches)
+            same = torch.equal(want, got)
+            nxt = want.argmax(-1, keepdim=True).to(torch.int32)
+            steps_out.append({"logits_bit_equal": bool(same),
+                              "tokens": nxt[:, 0].tolist(),
+                              "tokens_mesh": got.argmax(-1).tolist()})
+            if not same:
+                fail(f"mesh decode of {api.cfg.name}, step "
+                     f"{len(steps_out)}: logits differ from the unsharded "
+                     f"step's")
+            if launches != expected_launches(launches, **per_step):
+                fail(f"mesh decode of {api.cfg.name}: launches {launches} "
+                     f"in a step; expected {per_step}")
+            tok = nxt
+    differ, compared = digests_differ(torch, _flatten_with_names,
+                                      plain_state, mesh_state)
+    if differ:
+        fail(f"mesh decode of {api.cfg.name}: state leaves that differ "
+             f"{differ[:8]}")
+    with mods.use_backend(mods.get_backend("reference")):
+        prof = profile_calls(torch, {
+            "rules_none": lambda: api.decode_step(params, plain_state, tok),
+            "mesh": lambda: dcell.fn(dparams, mesh_state, tok)})
+    return {"arch": api.cfg.name, "rows": int(tok.shape[0]),
+            "steps": steps_out, "launches": total,
+            "launches_per_step": per_step,
+            "gemms_per_step": per_step["systolic_mac"],
+            "state_leaves_compared": compared,
+            "state_leaves_that_differ": differ,
+            "step_s_mesh": mesh_s, "step_s_rules_none": plain_s,
+            "profiled_step": {k: profiled_kernels(v)
+                              for k, v in prof.items()}}, total
+
+
+def mesh_serving(torch, mods, counters, mesh, arch, cfg, prompt=None,
+                 max_len=MAX_LEN, rows=SLOTS, seed=SEED + 24):
+    """``cfg`` (``arch`` at published width, its depth cut where the card
+    cannot hold it) served on the one-rank mesh beside no mesh, from
+    ``init_params(SEED)``: a prefill of ``prompt`` (:func:`mesh_prefill`;
+    none: a fresh decode state and seeded tokens), then
+    :func:`mesh_decode`'s steps.  Returns (the row, the mesh side's
+    launches); the weights are freed."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.shardlib import distribute_tree
+    overrides = ({"n_layers": cfg.n_layers}
+                 if cfg.n_layers != mods.get_config(arch).n_layers else None)
+    api = mods.model_api(cfg)
+    params = api.init_params(SEED)
+    dshape = mods.ShapeConfig("serve", max_len, rows, "decode")
+    dcell = build_cell(arch, dshape, mesh, overrides=overrides)
+    dparams = distribute_tree(params, api.param_specs(), dcell.rules)
+    row, total = {"arch": cfg.name, "layers": cfg.n_layers}, {}
+    if prompt is not None:
+        pcell = build_cell(arch, mods.ShapeConfig("prefill", max_len, rows,
+                                                  "prefill"),
+                           mesh, overrides=overrides)
+        row["prefill"], launches, plain_state, mesh_state, tok = \
+            mesh_prefill(torch, mods, counters, api, pcell, params, dparams,
+                         prompt, max_len)
+        add_launches(total, launches)
+    else:
+        plain_state = api.make_decode_state(dshape)
+        mesh_state = distribute_tree(api.make_decode_state(dshape),
+                                     api.decode_state_specs(dshape),
+                                     dcell.rules)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        tok = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen,
+                            dtype=torch.int32).to(DEVICE)
+    row["decode"], launches = mesh_decode(
+        torch, mods, counters, api, dcell, params, dparams, plain_state,
+        mesh_state, tok)
+    add_launches(total, launches)
+    del params, dparams, plain_state, mesh_state
+    release(torch)
+    print(f"mesh: {cfg.name} decode step {row['decode']['step_s_mesh'][-1]:.3f}"
+          f" s on the mesh beside {row['decode']['step_s_rules_none'][-1]:.3f}"
+          f" s with rules=None", flush=True)
+    return row, total
+
+
+#: (e) the recurrences' train steps on the mesh: (arch, overrides)
+MESH_SSM_TRAIN = (("rwkv6-1.6b", None), ("zamba2-2.7b", None),
+                  ("rwkv6-1.6b", {"ssm_bf16": True}))
+
+
+def mesh_phase(torch, cfg, mods, counters):
+    """The device mesh on the card: a one-rank ``nccl`` group and a (1, 1)
+    ("data", "model") mesh (``launch.mesh.start_mesh``); every run on
+    ``reference`` through ``build_cell``'s rules beside the same work with
+    ``rules=None`` (one rank shards nothing: bit-equal), one after the
+    other with :func:`release` between them, each family's weights freed
+    before the next.  (b) One phi4-mini train step at full width
+    (:func:`mesh_train`: loss, gradient norm and every updated leaf
+    bit-equal, B1 launches = the step's 13 L + 1 GEMMs; a second step of
+    each timed, a third profiled).  (c) MESH_DECODE_STEPS decode steps of
+    the served phi4 (SLOTS rows; :func:`mesh_serving`): logits, tokens and
+    the final state bit-equal, B1 launches = 225 a step, one more step of
+    each profiled.  (e) One train step of TRAIN_BATCH each of rwkv6-1.6b,
+    zamba2-2.7b and rwkv6-1.6b with ``ssm_bf16=True``: the recurrences
+    through ``local_map`` forward twice and backward once a layer (wkv6 /
+    ssd_chunk and wkv6_bwd / ssd_chunk_bwd; the bf16 run wkv6_bf16 and
+    wkv6_bwd_bf16 only), B1 481 / 298 a step; then MESH_DECODE_STEPS decode
+    steps of rwkv6 (the one-token wkv6 24 a step) and zamba2.  (f)
+    seamless-m4t-medium: a prefill with seeded frames, MESH_DECODE_STEPS
+    decode steps, one train step of TRAIN_BATCH.  (g) llava-next-mistral-7b:
+    the prefill of FRONTEND patches + VLM_PROMPT tokens (B1 at M = 2944,
+    the wide form) and MESH_DECODE_STEPS decode steps; llama4-scout at 8 of
+    its 48 layers: the same decode steps.  Every run: B1 launches = its
+    GEMMs, seconds beside ``rules=None`` and the device ms by kernel of one
+    profiled step.  (d) The dry run of DRYRUN_CELL as a child process (one
+    process holds one default group): ``status: ok``, flops > 0,
+    collectives > 0, its trace seconds.  Returns (the line, the mesh
+    side's launches by kernel)."""
+    from repro_torch.launch import mesh as mesh_mod
+    out = {"held_on_the_cpu": "4 gloo ranks, (2, 2) meshes, one process a "
+                              "rank: serving of every family bit-equal to "
+                              "no mesh on reference (tests/test_torch_mesh"
+                              ".py, test_torch_mesh_serve_families.py); a "
+                              "train step of every family within the train "
+                              "tests' tolerances of no mesh, phi4's, grok's "
+                              "and seamless's also of the JAX package's "
+                              "4-device mesh (test_torch_mesh.py, "
+                              "test_torch_mesh_train_families.py, "
+                              "test_torch_mesh_families.py); moe_ep_a2a "
+                              "against the JAX package's mesh "
+                              "(test_torch_mesh.py)",
+           "not_run_on_the_card": "a mesh of more than one rank (the host "
+                                  "has one GPU and NCCL refuses two ranks "
+                                  "on one GPU) and so moe_ep_a2a, which "
+                                  "needs n_experts ranks on the expert "
+                                  "axis"}
     emit("mesh_note", out)
+    out = {}
+    total = {}
     t0 = time.monotonic()
     mesh = mesh_mod.start_mesh((1, 1), ("data", "model"))
     try:
@@ -5711,142 +6083,64 @@ def mesh_phase(torch, cfg, mods, counters):
                        "axes": list(mesh.mesh_dim_names),
                        "backend": torch.distributed.get_backend(),
                        "device_type": mesh.device_type}
-        shape = mods.ShapeConfig("train", TRAIN_BATCH[1], TRAIN_BATCH[0],
-                                 "train")
-        ocfg = optim_mod.AdamWConfig()
-        cell = build_cell(ARCH, shape, mesh, opt_cfg=ocfg)
-        api = mods.model_api(cfg)
-        batch = train_batch(torch, cfg, types.SimpleNamespace(
-            DataConfig=DataConfig, SyntheticDataset=SyntheticDataset), 0)
-        gemms = 13 * cfg.n_layers + 1
-        runs = {}
-        for label, rules in (("rules_none", None), ("mesh", cell.rules)):
-            release(torch)
-            params = api.init_params(SEED)
-            state = optim_mod.init_state(params, ocfg)
-            if rules is not None:
-                params = distribute_tree(params, api.param_specs(), rules)
-                state = distribute_tree(
-                    state, optim_mod.state_specs(api.param_specs(), ocfg),
-                    rules)
-            step = cell.fn if rules is not None else make_train_step(
-                api, cfg, ocfg)
-            norms, spans = [], []
-            be = mods.get_backend("reference")
-            torch.cuda.synchronize()
-            seconds, losses = [], []
-            with mods.use_backend(be), recording_optimizer(
-                    torch, optim_mod, adamw, norms, spans):
-                for i in range(2):
-                    if i == 0:
-                        counters.zero()
-                    t1 = time.monotonic()
-                    _, state, loss = step(params, state, batch)
-                    losses.append(float(loss))
-                    seconds.append(time.monotonic() - t1)
-                    if i == 0:
-                        launches = counters.read()["systolic_mac"]
-                        digest = tree_digest(
-                            torch, {"params": params, "opt": state},
-                            _flatten_with_names)
-            norms, opt_s = read_recorded(torch, norms, spans)
-            summary = be.summary()
-            # B1's device time inside one more step (torch.profiler)
-            with mods.use_backend(mods.get_backend("reference")):
-                prof = profile_calls(torch, {"step": lambda: step(
-                    params, state, batch)})["step"]
-            runs[label] = {"loss": losses[0], "global_grad_norm": norms[0],
-                           "step_s": seconds, "optimizer_stream_s": opt_s,
-                           "systolic_mac_launches_step0": launches,
-                           "backend_calls": summary["calls"],
-                           "flags": summary["flags"], "digest": digest,
-                           "profiled_step": profiled_b1(prof)}
-            if launches != gemms:
-                fail(f"mesh train ({label}): {launches} systolic_mac "
-                     f"launches in a step; {gemms} GEMMs expected")
-            del params, state, step
-        none, on_mesh = runs["rules_none"], runs["mesh"]
-        differ = [k for k in none["digest"]
-                  if none["digest"][k] != on_mesh["digest"].get(k)]
-        bits = (none["loss"] == on_mesh["loss"]
-                and none["global_grad_norm"] == on_mesh["global_grad_norm"]
-                and not differ and len(none["digest"]) == len(
-                    on_mesh["digest"]))
-        out["train"] = {
-            "arch": cfg.name, "batch": list(TRAIN_BATCH), "backend":
-            "reference", "gemms_per_step": gemms,
-            "rules_none": {k: v for k, v in none.items() if k != "digest"},
-            "mesh": {k: v for k, v in on_mesh.items() if k != "digest"},
-            "leaves_compared": len(none["digest"]),
-            "leaves_that_differ": differ, "bit_equal": bits,
-            "step_s_second": {"rules_none": none["step_s"][1],
-                              "mesh": on_mesh["step_s"][1]}}
-        if not bits:
-            fail(f"mesh train step not bit-equal to rules=None: loss "
-                 f"{on_mesh['loss']} / {none['loss']}, norm "
-                 f"{on_mesh['global_grad_norm']} / "
-                 f"{none['global_grad_norm']}, leaves {differ[:8]}")
-        release(torch)
-
-        # (c) the served phi4's decode steps on the mesh
-        params = api.init_params(SEED)
-        dshape = mods.ShapeConfig("serve", MAX_LEN, SLOTS, "decode")
-        dcell = build_cell(ARCH, dshape, mesh)
-        dparams = distribute_tree(params, api.param_specs(), dcell.rules)
-        plain_state = api.make_decode_state(dshape)
-        mesh_state = distribute_tree(api.make_decode_state(dshape),
-                                     api.decode_state_specs(dshape),
-                                     dcell.rules)
-        gen = torch.Generator(device="cpu").manual_seed(SEED + 24)
-        tok = torch.randint(0, cfg.vocab_size, (SLOTS, 1), generator=gen,
-                            dtype=torch.int32).to(DEVICE)
-        steps_out, mesh_launches, mesh_s, plain_s = [], 0, [], []
-        be = mods.get_backend("reference")
-        with mods.use_backend(be):
-            for _ in range(MESH_DECODE_STEPS):
-                torch.cuda.synchronize()
-                t1 = time.monotonic()
-                want, plain_state = api.decode_step(params, plain_state, tok)
-                torch.cuda.synchronize()
-                plain_s.append(time.monotonic() - t1)
-                counters.zero()
-                t1 = time.monotonic()
-                got, mesh_state = dcell.fn(dparams, mesh_state, tok)
-                got = got.full_tensor()
-                torch.cuda.synchronize()
-                mesh_s.append(time.monotonic() - t1)
-                mesh_launches += counters.read()["systolic_mac"]
-                same = torch.equal(want, got)
-                nxt = want.argmax(-1, keepdim=True).to(torch.int32)
-                steps_out.append({"logits_bit_equal": bool(same),
-                                  "tokens": nxt[:, 0].tolist(),
-                                  "tokens_mesh": got.argmax(-1).tolist()})
-                if not same:
-                    fail(f"mesh decode step {len(steps_out)}: logits differ "
-                         f"from the unsharded step's")
-                tok = nxt
-        per_step = sum(n for _, _, n, _, _ in dense_gemms(cfg).values())
-        out["decode"] = {"arch": cfg.name, "slots": SLOTS, "steps":
-                         steps_out, "systolic_mac_launches": mesh_launches,
-                         "gemms_per_step": per_step,
-                         "step_s_mesh": mesh_s, "step_s_rules_none": plain_s,
-                         "kv_cache_bit_equal": bool(torch.equal(
-                             plain_state["kv"]["k"],
-                             mesh_state["kv"]["k"].to_local()))}
-        if mesh_launches != MESH_DECODE_STEPS * per_step:
-            fail(f"mesh decode: {mesh_launches} systolic_mac launches over "
-                 f"{MESH_DECODE_STEPS} steps; {per_step} a step expected")
-        if not out["decode"]["kv_cache_bit_equal"]:
-            fail("mesh decode: the KV caches differ")
-        # B1's device time inside one more step of each (torch.profiler)
-        with mods.use_backend(mods.get_backend("reference")):
-            prof = profile_calls(torch, {
-                "rules_none": lambda: api.decode_step(params, plain_state,
-                                                      tok),
-                "mesh": lambda: dcell.fn(dparams, mesh_state, tok)})
-        out["decode"]["profiled_step"] = {
-            k: profiled_b1(v) for k, v in prof.items()}
-        del params, dparams, plain_state, mesh_state
+        # (b) phi4-mini's train step, (c) the served phi4's decode steps
+        out["train"], launches = mesh_train(torch, mods, counters, mesh,
+                                            ARCH)
+        add_launches(total, launches)
+        out["decode"], launches = mesh_serving(torch, mods, counters, mesh,
+                                               ARCH, cfg)
+        add_launches(total, launches)
+        # (e) the recurrences: train steps, then decode steps
+        out["ssm_train"] = []
+        for arch, overrides in MESH_SSM_TRAIN:
+            row, launches = mesh_train(torch, mods, counters, mesh, arch,
+                                       overrides)
+            out["ssm_train"].append(row)
+            add_launches(total, launches)
+        out["ssm_decode"] = []
+        for arch in SSM_ARCHS:
+            row, launches = mesh_serving(torch, mods, counters, mesh, arch,
+                                         mods.get_config(arch))
+            out["ssm_decode"].append(row)
+            add_launches(total, launches)
+        # (f) seamless: prefill with seeded frames, decode, train
+        arch = "seamless-m4t-medium"
+        scfg = mods.get_config(arch)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+        prompt = {"tokens": torch.randint(3, scfg.vocab_size,
+                                          (SLOTS, MESH_PROMPT),
+                                          generator=gen, device=DEVICE),
+                  "frames": torch.randn(
+                      (SLOTS, MAX_LEN // scfg.enc_frames_ratio,
+                       scfg.d_model), generator=gen,
+                      device=DEVICE).to(torch.bfloat16)}
+        row, launches = mesh_serving(torch, mods, counters, mesh, arch, scfg,
+                                     prompt)
+        add_launches(total, launches)
+        row["train"], launches = mesh_train(torch, mods, counters, mesh,
+                                            arch)
+        add_launches(total, launches)
+        out["encdec"] = row
+        # (g) llava's patch prefill and decode; llama4 (8 layers) decode
+        arch = "llava-next-mistral-7b"
+        vcfg = mods.get_config(arch)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 32)
+        prompt = {"patch_embeds": torch.randn(
+                      (1, vcfg.frontend_tokens, vcfg.d_model), generator=gen,
+                      device=DEVICE).to(torch.bfloat16),
+                  "tokens": torch.randint(3, vcfg.vocab_size,
+                                          (1, VLM_PROMPT), generator=gen,
+                                          device=DEVICE)}
+        out["vlm"], launches = mesh_serving(
+            torch, mods, counters, mesh, arch, vcfg, prompt,
+            max_len=vcfg.frontend_tokens + VLM_PROMPT + MESH_DECODE_STEPS,
+            rows=1)
+        add_launches(total, launches)
+        arch = "llama4-scout-17b-a16e"
+        out["moe"], launches = mesh_serving(
+            torch, mods, counters, mesh, arch,
+            family_config(mods.get_config, arch))
+        add_launches(total, launches)
     finally:
         mesh_mod.stop_mesh()
     release(torch)
@@ -5877,11 +6171,12 @@ def mesh_phase(torch, cfg, mods, counters):
           f"{rec['trace_s']}", flush=True)
     for what, prof in (("train", {k: out["train"][k]["profiled_step"]
                                   for k in ("rules_none", "mesh")}),
-                       ("decode", out["decode"]["profiled_step"])):
+                       ("decode", out["decode"]["decode"]["profiled_step"])):
         print(f"mesh: B1 device ms in a profiled {what} step, rules=None / "
               f"mesh: {prof['rules_none']['systolic_mac_device_ms']} / "
               f"{prof['mesh']['systolic_mac_device_ms']}", flush=True)
-    return out, mesh_launches + runs["mesh"]["systolic_mac_launches_step0"]
+    print(f"mesh: launches on the mesh {total}", flush=True)
+    return out, total
 
 
 def train_entry(shapes, trained, arch=ARCH):
@@ -6321,8 +6616,9 @@ def main() -> int:
     emit("train_ssm", ssm_trained)
     print(f"train_ssm: {ssm_trained['seconds']:.1f} s", flush=True)
 
-    # ---- the device mesh: one rank, the train and decode steps on it
-    # bit-equal to no mesh; the dry run on a fake group of 256
+    # ---- the device mesh: one rank, every family's train, prefill and
+    # decode steps on it bit-equal to no mesh; the dry run on a fake group
+    # of 256
     t0 = time.monotonic()
     meshed, mesh_launches = mesh_phase(torch, cfg, mods, counters)
     meshed["seconds"] = time.monotonic() - t0
@@ -6331,7 +6627,7 @@ def main() -> int:
               for k in ("mesh", "rules_none")}
     print(f"mesh: second train step {step_s['mesh']:.3f} s on the one-rank "
           f"mesh beside {step_s['rules_none']:.3f} s with rules=None "
-          f"({smi})", flush=True)
+          f"({smi}); the phase {meshed['seconds']:.1f} s", flush=True)
     release(torch)
 
     emit("profile_misses", {"rows": PROFILE_MISSES,
@@ -6391,7 +6687,7 @@ def main() -> int:
                                      "systolic_mac_launches"],
                                  "int8_moments": trained["int8_moments"][
                                      "systolic_mac_launches"]},
-                             "mesh": mesh_launches},
+                             "mesh": mesh_launches["systolic_mac"]},
         "train_step": phi4_train,
         "train_step_by_arch": {
             arch: dict(train_entry(shapes, ssm_trained[arch], arch),
@@ -6452,6 +6748,8 @@ def main() -> int:
         "kernel_device_ms_by_pass", "plain_ms", "bound_ms", "bound_by")}
     entry["loss_shape"]["launches_per_loss_call"] = ssm_launches[
         "rwkv6-1.6b", "loss"]["wkv6"]
+    entry["launches_by_path"] = {"serve_ssm": entry["launches"],
+                                 "mesh": mesh_launches["wkv6"]}
     kernels.append(entry)
     bf_decode = next(r for r in wkv6_bf16_rows
                      if r["case"] == "rwkv6 decode" and r["b"] == DECODE_M)
@@ -6476,6 +6774,8 @@ def main() -> int:
         "plain_ms", "bound_ms", "f32_bound_ms", "bound_by")}
     entry["loss_shape"]["launches_per_loss_call"] = wkv6_bf16_run[
         "loss_launches"]["wkv6_bf16"]
+    entry["launches_by_path"] = {"wkv6_bf16 (served)": entry["launches"],
+                                 "mesh": mesh_launches["wkv6_bf16"]}
     kernels.append(entry)
     ssd_loss_row = next(r for r in ssd_rows if r["case"] == "zamba2 loss")
     entry = recurrence_entry(
@@ -6489,6 +6789,8 @@ def main() -> int:
     entry["device_ms_of"] = ("the same call, its three passes' device time "
                              "by torch.profiler (ms above: back to back by "
                              "CUDA events)")
+    entry["launches_by_path"] = {"loss": entry["launches"],
+                                 "mesh": mesh_launches["ssd_chunk"]}
     kernels.append(entry)
     for name, source, fwd, rows, arch, shape_case, counted in (
             ("wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
@@ -6518,6 +6820,8 @@ def main() -> int:
                         f"gradient of {fwd}'s function; the JAX package "
                         f"takes it by jax.grad of its jnp chunked form)",
             "launches": run[counted][kernel],
+            "launches_by_path": {"train_ssm": run[counted][kernel],
+                                 "mesh": mesh_launches[name]},
             "launches_of": f"train_ssm: {TRAIN_STEPS} {arch} train steps "
                            f"on reference",
             "max_abs_err": worst["max_err"],

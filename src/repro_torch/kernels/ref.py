@@ -62,7 +62,13 @@ def systolic_mac_tiles(a: torch.Tensor, b: torch.Tensor, v_map: torch.Tensor,
     if tuple(v_map.shape) != (gm, gn) or tuple(v_safe.shape) != (gm, gn):
         raise ValueError(f"v_map/v_safe must be ({gm}, {gn}); got "
                          f"{tuple(v_map.shape)} / {tuple(v_safe.shape)}")
-    c = a.to(torch.float32) @ b.to(torch.float32)
+    # summed in float64 and rounded once: a product of two bf16 or f32
+    # values is exact there and a row's sum rounds far below float32's last
+    # bit, so C does not depend on the order the BLAS picks.  That order
+    # changes with M (one row is a matrix-vector call), with b's layout and
+    # with the threads; in float32 a row's bits would depend on the rows
+    # beside it, which the kernel's never do (ROADMAP C13).
+    c = (a.to(torch.float64) @ b.to(torch.float64)).to(torch.float32)
     fail = v_map.to(torch.float32) < v_safe.to(torch.float32)
     c_t = c.reshape(gm, block_m, gn, block_n)
     out = torch.where(fail[:, None, :, None],

@@ -52,6 +52,15 @@ Params = Dict[str, Any]
 EXP_CLAMP = 30.0
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``F.softplus`` (threshold 20) as ``log1p(exp(x))``: the CPU's
+    softplus rounds its vector loop and its scalar tail apart, so an
+    element's bits would depend on the tensor's size, and a mesh rank's
+    block is smaller than the whole (ROADMAP C13)."""
+    return torch.where(x > 20.0, x,
+                       torch.log1p(torch.exp(x.clamp(max=20.0))))
+
+
 def _chunk(chunk: int, s: int) -> int:
     """The model's chunk rule: ``min(chunk, s)``, or the whole sequence when
     that does not divide it."""
@@ -158,7 +167,7 @@ def _mamba2_head(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                                  dims["d_state"]], dim=-1)
     h, p, n = dims["n_heads"], dims["p"], dims["d_state"]
     xh = xs.reshape(b, s, h, p).to(torch.float32)
-    dt = F.softplus(dt.to(torch.float32) + lp["dt_bias"])         # (b, s, h)
+    dt = _softplus(dt.to(torch.float32) + lp["dt_bias"])          # (b, s, h)
     R0 = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
           if ssm_state is None else ssm_state.to(torch.float32))
     args = (xh, dt, lp["A_log"], B, C, lp["D"], R0)
@@ -230,7 +239,7 @@ def mamba2_step(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                                  dims["d_state"]], dim=-1)
     h, p = dims["n_heads"], dims["p"]
     xh = xs.reshape(b, h, p).to(torch.float32)
-    dt1 = F.softplus(dt[:, 0].to(torch.float32) + lp["dt_bias"])  # (b, h)
+    dt1 = _softplus(dt[:, 0].to(torch.float32) + lp["dt_bias"])   # (b, h)
     da = torch.exp(torch.clamp(dt1 * -torch.exp(lp["A_log"]), -EXP_CLAMP,
                                0.0))
     Bf, Cf = B.to(torch.float32), C.to(torch.float32)            # (b, n)

@@ -439,9 +439,9 @@ _JAX_TRAIN = """
     from repro.launch.steps import build_train_step
     from repro.models import model_api
     from repro.models.shardlib import spec_tree_to_shardings, use_rules
-    tmp, lr = sys.argv[1], float(sys.argv[2])
+    tmp, lr, arch = sys.argv[1], float(sys.argv[2]), sys.argv[3]
     mesh = make_test_mesh((2, 2), ("data", "model"))
-    cfg = get_config("phi4-mini-3.8b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     batch = dict(np.load(f"{tmp}/batch.npz"))
     b, s = batch["tokens"].shape
     ocfg = optim.AdamWConfig(lr=lr, warmup_steps=1, total_steps=5)
@@ -533,7 +533,7 @@ def mesh_train(tmp_path_factory):
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     torch.save({"params": params, "batch": tbatch, "lr": LR},
                tmp / "inputs.pt")
-    procs = [_spawn(_JAX_TRAIN, (tmp, LR), devices=4)]
+    procs = [_spawn(_JAX_TRAIN, (tmp, LR, TRAIN_ARCH), devices=4)]
     procs += _port_ranks(tmp, "train", 4)
     ocfg = optim.AdamWConfig(lr=LR, warmup_steps=1, total_steps=5)
     alone = {}
@@ -708,9 +708,12 @@ def test_serving_on_a_4_rank_mesh_matches_no_mesh(tmp_path):
     the steps cross the boundary), rwkv6's recurrence on (batch, head)
     blocks, seamless's cache and memory filled shard by shard.  Each GEMM
     sums over a whole K on every rank and each attention head runs whole,
-    so every step's logits are bit-equal to the unsharded step's (the same
-    tokens fed to both).  On ``ideal`` DTensor may split K and add bf16
-    partial sums: 1.75 % of max|logits| on rwkv6 smoke (ROADMAP C12)."""
+    and a GEMM row's bits do not depend on the rows beside it (the CPU's
+    route sums in float64, ROADMAP C13), so every step's logits are
+    bit-equal to the unsharded step's (the same tokens fed to both).  The
+    other families: ``test_torch_mesh_serve_families.py``.  On ``ideal``
+    DTensor may split K and add bf16 partial sums: 1.75 % of max|logits|
+    on rwkv6 smoke (ROADMAP C12)."""
     rng = np.random.default_rng(7)
     inputs, want = {}, {}
     for arch in SERVE_ARCHS:

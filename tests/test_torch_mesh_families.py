@@ -14,8 +14,9 @@
   that take each family's own mesh code are bit-equal to the unsharded
   ones: rwkv6's recurrence on (batch, head) blocks, zamba2's, seamless's
   prefill (its cache and memory filled shard by shard), grok's, llava's,
-  rwkv6's and zamba2's train steps (the MoE router row by row, the patch
-  prefix, the recurrences' backward passes on their blocks).
+  rwkv6's, zamba2's and seamless's train steps (the MoE router row by row,
+  the patch prefix, the recurrences' backward passes on their blocks, the
+  encoder's frames).
 """
 
 import contextlib
@@ -95,11 +96,16 @@ def _batch(cfg, b, s, seed=3):
         out["patch_embeds"] = torch.randn(
             (b, min(cfg.frontend_tokens, s // 2), cfg.d_model),
             generator=gen).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn(
+            (b, max(s // cfg.enc_frames_ratio, 1), cfg.d_model),
+            generator=gen).to(torch.bfloat16)
     return out
 
 
 @pytest.mark.parametrize("arch", ["grok-1-314b", "llava-next-mistral-7b",
-                                  "rwkv6-1.6b", "zamba2-2.7b"])
+                                  "rwkv6-1.6b", "zamba2-2.7b",
+                                  "seamless-m4t-medium"])
 def test_one_rank_mesh_train_step_of_the_other_families(arch):
     cfg = get_config(arch, smoke=True)
     api = model_api(cfg, device="cpu")
