@@ -30,7 +30,12 @@ equal to the CPU's replay), and the chaos campaign's four wire scenarios
 dispatch census (``repro_torch.analysis.census``): the six smoke configs'
 routed GEMMs, matrix products and kernel calls equal to the CPU's pins
 (``census_baseline_torch.json``), and the full-width phi4 prefill, decode step
-and ``ServeEngine`` step with their host synchronisations by site.  Then, for
+and ``ServeEngine`` step with their host synchronisations by site; then the
+port's examples through their ``run()`` (``repro_torch.examples``):
+quickstart beside a direct ``flow.run``, serve_batched, hwloop_serve
+(emulated and probe) and traffic_overload (``reference``: every model GEMM
+one ``systolic_mac`` launch) on the same phi4-mini weights, and train_lm at
+its full ~100M-parameter, 300-step size.  Then, for
 rwkv6-1.6b and
 zamba2-2.7b at their published width and depth: the same traffic served
 (every rwkv6 layer of every step on the ``wkv6`` kernel), the parallel forward
@@ -93,7 +98,8 @@ model
 ``serve_ssm``, ``decode_vs_parallel`` and ``loss`` (with a profile by CUDA
 kernel), per model of the other families ``serve_families`` and
 ``frontends``, ``census`` (the census phase's counts, sync sites and
-seconds), ``wkv6_bf16`` (its checks, the bf16 model run and seconds),
+seconds), ``examples`` (each example's checked results and seconds),
+``wkv6_bf16`` (its checks, the bf16 model run and seconds),
 ``train`` (per backend: losses, seconds a step, tokens/s, the
 optimizer's seconds on the stream (CUDA events; the timed steps add no host
 synchronisation to the trainer's), step 0's gradient norm, peak memory, B1 launches and
@@ -122,6 +128,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -299,6 +306,13 @@ DRYRUN_CELL = ("phi4-mini-3.8b", "train_4k")
 #: the full-width phi4 prefill it counts
 CENSUS_BASELINE = "census_baseline_torch.json"
 CENSUS_PROMPT = 16
+#: the examples phase: train_lm at the size its docstring calls the full
+#: run (d_model, layers, steps; batch and sequence its defaults), where its
+#: checkpoints go, and the seconds the phase is meant to take
+EXAMPLES_TRAIN_LM = dict(d_model=768, layers=12, steps=300, batch=4,
+                         seq=128)
+EXAMPLES_CHECKPOINT_DIR = ROOT / "build" / "chip_smoke" / "train_lm"
+EXAMPLES_BUDGET_S = 150.0
 #: the bf16 wkv6 against its plain bf16 version, y as a fraction of max|y|:
 #: one bf16 step (2^-7 of a value's leading power of two) of the largest
 #: output; the kernel's f32 sums behind a score or the intra-chunk output
@@ -3340,6 +3354,199 @@ def census_phase(torch, cfg, mods, params):
             "seconds": time.monotonic() - t0}
 
 
+@contextlib.contextmanager
+def recording_calls(cls, name, record):
+    """``cls.name`` calls ``record(self, *args)`` first while the block
+    runs."""
+    orig = getattr(cls, name)
+
+    def wrapped(self, *args, **kw):
+        record(self, *args)
+        return orig(self, *args, **kw)
+    setattr(cls, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def examples_phase(torch, cfg, params, systolic_mac, tflow, device=DEVICE):
+    """The port's examples (``repro_torch.examples``) through their
+    ``run()``: quickstart's flow and sweep; serve_batched, hwloop_serve
+    (emulated and probe) and traffic_overload (``reference``: every model
+    GEMM one ``systolic_mac`` launch) on phi4-mini-3.8b at full width on the
+    serve phase's weights; train_lm at its full ~100M-parameter size.
+    Returns B1's launches in traffic_overload and the phase's record."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.examples import (hwloop_serve, quickstart, serve_batched,
+                                      traffic_overload, train_lm)
+    from repro_torch.hwloop.device import EmulatedAccelerator
+    from repro_torch.roofline.analytic import forward_flops
+    t_phase = time.monotonic()
+    per_step = 7 * cfg.n_layers + 1
+    out = {}
+
+    # ---- quickstart: the flow, the timing report and the 2 x 2 sweep
+    t0 = time.monotonic()
+    q = quickstart.run()
+    direct = tflow.run(q.cfg)
+    runs, n_cfgs = q.result.timing_stage_runs(), len(q.result.configs)
+    if (runs, n_cfgs) != (2, 4):
+        fail(f"examples quickstart: the timing stage ran {runs}x for "
+             f"{n_cfgs} configs, expected 2x for 4")
+    for key in ("static_v", "runtime_v", "razor_trials", "baseline_mw",
+                "static_mw", "runtime_mw"):
+        if not np.array_equal(getattr(q.report, key), getattr(direct, key)):
+            fail(f"examples quickstart: {key} {getattr(q.report, key)} "
+                 f"beside {getattr(direct, key)} from flow.run")
+    out["quickstart"] = {
+        "stages": q.stages, "timing_stage_runs": runs, "configs": n_cfgs,
+        "static_v": q.report.static_v.tolist(),
+        "runtime_v": q.report.runtime_v.tolist(),
+        "razor_trials": q.report.razor_trials,
+        "mw": [q.report.baseline_mw, q.report.static_mw,
+               q.report.runtime_mw],
+        "equal_to_flow_run": True, "seconds": time.monotonic() - t0}
+
+    # ---- serve_batched: ideal serving and the power model of the session
+    t0 = time.monotonic()
+    sb = serve_batched.run(cfg, params, device=device)
+    stats = sb.stats
+    for r in sb.reqs:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                0 <= t < cfg.padded_vocab for t in r.out_tokens):
+            fail(f"examples serve_batched: request {r.uid} produced "
+                 f"{r.out_tokens}")
+    macs = forward_flops(cfg, ShapeConfig("serve", serve_batched.MAX_LEN, 1,
+                                          "decode")) / 2 * (
+        sum(len(r.prompt) for r in sb.reqs)
+        + serve_batched.SLOTS * stats.decode_steps)
+    if stats.completed != len(sb.reqs) or sb.macs != macs:
+        fail(f"examples serve_batched: {stats.completed} of {len(sb.reqs)} "
+             f"completed, {sb.macs} MACs beside the power model's {macs}")
+    if not 0 < sb.tuned < sb.base:
+        fail(f"examples serve_batched: {sb.tuned} J on the calibrated "
+             f"islands, {sb.base} J at nominal rails")
+    out["serve_batched"] = {
+        "arch": ARCH, "requests": len(sb.reqs),
+        "tokens_generated": stats.tokens_generated,
+        "prefill_steps": stats.prefill_steps,
+        "decode_steps": stats.decode_steps, "serve_s": sb.seconds,
+        "macs": sb.macs, "nominal_mj": 1e3 * sb.base,
+        "calibrated_mj": 1e3 * sb.tuned, "seconds": time.monotonic() - t0}
+
+    # ---- hwloop_serve: the undervolt healed on both backends
+    out["hwloop_serve"] = {}
+    for backend in hwloop_serve.BACKENDS:
+        t0 = time.monotonic()
+        shapes = []
+        with recording_calls(EmulatedAccelerator, "matmul",
+                             lambda self, a, w: shapes.append(
+                                 (a.shape[0], a.shape[1], w.shape[1]))):
+            h = hwloop_serve.run(cfg, params, backend, device=device)
+        calibrated, undervolted = h.batches
+        where = f"examples hwloop_serve {backend}"
+        if any(any(f) for f in calibrated.stats.hwloop_step_flags):
+            fail(f"{where}: the calibrated batch flagged "
+                 f"{calibrated.stats.hwloop_step_flags}")
+        if undervolted.stats.hwloop["recalibrations"] < 1:
+            fail(f"{where}: the undervolted batch made no recalibration")
+        if not h.healed_rails[0] > h.undervolt_v:
+            fail(f"{where}: healed rail 0 {h.healed_rails[0]} V, undervolt "
+                 f"{h.undervolt_v} V")
+        row = {"calibrated_rails": h.calibrated_rails.tolist(),
+               "v_safe": h.v_safe, "undervolt_v": h.undervolt_v,
+               "healed_rails": h.healed_rails.tolist(),
+               "batches": [{"tag": b.tag, "line": b.line,
+                            "tokens_generated": b.stats.tokens_generated,
+                            "model_steps": b.stats.model_steps,
+                            "hwloop": b.stats.hwloop} for b in h.batches]}
+        if backend == "emulated":
+            bt = undervolted.stats.backend_telemetry   # both batches'
+            steps = sum(b.stats.model_steps for b in h.batches)
+            mkn = sum(m * k * n for m, k, n in shapes)
+            if calibrated.stats.backend_telemetry["flags"] != 0:
+                fail(f"{where}: the calibrated batch raised "
+                     f"{calibrated.stats.backend_telemetry['flags']} flags")
+            if not bt["calls"] == len(shapes) == per_step * steps:
+                fail(f"{where}: {bt['calls']} backend GEMMs, {len(shapes)} "
+                     f"on the array, {per_step} x {steps} model steps")
+            if bt["macs"] != mkn:
+                fail(f"{where}: {bt['macs']} MACs, the GEMMs' M x K x N sum "
+                     f"to {mkn}")
+            row.update(gemms=bt["calls"], macs=bt["macs"], flags=bt["flags"],
+                       emulated_model_step_ms=None if not steps else
+                       1e3 * (time.monotonic() - t0) / steps)
+        row["seconds"] = time.monotonic() - t0
+        out["hwloop_serve"][backend] = row
+
+    # ---- traffic_overload on reference: counts set to 0 just before
+    t0 = time.monotonic()
+    systolic_mac.launches = 0
+    t = traffic_overload.run(cfg, params, "reference", device=device)
+    torch.cuda.synchronize()
+    launches = systolic_mac.launches
+    bt = t.backend_telemetry
+    if not t.drained:
+        fail("examples traffic_overload: the frontend did not drain")
+    for tier, split in t.by_tier.items():
+        n = sum(ev.priority.name == tier for ev in t.events)
+        if split["completed"] + split["shed"] != n:
+            fail(f"examples traffic_overload: tier {tier} {split} of {n} "
+                 f"events")
+    if not (launches == bt["calls"] > 0 and bt["flags"] == 0):
+        fail(f"examples traffic_overload: {launches} systolic_mac launches "
+             f"for {bt['calls']} backend GEMMs, {bt['flags']} flags")
+    out["traffic_overload"] = {
+        "arch": ARCH, "backend": "reference", "events": len(t.events),
+        "by_tier": t.by_tier, "drained": t.drained,
+        "ttft_p50_ms": t.p50_ms, "ttft_p99_ms": t.p99_ms,
+        "slo_met": t.slo_met, "slo": t.slo,
+        "shed_rate": t.health["shed_rate"],
+        "tokens_generated": t.health["tokens_generated"],
+        "wall_s": t.wall_s, "gemms": bt["calls"],
+        "systolic_mac_launches": launches, "flags": bt["flags"],
+        "seconds": time.monotonic() - t0}
+
+    # ---- train_lm at its full size; every checkpoint save counted
+    t0 = time.monotonic()
+    kw = EXAMPLES_TRAIN_LM
+    shutil.rmtree(EXAMPLES_CHECKPOINT_DIR, ignore_errors=True)
+    saves = []
+    held_gb = torch.cuda.memory_allocated() / 1e9     # phi4's weights
+    torch.cuda.reset_peak_memory_stats()
+    with recording_calls(CheckpointManager, "save",
+                         lambda self, step, *rest: saves.append(step)):
+        tl = train_lm.run(train_lm.lm_config(kw["d_model"], kw["layers"]),
+                          kw["steps"], kw["batch"], kw["seq"],
+                          str(EXAMPLES_CHECKPOINT_DIR), device=device)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = tl.res.losses
+    kept = CheckpointManager(EXAMPLES_CHECKPOINT_DIR).all_steps()
+    if not (tl.res.steps_done == kw["steps"] and losses[-1] < losses[0]):
+        fail(f"examples train_lm: {tl.res.steps_done} steps, loss "
+             f"{losses[0]} -> {losses[-1]}")
+    every = max(kw["steps"] // 4, 1)
+    want = list(range(every, kw["steps"] + 1, every))
+    if saves != want or kept != want[-len(kept):] or not kept:
+        fail(f"examples train_lm: checkpoints saved at {saves}, kept "
+             f"{kept}, expected saves at {want}")
+    out["train_lm"] = {
+        **kw, "n_params": tl.n_params, "loss_first": losses[0],
+        "loss_last": losses[-1], "steps_done": tl.res.steps_done,
+        "train_s": tl.res.wall_s, "step_s": tl.res.wall_s / kw["steps"],
+        "peak_device_memory_gb": peak_gb,
+        "device_memory_held_before_gb": held_gb, "checkpoints_saved": saves,
+        "checkpoints_kept": kept, "seconds": time.monotonic() - t0}
+    shutil.rmtree(EXAMPLES_CHECKPOINT_DIR, ignore_errors=True)
+
+    out["seconds"] = time.monotonic() - t_phase
+    out["budget_s"] = EXAMPLES_BUDGET_S
+    return launches, out
+
+
 def wkv6_bound_ms(b, s, h, p, chunk):
     """Least time for one wkv6 call: r, k, v, w read once, y written once,
     u read once, the state read and written once; per chunk and head the
@@ -5363,7 +5570,6 @@ def smoke_trainer(torch, mods, tmods):
     (starcoder2 smoke).  Then whether a step repeated from the same state
     gives the same bits, dense and MoE, on both backends: which leaves
     differ, if any."""
-    import shutil
     import tempfile
 
     from repro_torch.kernels.wkv6 import wkv6
@@ -6527,6 +6733,10 @@ def main() -> int:
     census = census_phase(torch, cfg, mods, params)
     emit("census", census)
     print(f"census: {census['seconds']:.1f} s", flush=True)
+    example_launches, examples = examples_phase(torch, cfg, params,
+                                                systolic_mac, tflow)
+    emit("examples", examples)
+    print(f"examples: {examples['seconds']:.1f} s ({smi})", flush=True)
     del params, ref_run, ref
     release(torch)
 
@@ -6687,7 +6897,8 @@ def main() -> int:
                                      "systolic_mac_launches"],
                                  "int8_moments": trained["int8_moments"][
                                      "systolic_mac_launches"]},
-                             "mesh": mesh_launches["systolic_mac"]},
+                             "mesh": mesh_launches["systolic_mac"],
+                             "examples": example_launches},
         "train_step": phi4_train,
         "train_step_by_arch": {
             arch: dict(train_entry(shapes, ssm_trained[arch], arch),

@@ -48,6 +48,11 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.kernels.razor_matmul",
                  "repro_torch.kernels.precision_island",
                  "repro_torch.examples.precision_islands",
+                 "repro_torch.examples.quickstart",
+                 "repro_torch.examples.serve_batched",
+                 "repro_torch.examples.hwloop_serve",
+                 "repro_torch.examples.traffic_overload",
+                 "repro_torch.examples.train_lm",
                  "repro_torch.kernels.wkv6", "repro_torch.kernels.ssd_chunk",
                  "repro_torch.models.ssm"):
         assert name in mods
