@@ -1,0 +1,8 @@
+"""The model's FLOPs of the window's work over its seconds at the bf16
+peak, in % (the train cells)."""
+
+from bench.harness import readers
+
+
+def read(rec):
+    return readers.mfu(rec, "train")
